@@ -6,15 +6,18 @@
 Phases (any failure exits non-zero before the last line is printed):
 
 1. Device and build: requires CUDA, prints the card's name and power limit,
-   turns TF32 off for every fp32 comparison, builds the three kernel
-   libraries from ``founddiff_tpu_torch/csrc`` (one nvcc per source, all
-   started together) and prints the build seconds.
+   turns TF32 off (for every fp32 comparison, and for the fp32 training of
+   phase 7), builds the five kernel libraries from
+   ``founddiff_tpu_torch/csrc`` (one nvcc per source, all started together)
+   and prints the build seconds.
 2. Kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at every distinct shape the 512^2 serving path gives it (bs1
-   and bs4), in fp32 and bf16, with the stated tolerance; prints the errors, the
-   kernel's and the plain version's times (CUDA events, warmed up, median
-   of 7) and the bound (the larger of bytes / 3.35 TB/s and operations /
-   peak rate).
+   the card, at every distinct shape its path gives it: the serving kernels
+   at bs1 and bs4, the scan kernels at the training batch (2 slices per
+   microbatch, so 8 direction sequences), in fp32 and bf16, with the stated
+   tolerance (the scan backward's seven gradients each); prints the errors,
+   the kernel's and the plain version's times (CUDA events, warmed up,
+   median of 7) and the bound (the larger of bytes / 3.35 TB/s and
+   operations / peak rate).
 3. Main path at full width: ``build(Config())`` on the card (dim 64 x
    (1, 2, 4, 8), full RN50 CLIPIQA tower, seeded random weights with
    non-zero adaLN and prompt), ``make_hoisted_sampler(...,
@@ -28,11 +31,31 @@ Phases (any failure exits non-zero before the last line is printed):
    >= 40 dB on the [0, 1] output window.
 5. Profile: one bs1 and one bs4 request under ``torch.profiler``; prints
    the wall time, the device's busy time and the device time by kernel.
+6. Autograd on the card: one MambaBlock on the image-scan route (256^2,
+   C 128) and one on the decimated-scan route (64^2, C 512), batch 2, fp32:
+   the gradient of a fixed scalar loss for every parameter and the input
+   through the kernel path (the Functions: kernel forwards, backwards
+   through the scan kernels) against the plain path (the plain versions
+   under autograd); per parameter ||g_kernel - g_plain|| / ||g_plain|| <=
+   1e-3.
+7. Training at full width: ``build(Config(), train=True)`` (seeded weights,
+   adaLN and prompt perturbed as in phase 3) and ``Trainer.train_step`` on
+   seeded synthetic (gt, ld) batches of 4 slices of 512^2 (2 x 2
+   microbatches), made on the CPU: 1 warm-up step and 3 timed steps in fp32,
+   then 2 in bf16.  Checks finite losses, a finite non-zero gradient for
+   every trainable parameter, the parameters moved, the EMA as its schedule
+   says (a copy at counter 0, untouched at counters 1-5), and the launches
+   per step (18 ``ss2d_image_block``, 12 ``attn_block``, 24
+   ``layer_norm_modulated``, 10 ``scan_image_forward``, 18 ``scan_forward``,
+   18 ``scan_backward``); prints the step time, slices/s, peak memory and
+   one profiled step.
 
-The line before the last is ``{"kernels": [...]}`` (per kernel: launches in
-phase 3, the worst error of phase 2, and the summed times of one bs1 bf16
-UNet forward's calls); the last is ``{"ok": true, "device": {...}}``.  A
-longer record goes to ``chiprun_out/chip_smoke.json``.
+The line before the last is ``{"kernels": [...]}`` (per kernel: launches on
+its path, phase 3 for the serving kernels and phase 7's timed steps for the
+scan kernels; the worst error of phase 2; and the summed times of one bs1
+bf16 UNet forward's calls, or of one fp32 train step's calls for the scan
+kernels); the last is ``{"ok": true, "device": {...}}``.  A longer record
+goes to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -85,7 +108,21 @@ SOURCES = {
                    "founddiff_tpu/ops/attn_block.py:104"),
     "layer_norm_modulated": ("founddiff_tpu_torch/csrc/ln_mod.cu",
                              "founddiff_tpu/ops/norm_pallas.py:123"),
+    "scan_forward": ("founddiff_tpu_torch/csrc/scan.cu",
+                     "founddiff_tpu/ops/scan_pallas.py:269"),
+    "scan_backward": ("founddiff_tpu_torch/csrc/scan.cu",
+                      "founddiff_tpu/ops/scan_pallas.py:415"),
+    "scan_image_forward": ("founddiff_tpu_torch/csrc/scan_image.cu",
+                           "founddiff_tpu/ops/scan_pallas.py:895"),
 }
+SERVING = ("ss2d_image_block", "attn_block", "layer_norm_modulated")
+SCANS = ("scan_forward", "scan_backward", "scan_image_forward")
+TRAIN_BATCH = 2  # slices per microbatch of Config().train
+# launches per train step (2 microbatches): the JAX routing, 5 image-scan and
+# 4 decimated-scan blocks in each SS2D backward
+PER_STEP = {"ss2d_image_block": 18, "attn_block": 12, "layer_norm_modulated": 24,
+            "scan_image_forward": 10, "scan_forward": 18, "scan_backward": 18}
+GRAD_REL_TOL = 1e-3
 
 
 def log(*a):
@@ -239,28 +276,136 @@ def kernel_cases(B):
     return cases
 
 
-def check_kernels(ops):
+def _dt_bias(gen, K, D, dev):
+    """The S4D dt-bias init of the factory (softplus^-1 of dt in [1e-3, 0.1])."""
+    dt = torch.exp(torch.rand((K, D), generator=gen) * (math.log(0.1) - math.log(1e-3))
+                   + math.log(1e-3)).clamp_min(1e-4)
+    return (dt + torch.log(-torch.expm1(-dt))).to(dev)
+
+
+def _scan_operands(H, C, N, dtype, gen, dev):
+    """The decimated scan's operands of one block at the training batch:
+    u is a post-silu activation, delta/B/C projections of it."""
+    D, L = 2 * C, (H // 2) ** 2
+    R = -(-C // 16)
+    u = torch.nn.functional.silu(_n(gen, (TRAIN_BATCH, 4, L, D), 1.0, dev))
+    delta = _n(gen, (TRAIN_BATCH, 4, L, D), R ** -0.5, dev)
+    Bm, Cm = (_n(gen, (TRAIN_BATCH, 4, L, N), 0.5, dev) for _ in range(2))
+    A = -torch.arange(1, N + 1, dtype=torch.float32).expand(4, D, N).contiguous().to(dev)
+    return (u.to(dtype), delta.to(dtype), A, Bm.to(dtype), Cm.to(dtype),
+            torch.ones(4, D, device=dev), _dt_bias(gen, 4, D, dev))
+
+
+def scan_fwd_case(H, C, N, dtype, gen, dev):
+    from founddiff_tpu_torch.ops.scan import scan_chunk
+
+    args = _scan_operands(H, C, N, dtype, gen, dev)
+    u, _, _, Bm = args[:4]
+    G, L, D = TRAIN_BATCH * 4, u.shape[2], u.shape[3]
+    hb_bytes = 4 * G * -(-L // scan_chunk(N)) * N * D
+    # u, delta, B, C in, y out at the io dtype; A, Dskip, bias in and
+    # h_bounds out in fp32; per step per channel about 6N + 5 fp32 operations
+    moved = nbytes(*args) + nbytes(u) + hb_bytes
+    return args, {}, None, moved, [(G * L * D * (6 * N + 5), FP32_FLOPS)]
+
+
+def scan_bwd_case(H, C, N, dtype, gen, dev):
+    from founddiff_tpu_torch.ops.scan import scan_chunk, scan_forward_plain
+
+    fwd = _scan_operands(H, C, N, dtype, gen, dev)
+    _, hb = scan_forward_plain(*fwd, scan_chunk(N))
+    dy = _n(gen, fwd[0].shape, 1.0, dev).to(dtype)
+    u, A = fwd[0], fwd[2]
+    G, L, D = TRAIN_BATCH * 4, u.shape[2], u.shape[3]
+    # the forward's inputs, h_bounds and dy in; gu, gdelta, gB, gC at the io
+    # dtype and gA, gD, gbias in fp32 out.  Operations: the adjoint and the
+    # gradient terms, about 12N + 10 per step per channel (the replay of the
+    # states from h_bounds is not counted)
+    moved = nbytes(*fwd, hb, dy) + nbytes(u, u, fwd[3], fwd[4], A, fwd[5], fwd[6])
+    return (*fwd, hb, dy), {}, None, moved, [(G * L * D * (12 * N + 10), FP32_FLOPS)]
+
+
+def scan_image_case(H, C, N, dtype, gen, dev):
+    D, R = 2 * C, -(-C // 16)
+    P = TRAIN_BATCH * H * H
+    x = torch.nn.functional.silu(_n(gen, (TRAIN_BATCH, H, H, D), 1.0, dev)).to(dtype)
+    xw = _u(gen, (4, R + 2 * N, D), D ** -0.5, dev)
+    dtw = _u(gen, (4, D, R), R ** -0.5, dev)
+    w_delta = torch.einsum("krd,ker->kde", xw[:, :R], dtw).to(dtype)
+    w_b = xw[:, R:R + N].transpose(1, 2).contiguous().to(dtype)
+    w_c = xw[:, R + N:].transpose(1, 2).contiguous().to(dtype)
+    A = -torch.arange(1, N + 1, dtype=torch.float32).expand(4, D, N).contiguous().to(dev)
+    args = (x, w_delta, w_b, w_c, A, torch.ones(4, D, device=dev), _dt_bias(gen, 4, D, dev))
+    # x in and ys out at the io dtype, the folded weights at the io dtype;
+    # delta through its rank-R factors (x_proj rows, then dt_projs), B and C,
+    # per pixel (each pixel is one step of one direction), on the tensor
+    # cores in bf16 and the CUDA cores in fp32; the scan in fp32
+    moved = nbytes(*args) + nbytes(x)
+    mm = 2 * P * (2 * D * R + 2 * N * D)
+    return args, {}, None, moved, [(mm, PEAK_FLOPS[dtype]), (P * D * (6 * N + 5), FP32_FLOPS)]
+
+
+def train_cases():
+    """(kernel, label, calls per train step, case builder) of the scan kernels
+    at every distinct shape of the 512^2 training path."""
+    from founddiff_tpu_torch.ops.scan import image_scan_vmem_ok
+
+    dec, img = {}, {}
+    for H, C, N in BLOCKS.values():
+        dec[(H, C, N)] = dec.get((H, C, N), 0) + 2
+        if image_scan_vmem_ok(H, H, 2 * C, N):
+            img[(H, C, N)] = img.get((H, C, N), 0) + 2
+    cases = []
+    for (H, C, N), n in dec.items():
+        label = f"B{TRAIN_BATCH}x4 L={(H // 2) ** 2} D={2 * C} N={N}"
+        cases.append(("scan_forward", label, n,
+                      lambda dt, g, d, H=H, C=C, N=N: scan_fwd_case(H, C, N, dt, g, d)))
+        cases.append(("scan_backward", label, n,
+                      lambda dt, g, d, H=H, C=C, N=N: scan_bwd_case(H, C, N, dt, g, d)))
+    for (H, C, N), n in img.items():
+        cases.append(("scan_image_forward", f"B{TRAIN_BATCH} {H}^2 D={2 * C} N={N}", n,
+                      lambda dt, g, d, H=H, C=C, N=N: scan_image_case(H, C, N, dt, g, d)))
+    return cases
+
+
+def compare(got, want, base, dtype):
+    """Per element |got - want| <= atol + rtol * max|want - base| + ulp, by
+    each output's own dtype.  Returns (max error, worst error past one ulp,
+    computed-part max, tolerance, ok) over every output of a tuple."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = excess = scale_all = tol_all = 0.0
+    ok = True
+    for g, w in zip(got, want):
+        dt = g.dtype
+        g, w = g.float(), w.float()
+        diff = (g - w).abs()
+        computed = w if base is None else w - base.float()
+        scale = computed.abs().max().item()
+        out_ulp = ulp(torch.maximum(g.abs(), w.abs()), dt)
+        atol, rtol = TOL[dt]
+        tol = atol + rtol * scale
+        ex = (diff - out_ulp).clamp_min(0).max().item()
+        ok = ok and bool(torch.isfinite(g).all()) and ex <= tol
+        if ex / tol >= excess / max(tol_all, 1e-30):
+            excess, tol_all, scale_all = ex, tol, scale
+        err = max(err, diff.max().item())
+    return err, excess, scale_all, tol_all, ok
+
+
+def check_kernels(ops, cases):
+    """``cases``: (batch, kernel, label, calls per forward or step, builder)."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1234)
     rows, failed = [], []
-    for batch, kname, label, count, make in [(b, *c) for b in (1, 4) for c in kernel_cases(b)]:
+    for batch, kname, label, count, make in cases:
         kernel, plain = ops[kname]
         for dtype in (torch.float32, torch.bfloat16):
             args, kw, base, moved, work = make(dtype, gen, dev)
-            got = kernel(*args, **kw).float()
-            want = plain(*args, **kw).float()
+            got = kernel(*args, **kw)
+            want = plain(*args, **kw)
             torch.cuda.synchronize()
-            diff = (got - want).abs()
-            computed = want if base is None else want - base.float()
-            scale = computed.abs().max().item()
-            out_ulp = ulp(torch.maximum(got.abs(), want.abs()), dtype)
-            atol, rtol = TOL[dtype]
-            tol = atol + rtol * scale
-            err = diff.max().item()
-            # the worst error beyond the output's own rounding
-            excess = (diff - out_ulp).clamp_min(0).max().item()
-            finite = bool(torch.isfinite(got).all())
-            ok = finite and excess <= tol
+            err, excess, scale, tol, ok = compare(got, want, base, dtype)
             ms = cuda_ms(lambda: kernel(*args, **kw))
             pms = cuda_ms(lambda: plain(*args, **kw))
             bms, t_bytes, t_ops = bound_ms(moved, work)
@@ -268,8 +413,8 @@ def check_kernels(ops):
             row = dict(kernel=kname, shape=label, batch=batch,
                        dtype=str(dtype).replace("torch.", ""),
                        per_forward=count, max_abs_err=err, err_past_ulp=excess,
-                       max_abs_computed=scale, tol=tol, ok=ok, ms=ms, plain_ms=pms, bound_ms=bms, bytes_ms=t_bytes,
-                       ops_ms=t_ops, bound_by=by)
+                       max_abs_computed=scale, tol=tol, ok=ok, ms=ms, plain_ms=pms,
+                       bound_ms=bms, bytes_ms=t_bytes, ops_ms=t_ops, bound_by=by)
             rows.append(row)
             log(f"[kernel] {kname:21s} {label:32s} {row['dtype']:8s} err {err:.3e}, "
                 f"past 1 ulp {excess:.3e} (tol {tol:.3e}, computed part max {scale:.3e}) "
@@ -278,7 +423,7 @@ def check_kernels(ops):
             if not ok:
                 failed.append(f"{kname} {label} {row['dtype']}")
             del args, got, want
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return rows, failed
 
 
@@ -301,14 +446,15 @@ def perturb_gates(model, seed: int) -> None:
             t.copy_(torch.from_numpy(rng.standard_normal(tuple(t.shape)) * 0.02))
 
 
-def profile_request(request, x, top: int = 25):
-    """Device time by kernel name over one request, and the device's busy
-    share of the request's wall time (kernels run on one stream)."""
+def profile_device(run, tag: str, top: int = 25):
+    """Device time by kernel name over one call of ``run``, and the device's
+    busy share of its wall time (kernels run on one stream)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        request(x, 9)
+        run()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -321,7 +467,6 @@ def profile_request(request, x, top: int = 25):
                  "other PyTorch kernels")
         calls, ms = groups.get(g, (0, 0.0))
         groups[g] = (calls + r["calls"], ms + r["ms"])
-    tag = f"bs{x.shape[0]}"
     log(f"[profile {tag}] wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%), {sum(r['calls'] for r in rows)} kernel launches")
     for g, (calls, ms) in groups.items():
@@ -329,6 +474,159 @@ def profile_request(request, x, top: int = 25):
     for r in rows[:top]:
         log(f"[profile {tag}] {r['ms']:9.3f} ms {r['calls']:6d}x  {r['name']}")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, groups=groups, kernels=rows)
+
+
+def check_autograd(ss2d_model, ss2d_mod, attn_mod, norm_mod, wrappers):
+    """Phase 6: d(sum(out * w))/d(x, every parameter) of one MambaBlock on
+    each scan route (256^2 C 128 on the image scan, 64^2 C 512 on the
+    decimated scan), batch 2, fp32, through the kernel path and through the
+    plain path (the three wrappers swapped for their plain versions, which
+    autograd differentiates directly)."""
+    from founddiff_tpu_torch.factory import init_params
+    from founddiff_tpu_torch.models.ss2d import MambaBlock
+
+    dev = torch.device("cuda")
+    plain = {"ss2d_image_block": ss2d_mod.ss2d_image_block_plain,
+             "attn_block": attn_mod.attn_block_plain,
+             "layer_norm_modulated": norm_mod.layer_norm_modulated_plain}
+    result, failed = {}, []
+    for H, C, N in ((256, 128, 8), (64, 512, 32)):
+        gen = torch.Generator().manual_seed(H + C)
+        block = MambaBlock(C, N, time_dim=256)
+        init_params(block, gen)
+        with torch.no_grad():  # live adaLN gates, as in phase 3
+            for p in (block.adaLN_modulation[1].weight, block.adaLN_modulation[1].bias):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+        block = block.to(dev).requires_grad_(True)
+        x, w = _n(gen, (2, H, H, C), 1.0, dev), _n(gen, (2, H, H, C), 1.0, dev)
+        c, t = _n(gen, (2, 1, 256), 1.0, dev), _n(gen, (2, 256), 1.0, dev)
+        names = ["x"] + [n for n, _ in block.named_parameters()]
+
+        def grads():
+            xi = x.clone().requires_grad_(True)
+            loss = (block(xi, c, t) * w).sum()
+            return torch.autograd.grad(loss, [xi] + list(block.parameters()))
+
+        for fn in wrappers.values():
+            fn.launches = 0
+        g_kernel = grads()
+        used = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+        saved = {n: getattr(ss2d_model, n) for n in plain}
+        try:
+            for n, fn in plain.items():
+                setattr(ss2d_model, n, fn)
+            g_plain = grads()
+        finally:
+            for n, fn in saved.items():
+                setattr(ss2d_model, n, fn)
+        rel = {}
+        for n, a, b in zip(names, g_kernel, g_plain):
+            finite = bool(torch.isfinite(a).all())
+            rel[n] = ((a - b).norm() / b.norm().clamp_min(1e-30)).item() if finite else math.inf
+        worst = max(rel, key=rel.get)
+        tag = f"{H}^2 C={C} N={N}"
+        log(f"[autograd] MambaBlock {tag}: {len(rel)} gradients, worst relative error "
+            f"{rel[worst]:.3e} ({worst}), gate {GRAD_REL_TOL}; kernel launches {used}")
+        failed += [f"{tag} {n}" for n, r in rel.items() if not r <= GRAD_REL_TOL]
+        result[tag] = dict(worst=rel[worst], worst_name=worst, launches=used, rel=rel)
+        del block, g_kernel, g_plain
+    if failed:
+        raise AssertionError(f"autograd: kernel path disagrees with the plain path: {failed}")
+    return result
+
+
+def train_full_width(wrappers, card):
+    """Phase 7: ``Trainer.train_step`` at ``Config()`` on the card."""
+    from founddiff_tpu_torch.config import Config
+    from founddiff_tpu_torch.factory import build
+    from founddiff_tpu_torch.train.trainer import Trainer
+
+    cfg = Config()
+    cfg.train.checkpoint_folder = os.path.join(REPO, "chiprun_out", "train")
+    diffusion, model = build(cfg, device="cuda", seed=0, train=True)
+    perturb_gates(model, seed=0)
+    trainer = Trainer(diffusion, model, cfg)
+    B = cfg.train.train_batch_size * cfg.train.gradient_accumulate_every
+    S = cfg.diffusion.image_size
+    gen = torch.Generator().manual_seed(0)
+
+    def batch():  # synthetic seeded (gt, ld) slices in [0, 1]; no dataset is in the repo
+        gt = torch.rand((B, S, S, 1), generator=gen)
+        return gt, (gt + 0.1 * torch.randn((B, S, S, 1), generator=gen)).clamp(0, 1)
+
+    trainable = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    nonzero, bad = set(), set()
+
+    def look_at_grads():
+        for n, p in trainable:
+            if p.grad is None:
+                continue
+            if not bool(torch.isfinite(p.grad).all()):
+                bad.add(n)
+            elif float(p.grad.abs().max()) > 0:
+                nonzero.add(n)
+
+    def run(mp, b, counts, check=True):
+        cfg.train.mixed_precision = mp
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        losses = trainer.train_step(b)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        for k, fn in wrappers.items():
+            counts.setdefault(k, []).append(fn.launches)
+        if check:
+            look_at_grads()
+        return losses, dt
+
+    warm, _ = run("no", batch(), {})  # EMA counter 0: a copy
+    after_one = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    counts, losses, t_fp32, t_bf16 = {}, [warm], [], []
+    for _ in range(3):
+        loss, dt = run("no", batch(), counts)
+        losses.append(loss)
+        t_fp32.append(dt)
+    launches = {k: sum(v) for k, v in counts.items()}  # the main path's timed steps
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    b = batch()
+    prof = profile_device(lambda: run("no", b, {}, check=False), "train step fp32")
+    for _ in range(2):
+        loss, dt = run("bf16", batch(), counts)
+        losses.append(loss)
+        t_bf16.append(dt)
+    for k, n in PER_STEP.items():
+        if any(c != n for c in counts[k]):
+            raise AssertionError(f"{k}: launches per train step {counts[k]}, want {n}")
+    if not all(math.isfinite(v) for l in losses for v in l):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    missing = sorted({n for n, _ in trainable} - nonzero)
+    if bad or missing:
+        raise AssertionError(f"gradients: non-finite {sorted(bad)}, never non-zero {missing}")
+    ema = dict(trainer.ema.named_parameters())
+    for n, p in model.named_parameters():
+        if not torch.equal(ema[n], after_one[n]):
+            raise AssertionError(f"EMA {n} changed at counters 1-{trainer.ema_step - 1}")
+        if p.requires_grad == torch.equal(p.detach(), after_one[n]):
+            raise AssertionError(f"{n}: trainable {p.requires_grad}, moved "
+                                 f"{not torch.equal(p.detach(), after_one[n])}")
+    step_s = statistics.median(t_fp32)
+    step_bf16 = t_bf16[-1]  # the first bf16 step also runs the first bf16 convolutions
+    log(f"[train] Config() {S}^2, {B} slices per step ({cfg.train.train_batch_size} x "
+        f"{cfg.train.gradient_accumulate_every}): losses {[round(l[0], 6) for l in losses]}")
+    log(f"[train] fp32 step {step_s:.4f} s (median of {len(t_fp32)}: "
+        f"{[round(t, 4) for t in t_fp32]}), {B / step_s:.3f} slices/s; bf16 step "
+        f"{step_bf16:.4f} s (the last of {[round(t, 4) for t in t_bf16]}), "
+        f"{B / step_bf16:.3f} slices/s; "
+        f"peak memory {peak_gib:.2f} GiB over the fp32 steps [{card}]")
+    log(f"[train] launches per step {dict((k, v[0]) for k, v in counts.items())}; "
+        f"{len(nonzero)} of {len(trainable)} trainable parameters with a non-zero gradient; "
+        f"EMA a copy of step 1 at counter {trainer.ema_step}")
+    return dict(step_s=t_fp32, step_bf16_s=t_bf16, slices_per_s=B / step_s,
+                slices_per_s_bf16=B / step_bf16, peak_memory_gib=peak_gib, losses=losses,
+                launches=launches, per_step=counts, profile=prof, size=S, batch=B)
 
 
 def psnr(a, b) -> float:
@@ -344,6 +642,7 @@ def main() -> int:
     from founddiff_tpu_torch.ops import _build
     from founddiff_tpu_torch.ops import attn_block as attn_mod
     from founddiff_tpu_torch.ops import norm as norm_mod
+    from founddiff_tpu_torch.ops import scan as scan_mod
     from founddiff_tpu_torch.ops import ss2d_block as ss2d_mod
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -371,11 +670,19 @@ def main() -> int:
         "attn_block": (attn_mod.attn_block, attn_mod.attn_block_plain),
         "layer_norm_modulated": (norm_mod.layer_norm_modulated,
                                  norm_mod.layer_norm_modulated_plain),
+        "scan_forward": (scan_mod.scan_forward, lambda *a: scan_mod.scan_forward_plain(
+            *a, scan_mod.scan_chunk(a[2].shape[-1]))),
+        "scan_backward": (scan_mod.scan_backward, lambda *a: scan_mod.scan_backward_plain(
+            *a, scan_mod.scan_chunk(a[2].shape[-1]))),
+        "scan_image_forward": (scan_mod.scan_image_forward,
+                               scan_mod.scan_image_forward_plain),
     }
     wrappers = {k: v[0] for k, v in ops.items()}
 
     # phase 2: kernels against their plain versions
-    rows, failed = check_kernels(ops)
+    cases = [(b, *c) for b in (1, 4) for c in kernel_cases(b)]
+    cases += [(TRAIN_BATCH, *c) for c in train_cases()]
+    rows, failed = check_kernels(ops, cases)
     record = dict(card=card, build_seconds=built["seconds"], ptxas=built["logs"],
                   kernel_cases=rows)
     if failed:
@@ -423,6 +730,9 @@ def main() -> int:
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     forwards = (4 + 2) * steps
     per_forward = {"ss2d_image_block": 9, "attn_block": 6, "layer_norm_modulated": 12}
+    for k in SCANS:
+        if launches[k]:
+            raise AssertionError(f"{k} launched {launches[k]} times while serving")
     for k, n in per_forward.items():
         if launches[k] != n * forwards:
             raise AssertionError(f"{k}: {launches[k]} launches in {forwards} UNet forwards, "
@@ -466,15 +776,26 @@ def main() -> int:
         raise AssertionError(f"numerics gate failed: {gate_db:.2f} dB")
 
     # phase 5: where the device time of one request goes
-    record["profile"] = {f"bs{len(x)}": profile_request(request, x) for x in (x_all[:1], x_all)}
+    record["profile"] = {f"bs{len(x)}": profile_device(lambda: request(x, 9), f"bs{len(x)}")
+                         for x in (x_all[:1], x_all)}
+
+    # phase 6: autograd through the kernels against the plain path
+    record["autograd"] = check_autograd(ss2d_model, ss2d_mod, attn_mod, norm_mod, wrappers)
+    # phase 7: training at full width
+    record["train"] = train_full_width(wrappers, card)
 
     kernels = []
     for k, (src, tpu) in SOURCES.items():
         mine = [r for r in rows if r["kernel"] == k]
-        main_bf16 = [r for r in mine if r["dtype"] == "bfloat16" and r["batch"] == 1]
-        total = lambda key: sum(r[key] * r["per_forward"] for r in main_bf16)
+        if k in SERVING:  # one bs1 bf16 UNet forward
+            main_rows = [r for r in mine if r["dtype"] == "bfloat16" and r["batch"] == 1]
+            n = launches[k]
+        else:  # one fp32 train step
+            main_rows = [r for r in mine if r["dtype"] == "float32"]
+            n = record["train"]["launches"][k]
+        total = lambda key: sum(r[key] * r["per_forward"] for r in main_rows)
         kernels.append(dict(
-            name=k, route="cuda", source=src, replaces=tpu, launches=launches[k],
+            name=k, route="cuda", source=src, replaces=tpu, launches=n,
             max_abs_err=max(r["max_abs_err"] for r in mine), ms=total("ms"),
             plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
             bound_by="bytes" if total("bytes_ms") >= total("ops_ms") else "operations",

@@ -1,7 +1,8 @@
-"""Config tree of the serving path (mirror of ``founddiff_tpu/config.py``).
+"""Config tree of the serving and training paths (mirror of
+``founddiff_tpu/config.py``).
 
-Only the fields the hoisted DDIM path reads; defaults are the reference's
-shipped values (train.py:39-119).
+Only the fields those paths read; defaults are the reference's shipped
+values (train.py:39-119).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ class DiffusionConfig:
     image_size: int = 512  # train.py:73
     timesteps: int = 1000  # train.py:109
     sampling_timesteps: int = 2  # train.py:39
+    loss_type: str = "l2"  # train.py:112
     sum_scale: float = 0.01  # train.py:71
     ddim_sampling_eta: float = 0.0
     # 'use_pred_noise' (shipped) | 'use_x_start' (reference src/DADiff.py:1343-1349)
@@ -42,7 +44,19 @@ class DiffusionConfig:
 
 @dataclasses.dataclass
 class TrainConfig:
+    train_num_steps: int = 200000  # train.py:41
+    train_batch_size: int = 2  # train.py:43
+    gradient_accumulate_every: int = 2  # train.py:139
+    train_lr: float = 2e-4  # train.py:137
+    adam_betas: Tuple[float, float] = (0.9, 0.99)  # src/DADiff.py:1596-1597
+    max_grad_norm: float = 1.0  # src/DADiff.py:1707
+    ema_decay: float = 0.995  # train.py:140
+    ema_update_every: int = 10
+    save_and_sample_every: int = 1000  # train.py:53
     seed: int = 10  # train.py:27
+    mixed_precision: str = "no"  # 'no' | 'bf16' (reference runs fp32)
+    checkpoint_folder: str = "checkpoints/FoundDiff"
+    keep_checkpoints: int = 3  # older milestone files are pruned (0 = keep all)
 
 
 @dataclasses.dataclass
@@ -57,5 +71,7 @@ def debug_config() -> Config:
     """Tiny-cadence config analogous to the reference's ``debug=True`` branch
     (train.py:48-57)."""
     cfg = Config()
+    cfg.train.save_and_sample_every = 2
     cfg.diffusion.sampling_timesteps = 10
+    cfg.train.train_num_steps = 200
     return cfg

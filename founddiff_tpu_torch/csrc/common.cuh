@@ -30,6 +30,10 @@ template <typename T> __device__ __forceinline__ float round_io(float v) {
   return to_f<T>(from_f<T>(v));
 }
 
+__device__ __forceinline__ float softplus(float v) {
+  return fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

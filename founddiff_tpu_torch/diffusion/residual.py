@@ -1,9 +1,11 @@
-"""Residual diffusion (RDDM-style) DDIM sampler in PyTorch.
+"""Residual diffusion (RDDM-style) process in PyTorch.
 
 Mirror of ``founddiff_tpu/diffusion/residual.py`` (reference
-src/DADiff.py:908-1498) restricted to serving: ``model_predictions`` with
-all four objectives and ``ddim_sample`` with both update rules.  The JAX
-``lax.scan`` over static time pairs is a Python loop here.
+src/DADiff.py:908-1498): ``model_predictions`` with all four objectives,
+``ddim_sample`` with both update rules, and the training loss
+(``q_sample``, ``p_losses``, ``loss``).  The JAX ``lax.scan`` over static
+time pairs is a Python loop here; ``jax.random`` keys become explicit
+``torch.Generator``s, and ``t`` and the noise can be handed in instead.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ class ResidualDiffusion:
         channels: int = 1,
         timesteps: int = 1000,
         sampling_timesteps: Optional[int] = None,
+        loss_type: str = "l1",
         objective: str = "pred_res_noise",
         ddim_sampling_eta: float = 0.0,
         condition: bool = False,
@@ -59,6 +62,8 @@ class ResidualDiffusion:
         clip_denoised: bool = True,
         ddim_update: str = "use_pred_noise",
         convert_to_ddim: bool = True,
+        aux_grad_loss_weight: float = 0.0,
+        aux_wavelet_loss_weight: float = 0.0,
     ):
         if ddim_update not in ("use_pred_noise", "use_x_start"):
             raise ValueError(f"unknown ddim_update {ddim_update!r}")
@@ -72,6 +77,10 @@ class ResidualDiffusion:
         self.self_condition = self_condition
         self.clip_denoised = clip_denoised
         self.ddim_update = ddim_update
+        self.loss_type = loss_type
+        if aux_grad_loss_weight > 0.0 or aux_wavelet_loss_weight > 0.0:
+            raise NotImplementedError("the auxiliary Sobel and wavelet losses "
+                                      "(founddiff_tpu/ops/losses.py) are not ported")
         if condition:
             self.sum_scale = sum_scale if sum_scale is not None else 0.01
             ddim_sampling_eta = 0.0
@@ -90,6 +99,11 @@ class ResidualDiffusion:
         self.test_schedule = make_residual_schedule(timesteps, test=True, **common)
 
     # closed-form predictions (src/DADiff.py:1121-1151)
+
+    def q_sample(self, sch, x_start, x_res, t, noise):
+        nd = x_start.ndim
+        return (x_start + extract(sch.alphas_cumsum, t, nd) * x_res
+                + extract(sch.betas_cumsum, t, nd) * noise)
 
     def predict_noise_from_res(self, sch, x_t, t, x_input, pred_res):
         nd = x_t.ndim
@@ -230,3 +244,67 @@ class ResidualDiffusion:
         else:
             out = [img] if last else imgs
         return [unnormalize_to_zero_to_one(o) for o in out]
+
+    # training loss (src/DADiff.py:1382-1498)
+
+    def _loss(self, pred, target):
+        if self.loss_type == "l1":
+            err = (pred - target).abs()
+        elif self.loss_type == "l2":
+            err = (pred - target).square()
+        else:
+            raise ValueError(f"invalid loss type {self.loss_type!r}")
+        return err.mean()
+
+    def p_losses(self, imgs, t, noise: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None,
+                 self_cond_flag: Optional[bool] = None):
+        """Per-UNet losses at timesteps ``t`` [B] for ``imgs`` in [-1, 1]
+        (``[gt, input(, input_condition)]`` or one image).  ``noise`` and the
+        self-conditioning coin ``self_cond_flag`` are drawn from
+        ``generator`` on the CPU when not given."""
+        if isinstance(imgs, (list, tuple)):
+            x_input_condition = imgs[2] if self.input_condition else None
+            x_input, x_start = imgs[1], imgs[0]
+        else:
+            x_input, x_start, x_input_condition = 0.0, imgs, None
+        device = x_start.device
+        sch = self.train_schedule.to(device)
+        if noise is None:
+            noise = torch.randn(tuple(x_start.shape), generator=generator)
+        noise = noise.to(device=device, dtype=x_start.dtype)
+        x_res = x_input - x_start
+        x = self.q_sample(sch, x_start, x_res, t, noise)
+        x_self_cond = None
+        if self.self_condition:
+            # half of the time, condition on a detached x_start estimate
+            # (src/DADiff.py:1423-1432)
+            with torch.no_grad():
+                pred = self.model_predictions(sch, x_input, x, t, x_input_condition).pred_x_start
+            if self_cond_flag is None:
+                self_cond_flag = bool(torch.rand((), generator=generator) < 0.5)
+            x_self_cond = pred if self_cond_flag else torch.zeros_like(pred)
+        x_in = self._model_input(x, x_input, x_input_condition)
+        time_pair = [sch.alphas_cumsum[t] * self.num_timesteps,
+                     sch.betas_cumsum[t] * self.num_timesteps]
+        model_out = self.model_fn(x_in, time_pair, x_self_cond)
+        target = {"pred_res_noise": [x_res, noise], "pred_x0_noise": [x_start, noise],
+                  "pred_noise": [noise], "pred_res": [x_res]}.get(self.objective)
+        if target is None:
+            raise ValueError(f"unknown objective {self.objective!r}")
+        return [self._loss(model_out[i], target[i]) for i in range(len(model_out))]
+
+    def loss(self, imgs, t: Optional[torch.Tensor] = None,
+             noise: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None):
+        """Per-UNet loss list for ``imgs`` in [0, 1] (src/DADiff.py:1484-1498):
+        ``t`` is drawn uniformly from ``generator`` when not given."""
+        first = imgs[0] if isinstance(imgs, (list, tuple)) else imgs
+        if t is None:
+            t = torch.randint(0, self.num_timesteps, (first.shape[0],), generator=generator)
+        t = t.to(first.device)
+        if isinstance(imgs, (list, tuple)):
+            imgs = [normalize_to_neg_one_to_one(x) for x in imgs]
+        else:
+            imgs = normalize_to_neg_one_to_one(imgs)
+        return self.p_losses(imgs, t, noise, generator)

@@ -1,5 +1,6 @@
-"""Build the serving path from a Config (mirror of ``founddiff_tpu/factory.py``
-restricted to the FoundDiff path: CLIPIQA tower + UnetRes + ResidualDiffusion).
+"""Build the serving and training paths from a Config (mirror of
+``founddiff_tpu/factory.py`` restricted to the FoundDiff path: CLIPIQA tower
++ UnetRes + ResidualDiffusion).
 
 Weights are drawn on the CPU from an explicit ``torch.Generator`` with the
 reference's init distributions (torch-default uniform for Linear/Conv, S4D
@@ -96,9 +97,13 @@ def build_denoiser(config: Config, clip_overrides=()) -> FoundDiffDenoiser:
 
 
 def build(config: Config, device="cuda", seed: Optional[int] = None,
-          clip_overrides=()) -> Tuple[ResidualDiffusion, FoundDiffDenoiser]:
+          clip_overrides=(), train: bool = False) -> Tuple[ResidualDiffusion, FoundDiffDenoiser]:
     """Returns ``(diffusion, model)`` with seeded weights on ``device``.
 
+    ``train=False`` gives the frozen serving model.  ``train=True`` gives the
+    model in train mode with the UNets' parameters trainable and the
+    Dose-CLIP tower frozen: its forward already runs under ``no_grad``, as the
+    JAX model stops its gradient (models/founddiff.py:82-88).
     The device defaults to the card; asking for CUDA on a host without one
     raises rather than running on the CPU.
     """
@@ -110,14 +115,15 @@ def build(config: Config, device="cuda", seed: Optional[int] = None,
     model = build_denoiser(config, clip_overrides)
     gen = torch.Generator().manual_seed(config.train.seed if seed is None else seed)
     init_params(model, gen)
-    model = model.eval().requires_grad_(False).to(device)
+    model = model.train(train).requires_grad_(train).to(device)
+    model.dose_encoder.eval().requires_grad_(False)
 
     def model_fn(x_in, time, x_self_cond=None):
         return model(x_in, time, x_self_cond=x_self_cond)
 
     diffusion = ResidualDiffusion(
         model_fn, image_size=d.image_size, channels=m.channels, timesteps=d.timesteps,
-        sampling_timesteps=d.sampling_timesteps, objective=m.objective,
+        sampling_timesteps=d.sampling_timesteps, loss_type=d.loss_type, objective=m.objective,
         condition=m.condition, sum_scale=d.sum_scale, input_condition=m.input_condition,
         test_res_or_noise=m.test_res_or_noise, self_condition=m.self_condition,
         ddim_sampling_eta=d.ddim_sampling_eta, ddim_update=d.ddim_update,

@@ -6,7 +6,8 @@ adaLN modulation, the qkv 1x1 projection, the depthwise 3x3, the per-head
 channel Gram with its L2 norms, the masked softmax with temperature,
 project_out folded into one [C, C] matrix M per image, and the gated
 residual.  CUDA tensors go to ``csrc/attn_block.cu``; CPU tensors to the
-plain version :func:`attn_block_plain` (``attn_block_xla`` :343-390).
+plain version :func:`attn_block_plain` (``attn_block_xla`` :343-390).  The
+backward is ``_ab_bwd``'s (:412-416): autograd through the plain version.
 
 Weights keep the reference layout: qkv_w [3C, C, 1, 1], dw_w [3C, 1, 3, 3],
 temperature [heads, 1, 1], proj_w [C, C, 1, 1].
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 
 from founddiff_tpu_torch.ops import _build
 from founddiff_tpu_torch.ops.norm import _ln_mod
+from founddiff_tpu_torch.ops.remat import remat_grads
 
 _HEAD_DIM = 32  # MambaBlock builds heads = C // 32
 
@@ -121,13 +123,31 @@ def _attn_block_cuda(x, mod_scale, mod_shift, gate, qkv_w, dw_w, temperature,
     return out
 
 
+class _AttnBlockFn(torch.autograd.Function):
+    """Forward: the kernel on CUDA tensors, the plain version on CPU tensors.
+    Backward: autograd through :func:`attn_block_plain`."""
+
+    @staticmethod
+    def forward(ctx, heads, eps, *args):
+        ctx.heads, ctx.eps = heads, eps
+        ctx.save_for_backward(*args)
+        fn = _attn_block_cuda if args[0].is_cuda else attn_block_plain
+        return fn(*args, heads, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        heads, eps = ctx.heads, ctx.eps
+        return (None, None, *remat_grads(lambda *a: attn_block_plain(*a, heads, eps),
+                                         ctx.saved_tensors, ctx.needs_input_grad[2:], g))
+
+
 def attn_block(x, mod_scale, mod_shift, gate, qkv_w, dw_w, temperature, proj_w,
                heads: int, eps: float = 1e-6):
     """Fused ``x + gate * TransposedAttention(modulate(LN(x)))``; x [B,H,W,C],
     mod_scale/mod_shift/gate [B,C].  CUDA tensors launch the kernel; CPU
-    tensors take the plain version."""
-    fn = _attn_block_cuda if x.is_cuda else attn_block_plain
-    return fn(x, mod_scale, mod_shift, gate, qkv_w, dw_w, temperature, proj_w, heads, eps)
+    tensors take the plain version.  Differentiable in every tensor argument."""
+    return _AttnBlockFn.apply(heads, eps, x, mod_scale, mod_shift, gate, qkv_w, dw_w,
+                              temperature, proj_w)
 
 
 attn_block.launches = 0

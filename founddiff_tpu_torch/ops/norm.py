@@ -4,7 +4,8 @@
 (``founddiff_tpu/ops/norm_pallas.py:123``): ``LN(x)`` with fp32 statistics,
 an optional affine, then ``* (1 + mod_scale_b) + mod_shift_b``.  CUDA
 tensors go to ``csrc/ln_mod.cu``; CPU tensors to the plain version
-:func:`_ln_mod`.
+:func:`_ln_mod`.  The backward is ``_fused_ln_mod_bwd``'s
+(norm_pallas.py:196-204): autograd through the plain version.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Optional
 import torch
 
 from founddiff_tpu_torch.ops import _build
+from founddiff_tpu_torch.ops.remat import remat_grads
 
 
 def layer_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
@@ -61,15 +63,33 @@ def _ln_mod_cuda(x3, scale, bias, mod_scale, mod_shift, eps):
     return out
 
 
+class _LnModFn(torch.autograd.Function):
+    """Forward: the kernel on CUDA tensors, the plain version on CPU tensors.
+    Backward: autograd through :func:`_ln_mod`."""
+
+    @staticmethod
+    def forward(ctx, eps, x3, scale, bias, mod_scale, mod_shift):
+        ctx.eps = eps
+        ctx.save_for_backward(x3, scale, bias, mod_scale, mod_shift)
+        fn = _ln_mod_cuda if x3.is_cuda else _ln_mod
+        return fn(x3, scale, bias, mod_scale, mod_shift, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        eps = ctx.eps
+        return (None, *remat_grads(lambda *a: _ln_mod(*a, eps), ctx.saved_tensors,
+                                   ctx.needs_input_grad[1:], g))
+
+
 def layer_norm_modulated(x: torch.Tensor, scale: Optional[torch.Tensor],
                          bias: Optional[torch.Tensor], mod_scale: torch.Tensor,
                          mod_shift: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """``modulate(LayerNorm(x))``: x [B, ..., C]; mod_scale/mod_shift [B, C].
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    CUDA tensors launch the kernel; CPU tensors take the plain version.
+    Differentiable in every tensor argument."""
     shape = x.shape
     x3 = x.reshape(shape[0], -1, shape[-1])
-    fn = _ln_mod_cuda if x.is_cuda else _ln_mod
-    return fn(x3, scale, bias, mod_scale, mod_shift, eps).reshape(shape)
+    return _LnModFn.apply(eps, x3, scale, bias, mod_scale, mod_shift).reshape(shape)
 
 
 def layer_norm_modulated_plain(x, scale, bias, mod_scale, mod_shift, eps: float = 1e-5):

@@ -21,8 +21,11 @@ import torch.nn.functional as F
 
 
 def selective_scan_chunked(u, delta, A, Bmat, Cmat, Dskip=None, delta_bias=None,
-                           chunk: Optional[int] = None):
+                           chunk: Optional[int] = None, return_bounds: bool = False):
     """Plain chunked scan, vectorised over the chunks of L.
+
+    ``return_bounds`` also returns the state entering each chunk as
+    ``h_bounds [B*K, NC, N, D]`` fp32, the layout the scan backward reads.
 
     Three passes, the same decomposition the CUDA scan uses:
       1. every chunk scans from a zero state (a loop over the ``chunk``
@@ -78,6 +81,8 @@ def selective_scan_chunked(u, delta, A, Bmat, Cmat, Dskip=None, delta_bias=None,
     y = y.reshape(Bsz, K, NC * T, D)[:, :, :L]
     if Dskip is not None:
         y = y + u * Dskip.float()[None, :, None, :]
+    if return_bounds:
+        return y, entry.transpose(-1, -2).reshape(Bsz * K, NC, N, D)
     return y
 
 

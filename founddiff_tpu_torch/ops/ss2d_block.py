@@ -10,6 +10,10 @@ on the four step-2 decimated directions, with the delta/B/C projections and
 the softplus inside.  CUDA tensors go to ``csrc/ss2d_block.cu``; CPU tensors
 to the plain version :func:`_ss2d_block_plain`.
 
+The backward is ``_sib_bwd``'s (``ss2d_block.py:530-536``): autograd through
+:func:`ss2d_compose`, the port of the remat composition ``_xla_compose``
+(:474-515), whose scan runs the kernels of :mod:`founddiff_tpu_torch.ops.scan`.
+
 Rounding follows the TPU kernel: projections take io-dtype operands with
 fp32 sums; the scan state, the LayerNorm and the silu run in fp32; z and
 the gated epilogue are rounded to the io dtype before their products; the
@@ -21,8 +25,11 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from founddiff_tpu_torch.ops import _build
+from founddiff_tpu_torch.ops.remat import remat_grads
+from founddiff_tpu_torch.ops.scan import ScanImageFn, image_scan_vmem_ok, selective_scan
 from founddiff_tpu_torch.ops.selective_scan import (
     efficient_merge,
     efficient_scan,
@@ -125,11 +132,63 @@ def _ss2d_block_cuda(x1, xs, x_raw, w_z, w_delta, w_b, w_c, A, Dskip, delta_bias
     return out
 
 
+def ss2d_compose(x1, xs_conv, x_raw, w_z, w_delta, w_b, w_c, A, Dskip, delta_bias,
+                 ln_g, ln_b, local, proj_w, gate, eps):
+    """The remat composition of the block (``_xla_compose`` with
+    ``_merge_ln_gate_xla``, ss2d_fused.py:94-120), differentiable.
+
+    The scan is :class:`ScanImageFn` where :func:`image_scan_vmem_ok` holds
+    and the decimated :func:`selective_scan` elsewhere, with ys rounded to
+    the io dtype; z comes from an io-dtype product; the gated product rounds
+    to z's dtype before out_proj, whose sums are fp32."""
+    B, H, W, D = xs_conv.shape
+    N = A.shape[-1]
+    io = xs_conv.dtype
+    if image_scan_vmem_ok(H, W, D, N):
+        ys = ScanImageFn.apply(xs_conv, w_delta, w_b, w_c, A, Dskip, delta_bias)
+    else:
+        xs = efficient_scan(xs_conv, 2)  # [B, K, L, D]
+        dts, Bs, Cs = (xs @ w.to(io)[None] for w in (w_delta, w_b, w_c))
+        ys = selective_scan(xs, dts, A, Bs, Cs, Dskip, delta_bias).to(io)
+    z = x1 @ w_z.to(x1.dtype)
+    yf = efficient_merge(ys, H, W, 2).float()
+    mean = yf.mean(dim=-1, keepdim=True)
+    var = (yf * yf).mean(dim=-1, keepdim=True) - mean * mean
+    yn = (yf - mean) * torch.rsqrt(var + eps) * ln_g.float() + ln_b.float()
+    out = yn * F.silu(z.float())
+    if local is not None:
+        out = out + local.float()[:, None, None, :]
+    out = out.to(z.dtype)
+    proj = out.float() @ proj_w.to(out.dtype).float()
+    return (x_raw.float() + gate.float()[:, None, None, :] * proj).to(z.dtype)
+
+
+class _SS2DBlockFn(torch.autograd.Function):
+    """Forward: the kernel on CUDA tensors, the plain version on CPU tensors.
+    Backward: autograd through :func:`ss2d_compose`."""
+
+    @staticmethod
+    def forward(ctx, eps, *args):
+        ctx.eps = eps
+        ctx.save_for_backward(*args)
+        fn = _ss2d_block_cuda if args[1].is_cuda else _ss2d_block_plain
+        return fn(*args, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        eps = ctx.eps
+        return (None, *remat_grads(lambda *a: ss2d_compose(*a, eps), ctx.saved_tensors,
+                                   ctx.needs_input_grad[1:], g))
+
+
 def _split_args(x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A, Dskip,
-                delta_bias, ln_g, ln_b, local, proj_w, gate, dt_rank, d_state, eps):
+                delta_bias, ln_g, ln_b, local, proj_w, gate, dt_rank, d_state):
+    """The kernel's operands: the folded projections, and the product weights
+    at the io dtype, as the JAX op casts them before its custom_vjp."""
+    io = xs_conv.dtype
     w_delta, w_b, w_c = _derive_weights(x_proj_weight, dt_projs_weight, dt_rank, d_state)
-    return (x1, xs_conv, x_raw, w_z, w_delta, w_b, w_c, A, Dskip, delta_bias,
-            ln_g, ln_b, local, proj_w, gate, eps)
+    return (x1, xs_conv, x_raw, w_z.to(io), w_delta.to(io), w_b.to(io), w_c.to(io), A,
+            Dskip, delta_bias, ln_g, ln_b, local, proj_w, gate)
 
 
 def ss2d_image_block(x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A,
@@ -142,12 +201,11 @@ def ss2d_image_block(x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A,
     dt_projs_weight [4,D,R]; A [4,D,N] (negative); Dskip, delta_bias [4,D];
     ln_g, ln_b [D]; local [B,D] or None; proj_w [D,C0]; gate [B,C0].
     CUDA tensors launch the kernel; CPU tensors take the plain version.
+    Differentiable in every tensor argument.
     """
-    args = _split_args(x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A, Dskip,
-                       delta_bias, ln_g, ln_b, local, proj_w, gate, dt_rank, d_state, eps)
-    if xs_conv.is_cuda:
-        return _ss2d_block_cuda(*args)
-    return _ss2d_block_plain(*args)
+    return _SS2DBlockFn.apply(eps, *_split_args(
+        x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A, Dskip, delta_bias,
+        ln_g, ln_b, local, proj_w, gate, dt_rank, d_state))
 
 
 def ss2d_image_block_plain(x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A,
@@ -157,7 +215,7 @@ def ss2d_image_block_plain(x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weig
     oracle the kernel is held against."""
     return _ss2d_block_plain(*_split_args(
         x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A, Dskip, delta_bias,
-        ln_g, ln_b, local, proj_w, gate, dt_rank, d_state, eps))
+        ln_g, ln_b, local, proj_w, gate, dt_rank, d_state), eps)
 
 
 ss2d_image_block.launches = 0

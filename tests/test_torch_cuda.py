@@ -13,6 +13,11 @@ base| + ulp(plain), where base is the residual the kernel passes through
 and the ulp term is the output's own rounding.  fp32 (1e-5, 1e-4) for the
 same arithmetic summed in another order; bf16 (1e-3, 8e-3), two bf16 ulps
 for an intermediate that rounds one ulp apart at an io-dtype rounding point.
+The scan backward's seven gradients are held by the same rule with no base.
+Each autograd Function is checked once in fp32: its gradients on the card
+(kernel forward, and a backward through the scan kernels) against the same
+Function on CPU copies (plain versions), per input ||g_card - g_cpu|| /
+||g_cpu|| <= 1e-3.
 """
 
 import math
@@ -22,6 +27,7 @@ import torch
 
 from founddiff_tpu_torch.ops import attn_block as attn_mod
 from founddiff_tpu_torch.ops import norm as norm_mod
+from founddiff_tpu_torch.ops import scan as scan_mod
 from founddiff_tpu_torch.ops import ss2d_block as ss2d_mod
 
 TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-3, 8e-3)}
@@ -130,3 +136,128 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                             torch.ones(2, 1, 1, device=dev), w, heads=2)
     with pytest.raises(TypeError):
         norm_mod.layer_norm_modulated(x.half(), None, None, z, z)
+
+
+def _scan_inputs(g, B, L, D, N, dtype, dev):
+    K = 4
+    dt = torch.exp(torch.rand((K, D), generator=g) * math.log(100) + math.log(1e-3))
+    return (_n(g, (B, K, L, D), 1.0, dev).to(dtype), _n(g, (B, K, L, D), 0.5, dev).to(dtype),
+            -torch.rand((K, D, N), generator=g).add(0.1).mul(N).to(dev),
+            _n(g, (B, K, L, N), 1.0, dev).to(dtype), _n(g, (B, K, L, N), 1.0, dev).to(dtype),
+            _n(g, (K, D), 1.0, dev), (dt + torch.log(-torch.expm1(-dt))).to(dev))
+
+
+SCAN_SHAPES = [(75, 40, 4), (256, 64, 8), (100, 96, 16), (64, 128, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("L,D,N", SCAN_SHAPES)
+def test_scan_forward_kernel(dev, dtype, L, D, N):
+    args = _scan_inputs(_gen(L + D), 2, L, D, N, dtype, dev)
+    chunk = scan_mod.scan_chunk(N)
+    before = scan_mod.scan_forward.launches
+    y, hb = scan_mod.scan_forward(*args)
+    assert scan_mod.scan_forward.launches == before + 1
+    y_p, hb_p = scan_mod.scan_forward_plain(*args, chunk)
+    _close(y, y_p, dtype)
+    _close(hb, hb_p, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("L,D,N", SCAN_SHAPES)
+def test_scan_backward_kernel(dev, dtype, L, D, N):
+    g = _gen(L * D)
+    args = _scan_inputs(g, 2, L, D, N, dtype, dev)
+    chunk = scan_mod.scan_chunk(N)
+    _, hb = scan_mod.scan_forward_plain(*args, chunk)
+    dy = _n(g, (2, 4, L, D), 1.0, dev).to(dtype)
+    before = scan_mod.scan_backward.launches
+    got = scan_mod.scan_backward(*args, hb, dy)
+    assert scan_mod.scan_backward.launches == before + 1
+    want = scan_mod.scan_backward_plain(*args, hb, dy, chunk)
+    for a, b in zip(got, want):
+        _close(a, b, a.dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,W,D,N", [(16, 12, 64, 4), (8, 8, 128, 16), (8, 12, 96, 32)])
+def test_scan_image_forward_kernel(dev, dtype, H, W, D, N):
+    g = _gen(H * W + D)
+    _, _, A, _, _, Ds, bias = _scan_inputs(g, 1, 1, D, N, dtype, dev)
+    x = torch.nn.functional.silu(_n(g, (2, H, W, D), 1.0, dev)).to(dtype)
+    u = lambda *s, b: ((torch.rand(s, generator=g) * 2 - 1) * b).to(dev).to(dtype)
+    w = (u(4, D, D, b=D ** -0.5), u(4, D, N, b=D ** -0.5), u(4, D, N, b=D ** -0.5))
+    before = scan_mod.scan_image_forward.launches
+    got = scan_mod.scan_image_forward(x, *w, A, Ds, bias)
+    assert scan_mod.scan_image_forward.launches == before + 1
+    _close(got, scan_mod.scan_image_forward_plain(x, *w, A, Ds, bias), dtype)
+
+
+def _grad_check(fn, args, dev):
+    """fn's gradients on the card against fn on CPU copies (plain versions);
+    fp32, per input relative norm <= 1e-3; a fixed random cotangent."""
+    def grads(device):
+        xs = [a.detach().to(device).requires_grad_(a.is_floating_point())
+              if torch.is_tensor(a) else a for a in args]
+        out = fn(*xs)
+        gen = torch.Generator().manual_seed(7)
+        cot = torch.randn(out.shape, generator=gen).to(device)
+        wrt = [x for x in xs if torch.is_tensor(x) and x.requires_grad]
+        return torch.autograd.grad(out, wrt, cot)
+
+    for a, b in zip(grads(dev), grads("cpu")):
+        assert a is not None and torch.isfinite(a).all()
+        rel = ((a.cpu() - b).norm() / b.norm().clamp_min(1e-30)).item()
+        assert rel <= 1e-3, rel
+
+
+@pytest.mark.gpu
+def test_selective_scan_fn_grads(dev):
+    args = _scan_inputs(_gen(3), 2, 300, 64, 8, torch.float32, dev)
+    _grad_check(scan_mod.selective_scan, args, dev)
+
+
+@pytest.mark.gpu
+def test_scan_image_fn_grads(dev):
+    g = _gen(4)
+    _, _, A, _, _, Ds, bias = _scan_inputs(g, 1, 1, 64, 4, torch.float32, dev)
+    x = _n(g, (2, 16, 12, 64), 1.0, dev)
+    xw, dtw = _n(g, (4, 4 + 8, 64), 0.1, dev), _n(g, (4, 64, 4), 0.3, dev)
+    _grad_check(lambda x, xw, dtw, A, Ds, b: scan_mod.ScanImageFn.apply(
+        x, *ss2d_mod._derive_weights(xw, dtw, 4, 4), A, Ds, b), (x, xw, dtw, A, Ds, bias), dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,C0,N", [(16, 32, 4), (8, 128, 32)])
+def test_ss2d_image_block_fn_grads(dev, H, C0, N):
+    g = _gen(H + C0)
+    B, D, R = 2, 2 * C0, -(-C0 // 16)
+    _, _, A, _, _, Ds, bias = _scan_inputs(g, 1, 1, D, N, torch.float32, dev)
+    args = (_n(g, (B, H, H, C0), 1.0, dev), _n(g, (B, H, H, D), 1.0, dev),
+            _n(g, (B, H, H, C0), 1.0, dev), _n(g, (C0, D), C0 ** -0.5, dev),
+            _n(g, (4, R + 2 * N, D), D ** -0.5, dev), _n(g, (4, D, R), R ** -0.5, dev), A, Ds,
+            bias, _n(g, (D,), 0.1, dev) + 1, _n(g, (D,), 0.1, dev), _n(g, (B, D), 0.2, dev),
+            _n(g, (D, C0), D ** -0.5, dev), _n(g, (B, C0), 0.3, dev))
+    _grad_check(lambda *a: ss2d_mod.ss2d_image_block(*a, dt_rank=R, d_state=N), args, dev)
+
+
+@pytest.mark.gpu
+def test_attn_block_fn_grads(dev):
+    g = _gen(5)
+    C, heads = 128, 4
+    args = (_n(g, (2, 8, 16, C), 1.0, dev), _n(g, (2, C), 0.2, dev), _n(g, (2, C), 0.2, dev),
+            _n(g, (2, C), 0.5, dev), _n(g, (3 * C, C, 1, 1), C ** -0.5, dev),
+            _n(g, (3 * C, 1, 3, 3), 1 / 3, dev), _n(g, (heads, 1, 1), 0.3, dev).abs() + 0.5,
+            _n(g, (C, C, 1, 1), C ** -0.5, dev))
+    _grad_check(lambda *a: attn_mod.attn_block(*a, heads=heads), args, dev)
+
+
+@pytest.mark.gpu
+def test_layer_norm_modulated_fn_grads(dev):
+    g = _gen(6)
+    args = (_n(g, (2, 8, 12, 64), 1.0, dev), _n(g, (64,), 0.1, dev) + 1, _n(g, (64,), 0.1, dev),
+            _n(g, (2, 64), 0.2, dev), _n(g, (2, 64), 0.2, dev))
+    _grad_check(norm_mod.layer_norm_modulated, args, dev)
