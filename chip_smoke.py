@@ -6,18 +6,23 @@
 Phases (any failure exits non-zero before the last line is printed):
 
 1. Device and build: requires CUDA, prints the card's name and power limit,
-   turns TF32 off (for every fp32 comparison, and for the fp32 training of
-   phase 7), builds the five kernel libraries from
+   turns TF32 off (for every fp32 comparison, and for the fp32 serving and
+   training of phases 7-9), builds the six kernel libraries from
    ``founddiff_tpu_torch/csrc`` (one nvcc per source, all started together)
    and prints the build seconds.
 2. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, at every distinct shape its path gives it: the serving kernels
    at bs1 and bs4, the scan kernels at the training batch (2 slices per
-   microbatch, so 8 direction sequences), in fp32 and bf16, with the stated
+   microbatch, so 8 direction sequences), the flash kernels at the vanilla
+   UNet's bottleneck ([1, 4, 4096, 32] serving, [2, 4, 4096, 32] training)
+   and at a ragged Lq 1000 / Lk 777, in fp32 and bf16, with the stated
    tolerance (the scan backward's seven gradients each); prints the errors,
    the kernel's and the plain version's times (CUDA events, warmed up,
-   median of 7) and the bound (the larger of bytes / 3.35 TB/s and
-   operations / peak rate).
+   median of 7), the bound (the largest of bytes / 3.35 TB/s, operations /
+   the peak rate of their unit, and for the flash kernels the exponentials /
+   the SFU rate, 16 per SM per clock at the card's maximum SM clock) and,
+   for the flash kernels, the time of ``scaled_dot_product_attention`` (its
+   forward; its backward through autograd for the two backward kernels).
 3. Main path at full width: ``build(Config())`` on the card (dim 64 x
    (1, 2, 4, 8), full RN50 CLIPIQA tower, seeded random weights with
    non-zero adaLN and prompt), ``make_hoisted_sampler(...,
@@ -50,12 +55,30 @@ Phases (any failure exits non-zero before the last line is printed):
    18 ``scan_backward``); prints the step time, slices/s, peak memory and
    one profiled step.
 
+8. Vanilla serving at full width: ``build`` of the vanilla DDPM path
+   (``original_ddim_ddpm``, dim 64 x (1, 2, 4, 8), 512^2, seeded weights),
+   one DDIM-250 sample at bs1 in fp32 through ``GaussianDiffusion.sample``
+   (what ``Trainer.sample`` calls): shape, finite, in [0, 1], 250
+   ``flash_fwd`` launches and no other; seconds per sample, peak memory and
+   UNet forwards per second at bs1 and bs4 (median of 5); the same sample
+   from the same generator seed through the plain path (``flash_attention``
+   swapped for its plain version) must reach PSNR >= 40 dB.
+9. Vanilla training at full width: ``Trainer.train_step`` of the vanilla
+   path on seeded synthetic batches of 4 slices of 512^2 (2 x 2
+   microbatches), checked as phase 7 (launches per step 2 / 2 / 2 of
+   ``flash_fwd`` / ``flash_bwd_dq`` / ``flash_bwd_dkv`` and no other); then
+   autograd through the bottleneck ``Attention`` at [2, 64, 64, 512], kernel
+   path against plain path, per parameter and the input
+   ||g_kernel - g_plain|| / ||g_plain|| <= 1e-3.
+
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches on
-its path, phase 3 for the serving kernels and phase 7's timed steps for the
-scan kernels; the worst error of phase 2; and the summed times of one bs1
-bf16 UNet forward's calls, or of one fp32 train step's calls for the scan
-kernels); the last is ``{"ok": true, "device": {...}}``.  A longer record
-goes to ``chiprun_out/chip_smoke.json``.
+its path, phase 3 for the serving kernels, phase 7's timed steps for the
+scan kernels, phase 8's sample for ``flash_fwd`` and phase 9's timed fp32
+steps for the flash backward; the worst error of phase 2; and the summed
+times of the calls of one bs1 bf16 UNet forward (serving kernels), one bs1
+fp32 vanilla UNet forward (``flash_fwd``) or one fp32 train step (the scan
+and flash backward kernels)); the last is ``{"ok": true, "device": {...}}``.
+A longer record goes to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -77,6 +100,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # tensor bf16; fp32 CUDA cores
 FP32_FLOPS = 67e12
+# exponentials per SM per clock of the special function units (CUDA
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0); main() sets SFU_EXP_PER_S from the card's SMs and maximum SM clock
+SFU_PER_SM_CLOCK = 16
+SFU_EXP_PER_S = None
 
 # (H = W, C, d_state) of the nine MambaBlocks at 512^2 (dim 64, mults 1,2,4,8)
 BLOCKS = {
@@ -95,9 +123,11 @@ BLOCKS = {
 TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-3, 8e-3)}
 MANTISSA_BITS = {torch.float32: 23, torch.bfloat16: 7}
 PSNR_GATE_DB = 40.0
-# kernel-name groups of the profile, first match wins
+# kernel-name groups of the profile, first match wins; the port's kernels
+# live in namespace fd or in a file's top-level anonymous namespace (ATen's
+# anonymous namespaces sit under at::native and are not the port's)
 PROFILE_GROUPS = (
-    ("port kernels", ("fd::", "(anonymous namespace)::")),
+    ("port kernels", ("void fd::", "void (anonymous namespace)::")),
     ("cuDNN/cuBLAS convolutions and matmuls", ("xmma", "cutlass", "conv2d", "gemm", "cudnn")),
 )
 
@@ -114,14 +144,25 @@ SOURCES = {
                       "founddiff_tpu/ops/scan_pallas.py:415"),
     "scan_image_forward": ("founddiff_tpu_torch/csrc/scan_image.cu",
                            "founddiff_tpu/ops/scan_pallas.py:895"),
+    "flash_fwd": ("founddiff_tpu_torch/csrc/flash_attention.cu",
+                  "founddiff_tpu/ops/attention_pallas.py:47"),
+    "flash_bwd_dq": ("founddiff_tpu_torch/csrc/flash_attention.cu",
+                     "founddiff_tpu/ops/attention_pallas.py:161"),
+    "flash_bwd_dkv": ("founddiff_tpu_torch/csrc/flash_attention.cu",
+                      "founddiff_tpu/ops/attention_pallas.py:201"),
 }
 SERVING = ("ss2d_image_block", "attn_block", "layer_norm_modulated")
 SCANS = ("scan_forward", "scan_backward", "scan_image_forward")
+FLASH_BWD = ("flash_bwd_dq", "flash_bwd_dkv")
 TRAIN_BATCH = 2  # slices per microbatch of Config().train
-# launches per train step (2 microbatches): the JAX routing, 5 image-scan and
-# 4 decimated-scan blocks in each SS2D backward
+# launches per train step (2 microbatches), every other kernel 0: the JAX
+# routing, 5 image-scan and 4 decimated-scan blocks in each SS2D backward
 PER_STEP = {"ss2d_image_block": 18, "attn_block": 12, "layer_norm_modulated": 24,
             "scan_image_forward": 10, "scan_forward": 18, "scan_backward": 18}
+# the vanilla UNet: one bottleneck Attention (64^2 at 512^2, so L = 4096,
+# 4 heads of 32) per forward, its backward in each microbatch
+VANILLA_PER_STEP = {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+FLASH_HEADS, FLASH_D, FLASH_L = 4, 32, 4096
 GRAD_REL_TOL = 1e-3
 
 
@@ -146,10 +187,10 @@ def cuda_ms(fn, reps: int = 7, warm: int = 2) -> float:
 
 def bound_ms(nbytes: float, ops) -> tuple:
     """``ops``: [(count, rate)]; a rate names its unit (989e12: tensor cores
-    in bf16, 67e12: fp32 CUDA cores).  Work on one unit adds up; the units
-    and the memory run at once, so the least time in ms is the largest of
-    bytes over the memory rate and each unit's operations over its peak rate.
-    Returns it and its two parts."""
+    in bf16, 67e12: fp32 CUDA cores, ``SFU_EXP_PER_S``: exponentials).  Work
+    on one unit adds up; the units and the memory run at once, so the least
+    time in ms is the largest of bytes over the memory rate and each unit's
+    operations over its peak rate.  Returns it and its two parts."""
     per_unit = {}
     for n, r in ops:
         per_unit[r] = per_unit.get(r, 0) + n
@@ -368,6 +409,54 @@ def train_cases():
     return cases
 
 
+def flash_case(kname, B, Lq, Lk, dtype, gen, dev):
+    """The flash kernels' operands at the bottleneck's 4 heads of 32; the
+    backward's lse and D from the plain forward.  Operations: 4d per (i, j)
+    forward, 6d for dq and 8d for dk/dv (the products, at the peak rate of
+    the io dtype's unit) and one exponential per (i, j) on the SFUs."""
+    from founddiff_tpu_torch.ops.flash_attention import flash_fwd_plain
+
+    H, d = FLASH_HEADS, FLASH_D
+    G, scale = B * H, d ** -0.5
+    q = _n(gen, (B, H, Lq, d), 1.0, dev).to(dtype)
+    k, v = (_n(gen, (B, H, Lk, d), 1.0, dev).to(dtype) for _ in range(2))
+    pairs = G * Lq * Lk
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if kname == "flash_fwd":
+        args = (q, k, v, scale)
+        moved, flops = nbytes(q, k, v) + nbytes(q) + 4 * G * Lq, 4 * pairs * d
+        library = lambda: sdpa(q, k, v, scale=scale)
+    else:
+        do = _n(gen, (B, H, Lq, d), 1.0, dev).to(dtype)
+        o, lse = flash_fwd_plain(q, k, v, scale)
+        dcap = (do.float() * o.float()).sum(-1).reshape(G, Lq)
+        args = (q, k, v, do, lse, dcap, scale)
+        outs = (q,) if kname == "flash_bwd_dq" else (k, v)
+        moved = nbytes(q, k, v, do, lse, dcap) + nbytes(*outs)
+        flops = (6 if kname == "flash_bwd_dq" else 8) * pairs * d
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out = sdpa(*leaves, scale=scale)
+        # SDPA's backward gives dq, dk and dv in one call: the yardstick of both rows
+        library = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+    work = [(flops, PEAK_FLOPS[dtype]), (pairs, SFU_EXP_PER_S)]
+    return args, {}, None, moved, work, library
+
+
+def flash_cases():
+    """(batch, kernel, label, calls per forward or step, builder) of the
+    flash kernels: the forward at bs1 (one call per vanilla UNet forward when
+    serving) and at the training microbatch of 2, the backward at 2 (two
+    calls per train step), and all three at a ragged Lq 1000 / Lk 777 that
+    the main path does not run (0 calls)."""
+    L = FLASH_L
+    spec = [(1, "flash_fwd", L, L, 1), (TRAIN_BATCH, "flash_fwd", L, L, 0)]
+    spec += [(TRAIN_BATCH, k, L, L, 2) for k in FLASH_BWD]
+    spec += [(TRAIN_BATCH, k, 1000, 777, 0) for k in ("flash_fwd",) + FLASH_BWD]
+    return [(B, k, f"B{B} H{FLASH_HEADS} Lq={Lq} Lk={Lk} d={FLASH_D}", n,
+             lambda dt, g, d, k=k, B=B, Lq=Lq, Lk=Lk: flash_case(k, B, Lq, Lk, dt, g, d))
+            for B, k, Lq, Lk, n in spec]
+
+
 def compare(got, want, base, dtype):
     """Per element |got - want| <= atol + rtol * max|want - base| + ulp, by
     each output's own dtype.  Returns (max error, worst error past one ulp,
@@ -401,28 +490,32 @@ def check_kernels(ops, cases):
     for batch, kname, label, count, make in cases:
         kernel, plain = ops[kname]
         for dtype in (torch.float32, torch.bfloat16):
-            args, kw, base, moved, work = make(dtype, gen, dev)
+            # a builder may add a sixth item: one PyTorch call computing the same function
+            args, kw, base, moved, work, *library = make(dtype, gen, dev)
             got = kernel(*args, **kw)
             want = plain(*args, **kw)
             torch.cuda.synchronize()
             err, excess, scale, tol, ok = compare(got, want, base, dtype)
             ms = cuda_ms(lambda: kernel(*args, **kw))
             pms = cuda_ms(lambda: plain(*args, **kw))
+            lms = cuda_ms(library[0]) if library else None
             bms, t_bytes, t_ops = bound_ms(moved, work)
             by = "bytes" if t_bytes >= t_ops else "operations"
             row = dict(kernel=kname, shape=label, batch=batch,
                        dtype=str(dtype).replace("torch.", ""),
                        per_forward=count, max_abs_err=err, err_past_ulp=excess,
                        max_abs_computed=scale, tol=tol, ok=ok, ms=ms, plain_ms=pms,
-                       bound_ms=bms, bytes_ms=t_bytes, ops_ms=t_ops, bound_by=by)
+                       library_ms=lms, bound_ms=bms, bytes_ms=t_bytes, ops_ms=t_ops,
+                       bound_by=by)
             rows.append(row)
+            lib = "" if lms is None else f"  library {lms:.4f} ms"
             log(f"[kernel] {kname:21s} {label:32s} {row['dtype']:8s} err {err:.3e}, "
                 f"past 1 ulp {excess:.3e} (tol {tol:.3e}, computed part max {scale:.3e}) "
                 f"{'ok' if ok else 'FAIL'}  kernel {ms:.4f} ms  "
-                f"plain {pms:.4f} ms  bound {bms:.4f} ms ({by})")
+                f"plain {pms:.4f} ms  bound {bms:.4f} ms ({by}){lib}")
             if not ok:
                 failed.append(f"{kname} {label} {row['dtype']}")
-            del args, got, want
+            del args, got, want, library
         torch.cuda.empty_cache()
     return rows, failed
 
@@ -535,22 +628,24 @@ def check_autograd(ss2d_model, ss2d_mod, attn_mod, norm_mod, wrappers):
     return result
 
 
-def train_full_width(wrappers, card):
-    """Phase 7: ``Trainer.train_step`` at ``Config()`` on the card."""
-    from founddiff_tpu_torch.config import Config
+def train_full_width(wrappers, card, cfg, per_step, tag):
+    """Phases 7 and 9: ``Trainer.train_step`` of ``cfg`` on the card.
+    ``per_step``: the launches per step of the path's kernels (every other
+    kernel 0)."""
     from founddiff_tpu_torch.factory import build
     from founddiff_tpu_torch.train.trainer import Trainer
 
-    cfg = Config()
-    cfg.train.checkpoint_folder = os.path.join(REPO, "chiprun_out", "train")
+    cfg.train.checkpoint_folder = os.path.join(REPO, "chiprun_out", tag.replace(" ", "_"))
     diffusion, model = build(cfg, device="cuda", seed=0, train=True)
-    perturb_gates(model, seed=0)
+    if not cfg.model.original_ddim_ddpm:
+        perturb_gates(model, seed=0)
     trainer = Trainer(diffusion, model, cfg)
     B = cfg.train.train_batch_size * cfg.train.gradient_accumulate_every
     S = cfg.diffusion.image_size
     gen = torch.Generator().manual_seed(0)
 
     def batch():  # synthetic seeded (gt, ld) slices in [0, 1]; no dataset is in the repo
+        # (the vanilla path trains on gt alone)
         gt = torch.rand((B, S, S, 1), generator=gen)
         return gt, (gt + 0.1 * torch.randn((B, S, S, 1), generator=gen)).clamp(0, 1)
 
@@ -592,14 +687,15 @@ def train_full_width(wrappers, card):
     launches = {k: sum(v) for k, v in counts.items()}  # the main path's timed steps
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     b = batch()
-    prof = profile_device(lambda: run("no", b, {}, check=False), "train step fp32")
+    prof = profile_device(lambda: run("no", b, {}, check=False), f"{tag} step fp32")
     for _ in range(2):
         loss, dt = run("bf16", batch(), counts)
         losses.append(loss)
         t_bf16.append(dt)
-    for k, n in PER_STEP.items():
+    for k in wrappers:
+        n = per_step.get(k, 0)
         if any(c != n for c in counts[k]):
-            raise AssertionError(f"{k}: launches per train step {counts[k]}, want {n}")
+            raise AssertionError(f"{tag}: {k} launches per train step {counts[k]}, want {n}")
     if not all(math.isfinite(v) for l in losses for v in l):
         raise AssertionError(f"non-finite training loss: {losses}")
     missing = sorted({n for n, _ in trainable} - nonzero)
@@ -614,19 +710,165 @@ def train_full_width(wrappers, card):
                                  f"{not torch.equal(p.detach(), after_one[n])}")
     step_s = statistics.median(t_fp32)
     step_bf16 = t_bf16[-1]  # the first bf16 step also runs the first bf16 convolutions
-    log(f"[train] Config() {S}^2, {B} slices per step ({cfg.train.train_batch_size} x "
-        f"{cfg.train.gradient_accumulate_every}): losses {[round(l[0], 6) for l in losses]}")
-    log(f"[train] fp32 step {step_s:.4f} s (median of {len(t_fp32)}: "
+    log(f"[{tag}] {type(model).__name__} {S}^2, {B} slices per step "
+        f"({cfg.train.train_batch_size} x {cfg.train.gradient_accumulate_every}): "
+        f"losses {[round(l[0], 6) for l in losses]}")
+    log(f"[{tag}] fp32 step {step_s:.4f} s (median of {len(t_fp32)}: "
         f"{[round(t, 4) for t in t_fp32]}), {B / step_s:.3f} slices/s; bf16 step "
         f"{step_bf16:.4f} s (the last of {[round(t, 4) for t in t_bf16]}), "
         f"{B / step_bf16:.3f} slices/s; "
         f"peak memory {peak_gib:.2f} GiB over the fp32 steps [{card}]")
-    log(f"[train] launches per step {dict((k, v[0]) for k, v in counts.items())}; "
+    log(f"[{tag}] launches per step {dict((k, v[0]) for k, v in counts.items() if v[0])}; "
         f"{len(nonzero)} of {len(trainable)} trainable parameters with a non-zero gradient; "
         f"EMA a copy of step 1 at counter {trainer.ema_step}")
     return dict(step_s=t_fp32, step_bf16_s=t_bf16, slices_per_s=B / step_s,
                 slices_per_s_bf16=B / step_bf16, peak_memory_gib=peak_gib, losses=losses,
                 launches=launches, per_step=counts, profile=prof, size=S, batch=B)
+
+
+def vanilla_config():
+    """The vanilla DDPM path at its shipped size (``train.py:72-83`` with
+    ``--original_ddim_ddpm``): dim 64 x (1, 2, 4, 8), 512^2, one channel, no
+    conditioning; T = 1000, DDIM over 250 steps with eta 1."""
+    from founddiff_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.model.original_ddim_ddpm = True
+    cfg.model.condition = False
+    return cfg
+
+
+def vanilla_serving(wrappers, card):
+    """Phase 8: one DDIM-250 sample at bs1 in fp32 through
+    ``GaussianDiffusion.sample``, UNet forwards per second, and the gate
+    against the plain path."""
+    from founddiff_tpu_torch.factory import build
+    from founddiff_tpu_torch.models import blocks as blocks_mod
+    from founddiff_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    cfg = vanilla_config()
+    diffusion, model = build(cfg, device="cuda", seed=0)
+    S, steps = cfg.diffusion.image_size, diffusion.sampling_timesteps
+    log(f"[vanilla] build(vanilla) on cuda: "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters, "
+        f"DDIM-{steps} of T = {diffusion.num_timesteps}, eta {diffusion.ddim_sampling_eta}")
+
+    def forwards_per_s(B):
+        x = torch.randn((B, S, S, 1), generator=torch.Generator().manual_seed(B)).cuda()
+        t = torch.full((B,), 500, device="cuda")
+
+        def run():
+            with torch.no_grad():
+                model(x, t)
+            torch.cuda.synchronize()
+
+        run()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            run()
+            times.append(time.perf_counter() - t0)
+        return 1.0 / statistics.median(times), times
+
+    def sample(seed):
+        out = diffusion.sample(batch_size=1, generator=torch.Generator().manual_seed(seed))
+        torch.cuda.synchronize()
+        return out
+
+    fps1, t_fwd1 = forwards_per_s(1)  # also the warm-up of the sample's forwards
+    x1 = torch.randn((1, S, S, 1), generator=torch.Generator().manual_seed(1)).cuda()
+    t1 = torch.full((1,), 500, device="cuda")
+    with torch.no_grad():
+        prof = profile_device(lambda: model(x1, t1), "vanilla forward bs1")
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = sample(0)
+    t_sample = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {k: steps if k == "flash_fwd" else 0 for k in wrappers}
+    if launches != want:
+        raise AssertionError(f"vanilla DDIM-{steps}: launches {launches}, want {want}")
+    if out.shape != (1, S, S, 1) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"bad sample {tuple(out.shape)} finite={torch.isfinite(out).all()}")
+    if float(out.min()) < 0.0 or float(out.max()) > 1.0:
+        raise AssertionError("sample leaves [0, 1]")
+    fps4, t_fwd4 = forwards_per_s(4)
+    saved = blocks_mod.flash_attention
+    try:
+        blocks_mod.flash_attention = flash_attention_plain
+        t0 = time.perf_counter()
+        plain = sample(0)
+        t_plain = time.perf_counter() - t0
+    finally:
+        blocks_mod.flash_attention = saved
+    gate_db = psnr(out, plain)
+    max_diff = float((out - plain).abs().max())
+    log(f"[vanilla] DDIM-{steps} {S}^2 bs1 fp32: {t_sample:.3f} s per sample, peak memory "
+        f"{peak_gib:.2f} GiB; launches {dict((k, n) for k, n in launches.items() if n)}; "
+        f"UNet forwards/s bs1 {fps1:.3f} (s {[round(t, 4) for t in t_fwd1]}), bs4 "
+        f"{fps4:.3f} (s {[round(t, 4) for t in t_fwd4]}) [{card}]")
+    log(f"[vanilla gate] DDIM-{steps} {S}^2 bs1 fp32 kernel vs plain path: PSNR "
+        f"{gate_db:.2f} dB (gate {PSNR_GATE_DB}), max |diff| {max_diff:.3e}, plain path "
+        f"{t_plain:.2f} s")
+    if not (math.isfinite(max_diff) and gate_db >= PSNR_GATE_DB):
+        raise AssertionError(f"vanilla numerics gate failed: {gate_db:.2f} dB")
+    return dict(launches=launches, steps=steps, size=S, sample_s=t_sample, plain_s=t_plain,
+                profile=prof,
+                peak_memory_gib=peak_gib, forwards_per_s_bs1=fps1, forwards_per_s_bs4=fps4,
+                forward_s_bs1=t_fwd1, forward_s_bs4=t_fwd4, psnr_db=gate_db,
+                max_abs_diff=max_diff)
+
+
+def check_attention_autograd(wrappers):
+    """Phase 9's autograd check: d(sum(out * w))/d(x, every parameter) of the
+    bottleneck ``Attention`` (dim 512, 4 heads of 32) at [2, 64, 64, 512],
+    fp32, through the kernel path (flash forward and both backward kernels)
+    and the plain path (``flash_attention`` swapped for its plain version,
+    which autograd differentiates directly)."""
+    from founddiff_tpu_torch.factory import init_params
+    from founddiff_tpu_torch.models import blocks as blocks_mod
+    from founddiff_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(64)
+    attn = blocks_mod.Attention(512)
+    init_params(attn, gen)
+    attn = attn.to(dev).requires_grad_(True)
+    x, w = _n(gen, (2, 64, 64, 512), 1.0, dev), _n(gen, (2, 64, 64, 512), 1.0, dev)
+    names = ["x"] + [n for n, _ in attn.named_parameters()]
+
+    def grads():
+        xi = x.clone().requires_grad_(True)
+        loss = (attn(xi) * w).sum()
+        return torch.autograd.grad(loss, [xi] + list(attn.parameters()))
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    g_kernel = grads()
+    used = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    if used != {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}:
+        raise AssertionError(f"Attention autograd: kernel launches {used}")
+    saved = blocks_mod.flash_attention
+    try:
+        blocks_mod.flash_attention = flash_attention_plain
+        g_plain = grads()
+    finally:
+        blocks_mod.flash_attention = saved
+    rel = {}
+    for n, a, b in zip(names, g_kernel, g_plain):
+        finite = bool(torch.isfinite(a).all())
+        rel[n] = ((a - b).norm() / b.norm().clamp_min(1e-30)).item() if finite else math.inf
+    worst = max(rel, key=rel.get)
+    log(f"[autograd] Attention [2, 64, 64, 512]: {len(rel)} gradients, worst relative error "
+        f"{rel[worst]:.3e} ({worst}), gate {GRAD_REL_TOL}; kernel launches {used}")
+    failed = [n for n, r in rel.items() if not r <= GRAD_REL_TOL]
+    if failed:
+        raise AssertionError(f"Attention autograd: kernel path disagrees with the plain path: "
+                             f"{failed}")
+    return dict(worst=rel[worst], worst_name=worst, launches=used, rel=rel)
 
 
 def psnr(a, b) -> float:
@@ -641,6 +883,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from founddiff_tpu_torch.ops import _build
     from founddiff_tpu_torch.ops import attn_block as attn_mod
+    from founddiff_tpu_torch.ops import flash_attention as flash_mod
     from founddiff_tpu_torch.ops import norm as norm_mod
     from founddiff_tpu_torch.ops import scan as scan_mod
     from founddiff_tpu_torch.ops import ss2d_block as ss2d_mod
@@ -653,6 +896,14 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    global SFU_EXP_PER_S
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    SFU_EXP_PER_S = SFU_PER_SM_CLOCK * sms * clock_mhz * 1e6
+    log(f"[card] {sms} SMs, maximum SM clock {clock_mhz:.0f} MHz: SFU bound "
+        f"{SFU_EXP_PER_S:.4e} exponentials/s ({SFU_PER_SM_CLOCK} per SM per clock)")
 
     # phase 1: build
     built = _build.build_all()
@@ -660,7 +911,7 @@ def main() -> int:
     for name, text in built["logs"].items():
         regs = [int(w) for line in text.splitlines() if "Used" in line
                 for w, nxt in zip(line.split(), line.split()[1:]) if nxt.startswith("registers")]
-        spills = sum("0 bytes spill stores" not in line
+        spills = sum(", 0 bytes spill stores" not in line
                      for line in text.splitlines() if "spill stores" in line)
         log(f"[ptxas {name}] {len(regs)} kernels, at most {max(regs, default=0)} registers, "
             f"{spills} with spills")
@@ -676,12 +927,16 @@ def main() -> int:
             *a, scan_mod.scan_chunk(a[2].shape[-1]))),
         "scan_image_forward": (scan_mod.scan_image_forward,
                                scan_mod.scan_image_forward_plain),
+        "flash_fwd": (flash_mod.flash_fwd, flash_mod.flash_fwd_plain),
+        "flash_bwd_dq": (flash_mod.flash_bwd_dq, flash_mod.flash_bwd_dq_plain),
+        "flash_bwd_dkv": (flash_mod.flash_bwd_dkv, flash_mod.flash_bwd_dkv_plain),
     }
     wrappers = {k: v[0] for k, v in ops.items()}
 
     # phase 2: kernels against their plain versions
     cases = [(b, *c) for b in (1, 4) for c in kernel_cases(b)]
     cases += [(TRAIN_BATCH, *c) for c in train_cases()]
+    cases += flash_cases()
     rows, failed = check_kernels(ops, cases)
     record = dict(card=card, build_seconds=built["seconds"], ptxas=built["logs"],
                   kernel_cases=rows)
@@ -730,7 +985,7 @@ def main() -> int:
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     forwards = (4 + 2) * steps
     per_forward = {"ss2d_image_block": 9, "attn_block": 6, "layer_norm_modulated": 12}
-    for k in SCANS:
+    for k in SCANS + ("flash_fwd",) + FLASH_BWD:
         if launches[k]:
             raise AssertionError(f"{k} launched {launches[k]} times while serving")
     for k, n in per_forward.items():
@@ -782,7 +1037,13 @@ def main() -> int:
     # phase 6: autograd through the kernels against the plain path
     record["autograd"] = check_autograd(ss2d_model, ss2d_mod, attn_mod, norm_mod, wrappers)
     # phase 7: training at full width
-    record["train"] = train_full_width(wrappers, card)
+    record["train"] = train_full_width(wrappers, card, Config(), PER_STEP, "train")
+    # phase 8: the vanilla DDPM path, serving
+    record["vanilla"] = vanilla_serving(wrappers, card)
+    # phase 9: the vanilla DDPM path, training, and autograd through its Attention
+    record["vanilla_train"] = train_full_width(wrappers, card, vanilla_config(),
+                                               VANILLA_PER_STEP, "vanilla train")
+    record["attention_autograd"] = check_attention_autograd(wrappers)
 
     kernels = []
     for k, (src, tpu) in SOURCES.items():
@@ -790,16 +1051,19 @@ def main() -> int:
         if k in SERVING:  # one bs1 bf16 UNet forward
             main_rows = [r for r in mine if r["dtype"] == "bfloat16" and r["batch"] == 1]
             n = launches[k]
+        elif k == "flash_fwd":  # one bs1 fp32 vanilla UNet forward
+            main_rows = [r for r in mine if r["dtype"] == "float32" and r["batch"] == 1]
+            n = record["vanilla"]["launches"][k]
         else:  # one fp32 train step
             main_rows = [r for r in mine if r["dtype"] == "float32"]
-            n = record["train"]["launches"][k]
+            n = record["vanilla_train" if k in FLASH_BWD else "train"]["launches"][k]
         total = lambda key: sum(r[key] * r["per_forward"] for r in main_rows)
         kernels.append(dict(
             name=k, route="cuda", source=src, replaces=tpu, launches=n,
             max_abs_err=max(r["max_abs_err"] for r in mine), ms=total("ms"),
             plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
             bound_by="bytes" if total("bytes_ms") >= total("ops_ms") else "operations",
-            library_ms=None))
+            library_ms=total("library_ms") if k.startswith("flash") else None))
     record["kernels"] = kernels
     _write_record(record)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

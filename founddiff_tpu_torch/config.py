@@ -1,5 +1,5 @@
-"""Config tree of the serving and training paths (mirror of
-``founddiff_tpu/config.py``).
+"""Config tree of the serving and training paths, FoundDiff and the vanilla
+DDPM baseline (mirror of ``founddiff_tpu/config.py``).
 
 Only the fields those paths read; defaults are the reference's shipped
 values (train.py:39-119).
@@ -26,6 +26,9 @@ class ModelConfig:
     base_d_state: int = 4
     ssm_expand: float = 2.0
     clip_backbone: str = "RN50"
+    # the vanilla lucidrains path: VanillaUnet + GaussianDiffusion
+    # (train.py:59,85-95; set condition False with it, as train.py does)
+    original_ddim_ddpm: bool = False
 
 
 @dataclasses.dataclass
@@ -53,6 +56,7 @@ class TrainConfig:
     ema_decay: float = 0.995  # train.py:140
     ema_update_every: int = 10
     save_and_sample_every: int = 1000  # train.py:53
+    num_samples: int = 1  # train.py:70
     seed: int = 10  # train.py:27
     mixed_precision: str = "no"  # 'no' | 'bf16' (reference runs fp32)
     checkpoint_folder: str = "checkpoints/FoundDiff"

@@ -1,4 +1,5 @@
-"""Residual-diffusion schedules (mirror of ``founddiff_tpu/diffusion/schedules.py``).
+"""Residual-diffusion and gaussian (DDPM) schedules (mirror of
+``founddiff_tpu/diffusion/schedules.py``).
 
 The coefficients are computed in numpy float32 exactly as the JAX package
 does, then held as float32 tensors.  The *train* schedule zeroes the t=0
@@ -11,6 +12,7 @@ Both apply the posterior t=0 overrides and ``one_minus_alphas_cumsum[-1] =
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import numpy as np
@@ -126,6 +128,87 @@ def make_residual_schedule(timesteps: int = 1000, *, test: bool = False,
         posterior_mean_coef3=f32(coef3),
         posterior_variance=f32(posterior_variance),
         posterior_log_variance_clipped=f32(log_var),
+        num_timesteps=int(timesteps),
+    )
+
+
+def linear_beta_schedule(timesteps: int) -> np.ndarray:
+    """lucidrains linear schedule scaled for the 1000-step regime
+    (src/denoising_diffusion_pytorch.py:419-424), float32."""
+    scale = 1000 / timesteps
+    return np.linspace(scale * 0.0001, scale * 0.02, timesteps,
+                       dtype=np.float64).astype(np.float32)
+
+
+def cosine_beta_schedule(timesteps: int, s: float = 0.008) -> np.ndarray:
+    """Nichol & Dhariwal cosine schedule (src/denoising_diffusion_pytorch.py:427-435),
+    float32."""
+    x = np.linspace(0, timesteps, timesteps + 1, dtype=np.float64)
+    alphas_cumprod = np.cos(((x / timesteps) + s) / (1 + s) * math.pi * 0.5) ** 2
+    alphas_cumprod = alphas_cumprod / alphas_cumprod[0]
+    betas = 1 - (alphas_cumprod[1:] / alphas_cumprod[:-1])
+    return np.clip(betas, 0, 0.999).astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class GaussianSchedule:
+    """float32 ``[timesteps]`` coefficient tensors of the DDPM process
+    (``GaussianSchedule``, founddiff_tpu/diffusion/schedules.py:265-283)."""
+
+    betas: torch.Tensor
+    alphas_cumprod: torch.Tensor
+    alphas_cumprod_prev: torch.Tensor
+    sqrt_alphas_cumprod: torch.Tensor
+    sqrt_one_minus_alphas_cumprod: torch.Tensor
+    log_one_minus_alphas_cumprod: torch.Tensor
+    sqrt_recip_alphas_cumprod: torch.Tensor
+    sqrt_recipm1_alphas_cumprod: torch.Tensor
+    posterior_variance: torch.Tensor
+    posterior_log_variance_clipped: torch.Tensor
+    posterior_mean_coef1: torch.Tensor
+    posterior_mean_coef2: torch.Tensor
+    p2_loss_weight: torch.Tensor
+    num_timesteps: int
+
+    def to(self, device) -> "GaussianSchedule":
+        return GaussianSchedule(**{
+            f.name: (getattr(self, f.name).to(device)
+                     if f.name != "num_timesteps" else self.num_timesteps)
+            for f in dataclasses.fields(self)
+        })
+
+
+def make_gaussian_schedule(timesteps: int = 1000, *, beta_schedule: str = "linear",
+                           p2_loss_weight_gamma: float = 0.0,
+                           p2_loss_weight_k: float = 1.0) -> GaussianSchedule:
+    """The betas in float32, every coefficient from them in float64, each
+    stored as a float32 tensor."""
+    if beta_schedule == "linear":
+        betas = linear_beta_schedule(timesteps)
+    elif beta_schedule == "cosine":
+        betas = cosine_beta_schedule(timesteps)
+    else:
+        raise ValueError(f"unknown beta schedule {beta_schedule!r}")
+    betas = betas.astype(np.float64)
+    alphas = 1.0 - betas
+    acp = np.cumprod(alphas)
+    acp_prev = np.concatenate([[1.0], acp[:-1]])
+    post_var = betas * (1.0 - acp_prev) / (1.0 - acp)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32))
+    return GaussianSchedule(
+        betas=f32(betas),
+        alphas_cumprod=f32(acp),
+        alphas_cumprod_prev=f32(acp_prev),
+        sqrt_alphas_cumprod=f32(np.sqrt(acp)),
+        sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - acp)),
+        log_one_minus_alphas_cumprod=f32(np.log(1.0 - acp)),
+        sqrt_recip_alphas_cumprod=f32(np.sqrt(1.0 / acp)),
+        sqrt_recipm1_alphas_cumprod=f32(np.sqrt(1.0 / acp - 1)),
+        posterior_variance=f32(post_var),
+        posterior_log_variance_clipped=f32(np.log(np.clip(post_var, 1e-20, None))),
+        posterior_mean_coef1=f32(betas * np.sqrt(acp_prev) / (1.0 - acp)),
+        posterior_mean_coef2=f32((1.0 - acp_prev) * np.sqrt(alphas) / (1.0 - acp)),
+        p2_loss_weight=f32((p2_loss_weight_k + acp / (1 - acp)) ** -p2_loss_weight_gamma),
         num_timesteps=int(timesteps),
     )
 

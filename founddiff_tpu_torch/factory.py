@@ -1,6 +1,7 @@
 """Build the serving and training paths from a Config (mirror of
-``founddiff_tpu/factory.py`` restricted to the FoundDiff path: CLIPIQA tower
-+ UnetRes + ResidualDiffusion).
+``founddiff_tpu/factory.py``): the FoundDiff path (CLIPIQA tower + UnetRes +
+ResidualDiffusion) or, with ``original_ddim_ddpm``, the vanilla lucidrains
+path (VanillaUnet + GaussianDiffusion).
 
 Weights are drawn on the CPU from an explicit ``torch.Generator`` with the
 reference's init distributions (torch-default uniform for Linear/Conv, S4D
@@ -11,18 +12,20 @@ same weights on every device.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 
 from founddiff_tpu_torch.config import Config
+from founddiff_tpu_torch.diffusion.gaussian import GaussianDiffusion
 from founddiff_tpu_torch.diffusion.residual import ResidualDiffusion
-from founddiff_tpu_torch.models.blocks import TransposedAttention
+from founddiff_tpu_torch.models.blocks import ChanLayerNorm, TransposedAttention
 from founddiff_tpu_torch.models.clip import CLIP, AttentionPool2d, PromptLearner, _MHAWeights
 from founddiff_tpu_torch.models.founddiff import FoundDiffDenoiser
 from founddiff_tpu_torch.models.ss2d import SS2D, MambaBlock
 from founddiff_tpu_torch.models.unet import Unet
+from founddiff_tpu_torch.models.vanilla_unet import VanillaUnet
 
 
 def _fill(t: torch.Tensor, gen: torch.Generator, kind: str, a: float = 0.0,
@@ -61,6 +64,8 @@ def init_params(model: nn.Module, gen: torch.Generator) -> None:
             mod.Ds.fill_(1.0)
         elif isinstance(mod, TransposedAttention):
             mod.temperature.fill_(1.0)
+        elif isinstance(mod, ChanLayerNorm):
+            mod.g.fill_(1.0)
         elif isinstance(mod, AttentionPool2d):
             emb = mod.positional_embedding.shape[1]
             _fill(mod.positional_embedding, gen, "normal", 0.0, emb ** -0.5)
@@ -85,8 +90,12 @@ def init_params(model: nn.Module, gen: torch.Generator) -> None:
             mod.adaLN_modulation[1].bias.zero_()
 
 
-def build_denoiser(config: Config, clip_overrides=()) -> FoundDiffDenoiser:
+def build_denoiser(config: Config, clip_overrides=()) -> Union[FoundDiffDenoiser, VanillaUnet]:
     m = config.model
+    if m.original_ddim_ddpm:
+        return VanillaUnet(dim=m.dim, dim_mults=tuple(m.dim_mults), channels=m.channels,
+                           self_condition=m.self_condition,
+                           resnet_block_groups=m.resnet_block_groups)
     return FoundDiffDenoiser(
         dim=m.dim, dim_mults=tuple(m.dim_mults), channels=m.channels,
         num_unet=m.num_unet, condition=m.condition, input_condition=m.input_condition,
@@ -96,14 +105,18 @@ def build_denoiser(config: Config, clip_overrides=()) -> FoundDiffDenoiser:
         clip_backbone=m.clip_backbone, clip_overrides=clip_overrides)
 
 
-def build(config: Config, device="cuda", seed: Optional[int] = None,
-          clip_overrides=(), train: bool = False) -> Tuple[ResidualDiffusion, FoundDiffDenoiser]:
+def build(config: Config, device="cuda", seed: Optional[int] = None, clip_overrides=(),
+          train: bool = False) -> Tuple[Union[ResidualDiffusion, GaussianDiffusion],
+                                        Union[FoundDiffDenoiser, VanillaUnet]]:
     """Returns ``(diffusion, model)`` with seeded weights on ``device``.
 
     ``train=False`` gives the frozen serving model.  ``train=True`` gives the
     model in train mode with the UNets' parameters trainable and the
     Dose-CLIP tower frozen: its forward already runs under ``no_grad``, as the
-    JAX model stops its gradient (models/founddiff.py:82-88).
+    JAX model stops its gradient (models/founddiff.py:82-88).  With
+    ``original_ddim_ddpm`` the diffusion is the vanilla process at the
+    settings of ``founddiff_tpu/factory.py:88-98``: cosine betas,
+    ``pred_noise``, l1 loss and DDIM over ``min(250, timesteps)`` steps.
     The device defaults to the card; asking for CUDA on a host without one
     raises rather than running on the CPU.
     """
@@ -116,11 +129,16 @@ def build(config: Config, device="cuda", seed: Optional[int] = None,
     gen = torch.Generator().manual_seed(config.train.seed if seed is None else seed)
     init_params(model, gen)
     model = model.train(train).requires_grad_(train).to(device)
-    model.dose_encoder.eval().requires_grad_(False)
 
     def model_fn(x_in, time, x_self_cond=None):
         return model(x_in, time, x_self_cond=x_self_cond)
 
+    if m.original_ddim_ddpm:
+        return GaussianDiffusion(
+            model_fn, image_size=d.image_size, channels=m.channels, timesteps=d.timesteps,
+            sampling_timesteps=min(250, d.timesteps), loss_type="l1", objective="pred_noise",
+            beta_schedule="cosine", device=device), model
+    model.dose_encoder.eval().requires_grad_(False)
     diffusion = ResidualDiffusion(
         model_fn, image_size=d.image_size, channels=m.channels, timesteps=d.timesteps,
         sampling_timesteps=d.sampling_timesteps, loss_type=d.loss_type, objective=m.objective,

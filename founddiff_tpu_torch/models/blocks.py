@@ -17,6 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from founddiff_tpu_torch.ops.attn_block import transposed_attention
+from founddiff_tpu_torch.ops.flash_attention import flash_attention
 
 
 def conv_nhwc(x, weight, bias=None, stride=1, padding=0, groups=1):
@@ -78,15 +79,23 @@ class WSConv(nn.Conv2d):
         return y + self.bias.to(y.dtype)
 
 
-def group_norm_silu(x, scale, bias, residual=None, groups: int = 8, eps: float = 1e-5):
+def group_norm_silu(x, scale, bias, residual=None, groups: int = 8, eps: float = 1e-5,
+                    scale_shift=None):
     """``silu(GroupNorm(x) * scale + bias) (+ residual)`` in fp32, cast back
-    (``_gn_silu_xla``, groupnorm_pallas.py:150-166; the JAX default route)."""
+    (``_gn_silu_xla``, groupnorm_pallas.py:150-166; the JAX default route).
+    ``scale_shift``: an optional (mod_scale, mod_shift) pair [B, C], folded
+    into the affine in fp32 as ``scale * (ms + 1)``, ``bias * (ms + 1) + mt``
+    (groupnorm_pallas.py:218-230)."""
     B, H, W, C = x.shape
+    g, b = scale.float(), bias.float()
+    if scale_shift is not None:
+        ms, mt = (t.float().reshape(B, C) for t in scale_shift)
+        g, b = g * (ms + 1.0), b * (ms + 1.0) + mt
     xf = x.float().reshape(B, H * W, groups, C // groups)
     mean = xf.mean(dim=(1, 3), keepdim=True)
     var = (xf * xf).mean(dim=(1, 3), keepdim=True) - mean * mean
     y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(B, H, W, C)
-    y = y * scale.float() + bias.float()
+    y = y * g.reshape(-1, 1, 1, C) + b.reshape(-1, 1, 1, C)
     y = F.silu(y)
     if residual is not None:
         y = y + residual.float()
@@ -109,7 +118,8 @@ class SinusoidalPosEmb(nn.Module):
 
 
 class Block(nn.Module):
-    """WSConv -> GroupNorm -> SiLU (+ residual) (src/DADiff.py:214-233)."""
+    """WSConv -> GroupNorm -> (scale/shift) -> SiLU (+ residual)
+    (src/DADiff.py:214-233)."""
 
     def __init__(self, c_in, c_out, groups=8):
         super().__init__()
@@ -117,10 +127,10 @@ class Block(nn.Module):
         self.proj = WSConv(c_in, c_out)
         self.norm = nn.GroupNorm(groups, c_out)
 
-    def forward(self, x, residual=None, skip=None):
+    def forward(self, x, residual=None, skip=None, scale_shift=None):
         y = self.proj(x, skip)
         return group_norm_silu(y, self.norm.weight, self.norm.bias, residual,
-                               self.groups, 1e-5)
+                               self.groups, 1e-5, scale_shift)
 
 
 class ResnetBlock(nn.Module):
@@ -174,6 +184,103 @@ class TransposedAttention(nn.Module):
 
     def forward(self, x2):
         return transposed_attention(x2, *self.weights(), self.heads)
+
+
+class ChanLayerNorm(nn.Module):
+    """Channel LayerNorm with biased variance and a scale only (the
+    lucidrains ``LayerNorm``; JAX ``ChanLayerNorm`` blocks.py:223-235): eps
+    1e-5 in fp32 and 1e-3 otherwise, statistics in fp32.  ``g`` keeps the
+    reference shape [1, C, 1, 1]."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.g = nn.Parameter(torch.ones(1, dim, 1, 1))
+
+    def forward(self, x):
+        eps = 1e-5 if x.dtype == torch.float32 else 1e-3
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mean).square().mean(dim=-1, keepdim=True)
+        return ((xf - mean) * torch.rsqrt(var + eps) * self.g.reshape(-1).float()).to(x.dtype)
+
+
+class PreNorm(nn.Module):
+    """``fn(ChanLayerNorm(x))`` (lucidrains ``PreNorm``; keys ``fn.*``, ``norm.g``)."""
+
+    def __init__(self, dim: int, fn: nn.Module):
+        super().__init__()
+        self.fn = fn
+        self.norm = ChanLayerNorm(dim)
+
+    def forward(self, x):
+        return self.fn(self.norm(x))
+
+
+class Residual(nn.Module):
+    """``fn(x) + x`` (lucidrains ``Residual``; keys ``fn.*``)."""
+
+    def __init__(self, fn: nn.Module):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x):
+        return self.fn(x) + x
+
+
+def _heads(u, heads: int):
+    """[B, H, W, heads * d] -> [B, heads, H * W, d]."""
+    B, H, W, _ = u.shape
+    return u.reshape(B, H * W, heads, -1).transpose(1, 2)
+
+
+class LinearAttention(nn.Module):
+    """Linear attention (src/DADiff.py:287-317; JAX blocks.py:506-533): q
+    softmaxed over the head dim and k over the pixels, v / (H * W), then
+    ``to_out`` (a 1x1 conv and a ChanLayerNorm)."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        hidden = heads * dim_head
+        self.to_qkv = conv(dim, 3 * hidden, 1, bias=False)
+        self.to_out = nn.Sequential(conv(hidden, dim, 1), ChanLayerNorm(dim))
+
+    def forward(self, x):
+        B, H, W, _ = x.shape
+        q, k, v = (_heads(u, self.heads).transpose(-1, -2)  # [B, heads, d, L]
+                   for u in self.to_qkv(x).chunk(3, dim=-1))
+        q = torch.softmax(q, dim=-2) * self.dim_head ** -0.5
+        k = torch.softmax(k, dim=-1)
+        v = v / (H * W)
+        context = torch.einsum("bhdn,bhen->bhde", k, v)
+        out = torch.einsum("bhde,bhdn->bhen", context, q)
+        return self.to_out(out.permute(0, 3, 1, 2).reshape(B, H, W, -1))
+
+
+class Attention(nn.Module):
+    """Full softmax self-attention (src/DADiff.py:369-392; JAX
+    blocks.py:536-578).  ``use_flash=None`` routes H * W >= 1024 to
+    :func:`flash_attention` and shorter sequences to the plain product,
+    which casts the probabilities to v's dtype before the second product."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, use_flash=None):
+        super().__init__()
+        self.heads, self.dim_head, self.use_flash = heads, dim_head, use_flash
+        hidden = heads * dim_head
+        self.to_qkv = conv(dim, 3 * hidden, 1, bias=False)
+        self.to_out = conv(hidden, dim, 1)
+
+    def forward(self, x):
+        B, H, W, _ = x.shape
+        scale = self.dim_head ** -0.5
+        q, k, v = (_heads(u, self.heads) for u in self.to_qkv(x).chunk(3, dim=-1))
+        use_flash = self.use_flash if self.use_flash is not None else H * W >= 1024
+        if use_flash:
+            out = flash_attention(q, k, v, scale)
+        else:
+            sim = (q * scale).float() @ k.float().transpose(-1, -2)
+            out = torch.softmax(sim, dim=-1).to(v.dtype) @ v
+        return self.to_out(out.transpose(1, 2).reshape(B, H, W, -1))
 
 
 def modulate(x, shift, scale):

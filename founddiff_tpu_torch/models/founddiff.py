@@ -42,8 +42,10 @@ class FoundDiffDenoiser(UnetRes):
     @torch.no_grad()
     def encode(self, x_input):
         """(dose [B, embed], content [B, 1, 256]) from the conditioning image
-        x_input [B,H,W,channels] in [-1, 1], tripled to RGB (src/DADiff.py:692)."""
-        rgb = x_input[..., :self.channels].float().repeat_interleave(3, dim=-1)
+        x_input [B,H,W,channels] in [-1, 1], tripled to RGB (src/DADiff.py:692).
+        The tower computes in x_input's dtype: float32 when serving, bf16 in
+        a bf16 train step, as the JAX step runs it."""
+        rgb = x_input[..., :self.channels].repeat_interleave(3, dim=-1)
         dose, content = self.dose_encoder.embed(rgb)
         return dose, content[:, None, :]
 

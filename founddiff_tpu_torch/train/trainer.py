@@ -6,11 +6,13 @@ One step (``Trainer._step_fn``, trainer.py:132-214): the batch splits into
 ``gradient_accumulate_every`` microbatches; each adds the gradient of its
 ``sum(losses) / accum``; then optax's global-norm clip, Adam (RAdam for two
 UNets), the EMA update, step += 1.  ``mixed_precision="bf16"`` runs the
-model on bf16 copies of the fp32 trainable parameters made at the model
-boundary (gradients reach the fp32 masters through the cast) with bf16
-inputs, and casts the predictions back to fp32 for the loss, as the JAX
-step does (trainer.py:141-184).  The frozen Dose-CLIP tower keeps its fp32
-weights there.
+model on bf16 copies of every fp32 tensor the JAX step casts (trainer.py:
+141-184): every parameter, the frozen Dose-CLIP tower's too, and the
+buffers the JAX tree holds as parameters (BatchNorm statistics, prompt
+token embeddings); gradients reach the fp32 masters through the cast.  The
+inputs are cast to bf16 and the predictions back to fp32 for the loss.
+The conditional (FoundDiff) and the generation (vanilla DDPM) paths both
+train here; ``sample()`` follows the JAX ``Trainer.sample`` routes.
 
 Random draws (timesteps, noise) come from one ``torch.Generator`` seeded
 with ``train.seed``, on the CPU, so a seed gives the same run on every
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import copy
 import glob
+import itertools
 import logging
 import os
 import re
@@ -69,11 +72,13 @@ class Trainer:
         if self.config.train.mixed_precision != "bf16":
             return self.model(x_in, time, x_self_cond=x_self_cond)
         bf16 = torch.bfloat16
-        params = {n: p.to(bf16) for n, p in self.model.named_parameters()
-                  if p.requires_grad and p.dtype == torch.float32}
+        named = itertools.chain(self.model.named_parameters(), self.model.named_buffers())
+        tensors = {n: t.to(bf16) for n, t in named if t.dtype == torch.float32}
         out = torch.func.functional_call(
-            self.model, params, (x_in.to(bf16), time),
+            self.model, tensors, (x_in.to(bf16), time),
             {"x_self_cond": None if x_self_cond is None else x_self_cond.to(bf16)})
+        if torch.is_tensor(out):  # the vanilla UNet's one prediction
+            return out.float()
         return [o.float() if torch.is_tensor(o) else o for o in out]
 
     def train_step(self, batch) -> List[float]:
@@ -173,10 +178,19 @@ class Trainer:
         self.step = int(data["step"])
         self.ema_step = int(data["ema"]["step"])
 
-    def sample(self, x_input01, generator: Optional[torch.Generator] = None,
-               noise: Optional[torch.Tensor] = None, compute_dtype=None):
-        """Hoisted-tower DDIM of the conditioning slices ``x_input01`` with the
-        EMA weights (the training schedule, as ``Trainer.sample``)."""
+    def sample(self, x_input01=None, generator: Optional[torch.Generator] = None,
+               noise=None, compute_dtype=None):
+        """Samples with the EMA weights, as the JAX ``Trainer.sample``
+        (trainer.py:341-389) routes them.  Conditional: hoisted-tower DDIM of
+        the conditioning slices ``x_input01`` on the training schedule
+        (``noise``: the initial noise).  Generation (vanilla DDPM):
+        ``diffusion.sample(batch_size=num_samples)``, ``x_input01`` unused
+        (``noise``: every draw, as ``GaussianDiffusion.sample`` takes them)."""
+        if not self.diffusion.condition:
+            d = copy.copy(self.diffusion)
+            d.model_fn = lambda x, t, x_self_cond=None: self.ema(x, t, x_self_cond=x_self_cond)
+            return d.sample(batch_size=self.config.train.num_samples, generator=generator,
+                            noise=noise)
         sampler = make_hoisted_sampler(self.ema, self.diffusion, use_test_schedule=False,
                                        compute_dtype=compute_dtype)
         return sampler(x_input01, generator=generator, noise=noise)

@@ -1,22 +1,27 @@
 """JAX-package parameters -> this package's ``state_dict``.
 
 ``from_jax_params`` takes the param tree of the JAX package's
-``FoundDiffDenoiser`` (``{"dose_encoder": ..., "model": {"unet0": ...}}``)
-or ``UnetRes`` (``{"unet0": ...}``) as nested dicts of arrays and returns
-tensors under the port's names, which are the reference PyTorch state-dict
-names (the inverse of ``founddiff_tpu/utils/torch_convert.py:135-475``).
+``FoundDiffDenoiser`` (``{"dose_encoder": ..., "model": {"unet0": ...}}``),
+``UnetRes`` (``{"unet0": ...}``) or ``VanillaUnet`` (``{"init_conv": ...,
+"mid_block1": ...}``) as nested dicts of arrays and returns tensors under the
+port's names.  Those are the reference PyTorch state-dict names: for
+FoundDiff the inverse of ``founddiff_tpu/utils/torch_convert.py:135-475``;
+for the vanilla UNet the lucidrains ``Unet``'s (``downs.<i>.<0..3>``,
+``mid_attn.fn.fn``, ``mlp.1``, ...), which the JAX package has no converter
+for and no reference checkpoint has been loaded against.
 
 Layout changes: Dense ``kernel [in, out]`` -> Linear ``weight [out, in]``;
 conv ``kernel [kh, kw, I/g, O]`` -> ``weight [O, I/g, kh, kw]`` (depthwise
 ``[3, 3, 1, D]`` -> ``[D, 1, 3, 3]``); norm ``scale`` -> ``weight``;
 BatchNorm ``mean``/``var`` -> ``running_mean``/``running_var``;
-``A_logs [K, D, N]`` -> ``[K*D, N]``; ``Ds [K, D]`` -> ``[K*D]``.
+``A_logs [K, D, N]`` -> ``[K*D, N]``; ``Ds [K, D]`` -> ``[K*D]``;
+ChanLayerNorm ``g [C]`` -> ``[1, C, 1, 1]``.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +39,16 @@ _RENAMES = [(re.compile(p), r) for p, r in [
     (r"^mlp_c_fc$", "mlp.c_fc"), (r"^mlp_c_proj$", "mlp.c_proj"),
     (r"^head(\d)_fc1$", r"head\1.0"), (r"^head(\d)_fc2$", r"head\1.2"),
 ]]
+# the vanilla UNet's modules (JAX vanilla_unet.py:56-141 -> lucidrains Unet)
+_VANILLA_RENAMES = [(re.compile(p), r) for p, r in [
+    (r"^(down|up)_(\d+)_block1$", r"\1s.\2.0"), (r"^(down|up)_(\d+)_block2$", r"\1s.\2.1"),
+    (r"^(down|up)_(\d+)_attn$", r"\1s.\2.2.fn.fn"),
+    (r"^(down|up)_(\d+)_attn_norm$", r"\1s.\2.2.fn.norm"),
+    (r"^down_(\d+)_down$", r"downs.\1.3"), (r"^up_(\d+)_up$", r"ups.\1.3"),
+    (r"^mid_attn$", "mid_attn.fn.fn"), (r"^mid_attn_norm$", "mid_attn.fn.norm"),
+    (r"^time_mlp_1$", "time_mlp.1"), (r"^time_mlp_2$", "time_mlp.3"), (r"^mlp$", "mlp.1"),
+    (r"^to_out_norm$", "to_out.1"),
+]]
 _LEAVES = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
            "var": "running_var"}
 
@@ -46,7 +61,7 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple
             yield prefix + (k,), v
 
 
-def _module_name(parts) -> str:
+def _module_name(parts, renames) -> str:
     out = []
     for p in parts:
         if p == "conv" and out and out[-1].startswith(("downs.", "ups.")):
@@ -57,7 +72,10 @@ def _module_name(parts) -> str:
         if p == "attn_in_proj":
             out.append("attn.in_proj")
             continue
-        for pat, rep in _RENAMES:
+        if p == "to_out" and out and re.match(r"^(downs|ups)\.\d+\.2\.fn\.fn$", out[-1]):
+            out.append("to_out.0")  # LinearAttention's to_out = Sequential(conv, norm)
+            continue
+        for pat, rep in renames:
             if pat.match(p):
                 p = pat.sub(rep, p)
                 break
@@ -65,14 +83,14 @@ def _module_name(parts) -> str:
     return ".".join(out)
 
 
-def _torch_key(path: Tuple[str, ...]) -> str:
+def _torch_key(path: Tuple[str, ...], renames) -> str:
     if path[0] == "dose_encoder":
         prefix, path = "unet0.dose_encoder.", path[1:]
     else:
         prefix = ""
         if path[0] == "model":
             path = path[1:]
-    mod, leaf = _module_name(path[:-1]), path[-1]
+    mod, leaf = _module_name(path[:-1], renames), path[-1]
     if mod.endswith("attn.in_proj"):
         return prefix + mod + {"kernel": "_weight", "bias": "_bias"}[leaf]
     return prefix + (f"{mod}." if mod else "") + _LEAVES.get(leaf, leaf)
@@ -87,9 +105,15 @@ def _value(path: Tuple[str, ...], arr) -> torch.Tensor:
         a = a.reshape(-1, a.shape[-1])
     elif leaf == "Ds":
         a = a.reshape(-1)
+    elif leaf == "g":
+        a = a.reshape(1, -1, 1, 1)
     return torch.tensor(np.ascontiguousarray(a))
 
 
-def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The JAX param tree as this package's ``state_dict``."""
-    return {_torch_key(p): _value(p, v) for p, v in _leaves(params)}
+def from_jax_params(params: Mapping, vanilla: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+    """The JAX param tree as this package's ``state_dict``.  ``vanilla``
+    names the family; by default a tree with ``mid_block1`` is a VanillaUnet."""
+    if vanilla is None:
+        vanilla = "mid_block1" in params
+    renames = _VANILLA_RENAMES if vanilla else _RENAMES
+    return {_torch_key(p, renames): _value(p, v) for p, v in _leaves(params)}

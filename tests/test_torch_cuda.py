@@ -13,7 +13,8 @@ base| + ulp(plain), where base is the residual the kernel passes through
 and the ulp term is the output's own rounding.  fp32 (1e-5, 1e-4) for the
 same arithmetic summed in another order; bf16 (1e-3, 8e-3), two bf16 ulps
 for an intermediate that rounds one ulp apart at an io-dtype rounding point.
-The scan backward's seven gradients are held by the same rule with no base.
+The scan backward's seven gradients and the flash kernels' outputs (o, lse,
+dq, dk, dv) are held by the same rule with no base.
 Each autograd Function is checked once in fp32: its gradients on the card
 (kernel forward, and a backward through the scan kernels) against the same
 Function on CPU copies (plain versions), per input ||g_card - g_cpu|| /
@@ -26,6 +27,7 @@ import pytest
 import torch
 
 from founddiff_tpu_torch.ops import attn_block as attn_mod
+from founddiff_tpu_torch.ops import flash_attention as flash_mod
 from founddiff_tpu_torch.ops import norm as norm_mod
 from founddiff_tpu_torch.ops import scan as scan_mod
 from founddiff_tpu_torch.ops import ss2d_block as ss2d_mod
@@ -261,3 +263,51 @@ def test_layer_norm_modulated_fn_grads(dev):
     args = (_n(g, (2, 8, 12, 64), 1.0, dev), _n(g, (64,), 0.1, dev) + 1, _n(g, (64,), 0.1, dev),
             _n(g, (2, 64), 0.2, dev), _n(g, (2, 64), 0.2, dev))
     _grad_check(norm_mod.layer_norm_modulated, args, dev)
+
+
+# (B, H, Lq, Lk, d): ragged lengths (the kernels cut the last tile), whole tiles
+FLASH_SHAPES = [(2, 2, 100, 77, 32), (1, 3, 64, 64, 32), (2, 1, 130, 200, 32)]
+
+
+def _flash_inputs(g, B, H, Lq, Lk, d, dtype, dev):
+    return (_n(g, (B, H, Lq, d), 1.0, dev).to(dtype), _n(g, (B, H, Lk, d), 1.0, dev).to(dtype),
+            _n(g, (B, H, Lk, d), 1.0, dev).to(dtype), _n(g, (B, H, Lq, d), 1.0, dev).to(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H,Lq,Lk,d", FLASH_SHAPES)
+def test_flash_kernels(dev, dtype, B, H, Lq, Lk, d):
+    q, k, v, do = _flash_inputs(_gen(Lq + Lk + d), B, H, Lq, Lk, d, dtype, dev)
+    scale = d ** -0.5
+    before = (flash_mod.flash_fwd.launches, flash_mod.flash_bwd_dq.launches,
+              flash_mod.flash_bwd_dkv.launches)
+    o, lse = flash_mod.flash_fwd(q, k, v, scale)
+    o_p, lse_p = flash_mod.flash_fwd_plain(q, k, v, scale)
+    _close(o, o_p, dtype)
+    _close(lse, lse_p, torch.float32)
+    dcap = (do.float() * o_p.float()).sum(-1).reshape(B * H, Lq)
+    args = (q, k, v, do, lse_p, dcap, scale)
+    _close(flash_mod.flash_bwd_dq(*args), flash_mod.flash_bwd_dq_plain(*args), dtype)
+    for a, b in zip(flash_mod.flash_bwd_dkv(*args), flash_mod.flash_bwd_dkv_plain(*args)):
+        _close(a, b, dtype)
+    assert (flash_mod.flash_fwd.launches, flash_mod.flash_bwd_dq.launches,
+            flash_mod.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+
+
+@pytest.mark.gpu
+def test_flash_attention_fn_grads(dev):
+    q, k, v, _ = _flash_inputs(_gen(8), 2, 2, 150, 90, 32, torch.float32, dev)
+    _grad_check(flash_mod.flash_attention, (q, k, v), dev)
+
+
+@pytest.mark.gpu
+def test_flash_refuses_what_the_kernels_do_not_take(dev):
+    q = torch.zeros(1, 1, 8, 64, device=dev)  # head dim 64
+    with pytest.raises(ValueError):
+        flash_mod.flash_fwd(q, q, q, 1.0)
+    q = torch.zeros(1, 1, 8, 32, device=dev)
+    with pytest.raises(TypeError):
+        flash_mod.flash_fwd(q, q.bfloat16(), q, 1.0)
+    with pytest.raises(TypeError):
+        flash_mod.flash_fwd(q.half(), q.half(), q.half(), 1.0)

@@ -9,7 +9,9 @@
 - clip + Adam + EMA fed identical gradients for 115 steps, across the EMA's
   ``update_after_step`` (100), against optax and ``founddiff_tpu.train.ema``;
   RAdam against optax ``radam`` for two UNets;
-- a 2-step ``Trainer`` run with a checkpoint round trip.
+- a 2-step ``Trainer`` run with a checkpoint round trip;
+- a bf16 step, in which the frozen Dose-CLIP tower computes in bf16 as the
+  JAX step runs it (every fp32 param leaf cast, the tower's too).
 
 Inputs are made with numpy from a seed; fp32.  Tolerances: rtol 1e-3 /
 atol 1e-4 on losses, parameters and EMA buffers.  The UNet's parameter
@@ -36,6 +38,7 @@ from founddiff_tpu.utils.torch_convert import convert_denoiser_params
 from founddiff_tpu_torch.config import Config
 from founddiff_tpu_torch.diffusion.residual import ResidualDiffusion as TDiffusion
 from founddiff_tpu_torch.factory import build
+from founddiff_tpu_torch.models.clip import FrozenBatchNorm
 from founddiff_tpu_torch.train.ema import ema_decay_schedule, ema_update
 from founddiff_tpu_torch.train.state import clip_by_global_norm_, make_optimizer
 from founddiff_tpu_torch.train.trainer import Trainer
@@ -297,3 +300,32 @@ def test_trainer_bf16_step(micro, tmp_path):
         assert w.dtype == torch.float32 and not torch.equal(w.detach(), w0)
     # bf16 rounds the trunk's activations to 8 bits: 2% of the loss
     assert losses["bf16"][0] == pytest.approx(losses["no"][0], rel=2e-2)
+
+
+def test_trainer_bf16_runs_the_tower_in_bf16(micro, tmp_path):
+    """The JAX bf16 step casts every fp32 leaf of the param tree, the frozen
+    tower's included, whose BatchNorm statistics and prompt embeddings are
+    param leaves there (trainer.py:169-174): every convolution, linear and
+    BatchNorm of the tower sees bf16 inputs and bf16 weights and statistics."""
+    cfg, diffusion, model = _port(micro[1], mixed_precision="bf16", seed=3,
+                                  checkpoint_folder=str(tmp_path))
+    trainer = Trainer(diffusion, model, cfg)
+    seen = []
+
+    def record(mod, args):
+        names = ("weight", "bias", "running_mean", "running_var")
+        tensors = [args[0]] + [getattr(mod, n) for n in names if getattr(mod, n, None) is not None]
+        seen.append((type(mod).__name__, {t.dtype for t in tensors}))
+
+    hooked = (torch.nn.Conv2d, torch.nn.Linear, FrozenBatchNorm)
+    handles = [m.register_forward_pre_hook(record) for m in model.dose_encoder.modules()
+               if isinstance(m, hooked)]
+    try:
+        losses = trainer.train_step(_batches(1, 4)[0])
+    finally:
+        for h in handles:
+            h.remove()
+    assert np.isfinite(losses[0])
+    assert {name for name, _ in seen} == {"Conv", "Dense", "FrozenBatchNorm"}
+    assert all(dtypes == {torch.bfloat16} for _, dtypes in seen), seen
+    assert all(p.dtype == torch.float32 for p in model.parameters())

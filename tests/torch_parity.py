@@ -27,13 +27,43 @@ _QUICK_COMPILE = {"xla_backend_optimization_level": 0,
                   "xla_llvm_disable_expensive_passes": True}
 
 
-def jit_quick(fn):
-    """``jax.jit(fn)`` compiled with :data:`_QUICK_COMPILE`, for one call."""
+def jit_quick(fn, options=_QUICK_COMPILE):
+    """``jax.jit(fn)`` compiled with ``options`` (by default
+    :data:`_QUICK_COMPILE`), for one call."""
 
     def call(*args, **kwargs):
-        return jax.jit(fn).lower(*args, **kwargs).compile(_QUICK_COMPILE)(*args, **kwargs)
+        return jax.jit(fn).lower(*args, **kwargs).compile(options)(*args, **kwargs)
 
     return call
+
+
+# For programs that run longer than they compile: a train step of the micro
+# VanillaUnet runs 9x slower unoptimised (its convolutions and the flash
+# kernels' interpret-mode loops), so level 1 halves compile plus run.
+LEVEL1_COMPILE = {"xla_backend_optimization_level": 1}
+
+
+def micro_vanilla_params(model, seed: int):
+    """A JAX ``VanillaUnet``'s param tree from its shapes (``eval_shape``,
+    which compiles nothing), filled from ``numpy.random.default_rng(seed)``:
+    kernels U(+-fan_in^-0.5) as the torch init draws them, every other leaf
+    its init value (1 for norm scales and ``g``, 0 for biases) plus
+    N(0, 0.1), so that no affine is the identity."""
+    import jax.numpy as jnp
+
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 1)),
+                            jnp.zeros((1,)))["params"]
+    rng = np.random.default_rng(seed)
+
+    def fill(path, s):
+        leaf = path[-1].key
+        if leaf == "kernel":
+            bound = float(np.prod(s.shape[:-1])) ** -0.5
+            return rng.uniform(-bound, bound, s.shape).astype(np.float32)
+        base = 1.0 if leaf in ("scale", "g") else 0.0
+        return (base + rng.standard_normal(s.shape) * 0.1).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
 def perturb(params, seed: int, std: float = 0.02):
@@ -71,3 +101,16 @@ def np_(x) -> np.ndarray:
 
 def t_(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def check_param_grads(model: torch.nn.Module, want) -> None:
+    """Every parameter's gradient against ``want`` (the JAX gradient tree
+    through ``from_jax_params``): ||g - w|| <= 1e-3 ||w|| + 1e-6 each."""
+    checked = 0
+    for name, p in model.named_parameters():
+        g, w = p.grad, want[name]
+        assert g is not None, name
+        err = float((g - w).norm())
+        assert err <= 1e-3 * float(w.norm()) + 1e-6, (name, err, float(w.norm()))
+        checked += 1
+    assert checked == len(want)
