@@ -60,32 +60,13 @@ struct EpiGated {  // out = x + round(gate * round(acc)), per image z
   }
 };
 
-// depthwise 3x3 over [B, H, W, K], taps [9, K] ordered dr*3 + dc
 template <typename T>
-__global__ void dwconv3x3_kernel(const T* __restrict__ u, const T* __restrict__ taps,
-                                 T* __restrict__ out, int H, int W, int K,
-                                 long long total) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int k = idx % K;
-  const long long pix = idx / K;
-  const int x = pix % W;
-  const int y = (pix / W) % H;
-  const long long img = pix / ((long long)H * W);
-  float acc = 0.f;
-#pragma unroll
-  for (int dr = 0; dr < 3; ++dr) {
-    const int yy = y + dr - 1;
-#pragma unroll
-    for (int dc = 0; dc < 3; ++dc) {
-      const int xx = x + dc - 1;
-      if (yy < 0 || yy >= H || xx < 0 || xx >= W) continue;
-      const float v = fd::to_f<T>(u[((img * H + yy) * W + xx) * K + k]);
-      acc += v * fd::to_f<T>(taps[(dr * 3 + dc) * K + k]);
-    }
+struct EpiDw {  // the depthwise conv's sum rounded to the io dtype
+  T* out;
+  __device__ __forceinline__ void operator()(long long i, int, float acc) const {
+    out[i] = fd::from_f<T>(acc);
   }
-  out[idx] = fd::from_f<T>(acc);
-}
+};
 
 // grid (splits, heads, B), 256 threads: partial q^T k block and norms of
 // one head over one run of pixels of one image; qkv [B, HW, 3C]
@@ -202,9 +183,7 @@ int run(const void* x_, const float* ms, const float* mt, const void* gate_,
   FD_TRY((fd::gemm<T>(1, (int)P, 3 * C, C, fd::RowStrided<T>{x2, 0, C}, wqkv, 0, 1, 3 * C,
                       EpiStore<T>{u, 3 * C}, s)));
   const long long total = P * 3 * C;
-  dwconv3x3_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(u, taps, qkv, H, W,
-                                                                     3 * C, total);
-  FD_TRY(cudaGetLastError());
+  FD_TRY((fd::dwconv3x3<T, false>(u, taps, H, W, 3 * C, total, EpiDw<T>{qkv}, s)));
   const int per_split = ((HW + splits - 1) / splits + TILE_PX - 1) / TILE_PX * TILE_PX;
   gram_partial_kernel<T><<<dim3(splits, heads, B), 256, 0, s>>>(qkv, part, HW, C, per_split);
   FD_TRY(cudaGetLastError());

@@ -1,6 +1,7 @@
-// Shared device code of the port's kernels: dtype conversion, warp
-// reductions, the LayerNorm+modulation row kernel and a tiled GEMM with a
-// gathered A operand and a fused epilogue.
+// Shared device code of the port's kernels: dtype conversion, 16-byte
+// vector loads and stores, warp reductions, the LayerNorm+modulation row
+// kernel, a tiled GEMM with a gathered A operand and a fused epilogue, and
+// the depthwise 3x3.
 //
 // Element types: float or __nv_bfloat16 activations ("io" dtype); every sum
 // and every piece of arithmetic runs in fp32, and values are rounded to the
@@ -28,6 +29,39 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // v rounded to the io dtype and widened back
 template <typename T> __device__ __forceinline__ float round_io(float v) {
   return to_f<T>(from_f<T>(v));
+}
+
+// 16 bytes of T: Vec<T>::N elements moved as one Vec<T>::U
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int N = 4;
+  using U = float4;
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  using U = uint4;
+};
+
+// Vec<T>::N elements at p (16-byte aligned) widened to fp32 into v
+template <typename T> __device__ __forceinline__ void load_vec(const T* p, float* v) {
+  const typename Vec<T>::U u = *reinterpret_cast<const typename Vec<T>::U*>(p);
+  const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+  for (int i = 0; i < Vec<T>::N; ++i) v[i] = to_f<T>(e[i]);
+}
+
+// v[0 .. Vec<T>::N) rounded to T and stored at p (16-byte aligned)
+template <typename T> __device__ __forceinline__ void store_vec(T* p, const float* v) {
+  typename Vec<T>::U u;
+  T* e = reinterpret_cast<T*>(&u);
+#pragma unroll
+  for (int i = 0; i < Vec<T>::N; ++i) e[i] = from_f<T>(v[i]);
+  *reinterpret_cast<typename Vec<T>::U*>(p) = u;
+}
+
+// Host side: whether every pointer meets load_vec/store_vec's 16-byte alignment
+template <typename... P> inline bool aligned16(const P*... p) {
+  return ((reinterpret_cast<uintptr_t>(p) % 16 == 0) && ...);
 }
 
 __device__ __forceinline__ float softplus(float v) {
@@ -186,6 +220,56 @@ cudaError_t gemm(int Z, int M, int N, int K, RowA rowA, const T* B, long long st
   dim3 grid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM, Z);
   gemm_kernel<T, RowA, Epi><<<grid, GTHREADS, 0, s>>>(M, N, K, rowA, B, strideBz, zmod, ldb,
                                                       epi);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Depthwise 3x3 with a zero halo (SAME padding) over u [B, H, W, K], taps
+// [9, K] at 3 * dr + dc, one thread per (pixel, channel), channels
+// innermost: fp32 products of the io values, then epi(idx, k, acc) writes
+// output element idx.  The two TPU kernels it replaces sum in different
+// orders, and each port is held to its own: BY_COLUMN false adds the taps
+// row by row (_attn_block_kernel), BY_COLUMN true adds each column's three
+// rows first, then the columns (the unified MambaBlock kernels).
+// ---------------------------------------------------------------------------
+constexpr int DW_THREADS = 256;
+
+template <typename T, bool BY_COLUMN, class Epi>
+__global__ void __launch_bounds__(DW_THREADS)
+dwconv3x3_kernel(const T* __restrict__ u, const T* __restrict__ taps, int H, int W, int K,
+                 long long total, Epi epi) {
+  const long long idx = (long long)blockIdx.x * DW_THREADS + threadIdx.x;
+  if (idx >= total) return;
+  const int k = (int)(idx % K);
+  const long long pix = idx / K;
+  const int x = (int)(pix % W), y = (int)((pix / W) % H);
+  const long long img = pix / ((long long)H * W);
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    float part = 0.f;  // BY_COLUMN: column i's three rows
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int dr = BY_COLUMN ? j : i, dc = BY_COLUMN ? i : j;
+      const int yy = y + dr - 1, xx = x + dc - 1;
+      if (yy < 0 || yy >= H || xx < 0 || xx >= W) continue;
+      const float v = to_f<T>(u[((img * H + yy) * W + xx) * K + k]);
+      if (BY_COLUMN)
+        part += v * to_f<T>(taps[(dr * 3 + dc) * K + k]);
+      else
+        acc += v * to_f<T>(taps[(dr * 3 + dc) * K + k]);
+    }
+    if (BY_COLUMN) acc += part;
+  }
+  epi(idx, k, acc);
+}
+
+template <typename T, bool BY_COLUMN, class Epi>
+cudaError_t dwconv3x3(const T* u, const T* taps, int H, int W, int K, long long total, Epi epi,
+                      cudaStream_t s) {
+  dwconv3x3_kernel<T, BY_COLUMN, Epi>
+      <<<(unsigned)((total + DW_THREADS - 1) / DW_THREADS), DW_THREADS, 0, s>>>(u, taps, H, W, K,
+                                                                                total, epi);
   return cudaGetLastError();
 }
 

@@ -52,26 +52,7 @@ constexpr int BWD_KC = 8;   // rows of the other side per step (backward)
 
 constexpr int THREADS = ROWS * (D / DT);
 
-// 16-byte vector load of T elements at p, widened to fp32 into out[0 .. 16/sizeof(T)).
-template <typename T> __device__ __forceinline__ void load_vec(const T* p, float* out);
-template <> __device__ __forceinline__ void load_vec<float>(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x;
-  out[1] = v.y;
-  out[2] = v.z;
-  out[3] = v.w;
-}
-template <>
-__device__ __forceinline__ void load_vec<__nv_bfloat16>(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
+using fd::load_vec;
 
 // This thread's DT values of a row (zeros for a row past the end).
 template <typename T>
@@ -318,6 +299,7 @@ dim3 grid_of(int rows, int G) { return dim3((unsigned)((rows + ROWS - 1) / ROWS)
 template <typename T>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int G, int Lq, int Lk,
         float scale, cudaStream_t s) {
+  if (!fd::aligned16(q, k, v)) return (int)cudaErrorMisalignedAddress;
   fwd_kernel<T><<<grid_of(Lq, G), THREADS, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, Lq, Lk, scale);
@@ -327,6 +309,7 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int G,
 template <typename T>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
            const float* dcap, void* dq, int G, int Lq, int Lk, float scale, cudaStream_t s) {
+  if (!fd::aligned16(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
   dq_kernel<T><<<grid_of(Lq, G), THREADS, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, dcap, static_cast<T*>(dq), Lq, Lk, scale);
@@ -337,6 +320,7 @@ template <typename T>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
             const float* dcap, void* dk, void* dv, int G, int Lq, int Lk, float scale,
             cudaStream_t s) {
+  if (!fd::aligned16(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
   dkv_kernel<T><<<grid_of(Lk, G), THREADS, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, dcap, static_cast<T*>(dk), static_cast<T*>(dv), Lq,

@@ -1,4 +1,4 @@
-// Device code shared by the image-direct scans (ss2d_block.cu, scan_image.cu):
+// Device code shared by the image-direct scans (ss2d_tail.cuh, scan_image.cu):
 // the pixel map of the four step-2 decimated directions, the projection
 // GEMM's row gather and epilogue, and the three-pass chunked scan.
 //

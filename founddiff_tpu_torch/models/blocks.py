@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from founddiff_tpu_torch.ops.attn_block import transposed_attention
 from founddiff_tpu_torch.ops.flash_attention import flash_attention
+from founddiff_tpu_torch.ops.groupnorm import group_norm_silu
 
 
 def conv_nhwc(x, weight, bias=None, stride=1, padding=0, groups=1):
@@ -79,29 +80,6 @@ class WSConv(nn.Conv2d):
         return y + self.bias.to(y.dtype)
 
 
-def group_norm_silu(x, scale, bias, residual=None, groups: int = 8, eps: float = 1e-5,
-                    scale_shift=None):
-    """``silu(GroupNorm(x) * scale + bias) (+ residual)`` in fp32, cast back
-    (``_gn_silu_xla``, groupnorm_pallas.py:150-166; the JAX default route).
-    ``scale_shift``: an optional (mod_scale, mod_shift) pair [B, C], folded
-    into the affine in fp32 as ``scale * (ms + 1)``, ``bias * (ms + 1) + mt``
-    (groupnorm_pallas.py:218-230)."""
-    B, H, W, C = x.shape
-    g, b = scale.float(), bias.float()
-    if scale_shift is not None:
-        ms, mt = (t.float().reshape(B, C) for t in scale_shift)
-        g, b = g * (ms + 1.0), b * (ms + 1.0) + mt
-    xf = x.float().reshape(B, H * W, groups, C // groups)
-    mean = xf.mean(dim=(1, 3), keepdim=True)
-    var = (xf * xf).mean(dim=(1, 3), keepdim=True) - mean * mean
-    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(B, H, W, C)
-    y = y * g.reshape(-1, 1, 1, C) + b.reshape(-1, 1, 1, C)
-    y = F.silu(y)
-    if residual is not None:
-        y = y + residual.float()
-    return y.to(x.dtype)
-
-
 class SinusoidalPosEmb(nn.Module):
     """reference src/DADiff.py:173-185 (sin first)."""
 
@@ -119,7 +97,9 @@ class SinusoidalPosEmb(nn.Module):
 
 class Block(nn.Module):
     """WSConv -> GroupNorm -> (scale/shift) -> SiLU (+ residual)
-    (src/DADiff.py:214-233)."""
+    (src/DADiff.py:214-233); the GroupNorm epilogue is
+    :func:`~founddiff_tpu_torch.ops.groupnorm.group_norm_silu`, whose route
+    (plain or the two kernels) follows ``FOUNDDIFF_GN``."""
 
     def __init__(self, c_in, c_out, groups=8):
         super().__init__()
@@ -129,8 +109,8 @@ class Block(nn.Module):
 
     def forward(self, x, residual=None, skip=None, scale_shift=None):
         y = self.proj(x, skip)
-        return group_norm_silu(y, self.norm.weight, self.norm.bias, residual,
-                               self.groups, 1e-5, scale_shift)
+        return group_norm_silu(y, self.norm.weight, self.norm.bias, residual=residual,
+                               scale_shift=scale_shift, groups=self.groups, eps=1e-5)
 
 
 class ResnetBlock(nn.Module):

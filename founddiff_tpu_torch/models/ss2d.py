@@ -3,6 +3,9 @@
 Routing is the TPU default of the JAX package (ss2d.py:267-317, 577-603):
 
 - norm1 is :func:`layer_norm_modulated` at every block;
+- with ``FOUNDDIFF_UNIFIED=1`` (off by default, as in the JAX package) norm1
+  and the whole SS2D half run as one op, :func:`ss2d_mamba_block`, at every
+  grid :func:`mamba_block_ok` takes (ss2d.py:219-265);
 - every SS2D on an even grid of at least 4x4 runs :func:`ss2d_image_block`
   (delta/B/C projections, scan, LayerNorm, silu gate, conditioning,
   out_proj, adaLN gate and residual in one op);
@@ -22,6 +25,11 @@ import torch.nn.functional as F
 
 from founddiff_tpu_torch.models.blocks import Dense, TransposedAttention, conv_nhwc
 from founddiff_tpu_torch.ops.attn_block import attn_block, attn_block_route
+from founddiff_tpu_torch.ops.experimental_unified import (
+    mamba_block_ok,
+    ss2d_mamba_block,
+    unified_route,
+)
 from founddiff_tpu_torch.ops.norm import layer_norm, layer_norm_modulated
 from founddiff_tpu_torch.ops.selective_scan import (
     efficient_merge,
@@ -77,6 +85,19 @@ class SS2D(nn.Module):
             raise ValueError(f"SS2D on the card takes even grids >= 4x4, got {H}x{W}")
         return self._unfused(x1, xs, c, local, A, Ds, gate, residual)
 
+    def forward_unified(self, x, c, norm1, mod_scale, mod_shift, gate):
+        """The whole SS2D half of the MambaBlock from its raw input x as one
+        op, :func:`ss2d_mamba_block` (ss2d.py:228-265): ``x + gate *
+        SS2D(modulate(norm1(x)))``."""
+        D, N = self.d_inner, self.d_state
+        return ss2d_mamba_block(
+            x, norm1.weight, norm1.bias, mod_scale, mod_shift, self.in_proj.weight,
+            self.conv2d.weight, self.conv2d.bias, self.x_proj_weight, self.dt_projs_weight,
+            -torch.exp(self.A_logs.float()).reshape(K_DIRS, D, N), self.Ds.reshape(K_DIRS, D),
+            self.dt_projs_bias, self.out_norm.weight, self.out_norm.bias,
+            self.attn(c)[:, 0] if c is not None else None, self.out_proj.weight, gate,
+            d_inner=D, dt_rank=self.dt_rank, d_state=N)
+
     def _unfused(self, x1, xs, c, local, A, Ds, gate, residual):
         """Plain composition for grids the fused block does not take
         (ss2d.py:319-401 with the chunked scan)."""
@@ -118,9 +139,15 @@ class MambaBlock(nn.Module):
         lin = self.adaLN_modulation[1]
         mod = F.linear(F.silu(t).float(), lin.weight.float(), lin.bias.float())
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
-        x1 = layer_norm_modulated(x, self.norm1.weight, self.norm1.bias, scale_msa,
-                                  shift_msa, eps=1e-5)
-        x = self.mamba(x1, c, gate_msa, residual=x)
+        if unified_route() and mamba_block_ok(H, W):
+            # the JAX conditions besides (ss2d.py:228-235) hold by construction:
+            # norm1 comes first, the residual is x, the conv is 3x3, and
+            # in_proj/out_proj have no bias and the block no dropout
+            x = self.mamba.forward_unified(x, c, self.norm1, scale_msa, shift_msa, gate_msa)
+        else:
+            x1 = layer_norm_modulated(x, self.norm1.weight, self.norm1.bias, scale_msa,
+                                      shift_msa, eps=1e-5)
+            x = self.mamba(x1, c, gate_msa, residual=x)
         if attn_block_route(H, W, h):
             return attn_block(x, scale_mlp, shift_mlp, gate_mlp, *self.attn_blk.weights(),
                               heads=self.attn_blk.heads, eps=1e-6)

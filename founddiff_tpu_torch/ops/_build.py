@@ -24,7 +24,8 @@ from typing import Dict, List
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("ln_mod", "ss2d_block", "attn_block", "scan", "scan_image", "flash_attention")
+SOURCES = ("ln_mod", "ss2d_block", "attn_block", "scan", "scan_image", "flash_attention",
+           "groupnorm", "mamba_block")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",

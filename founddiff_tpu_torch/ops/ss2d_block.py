@@ -63,6 +63,16 @@ def _mm(a, w, io):
 
 def _ss2d_block_plain(x1, xs, x_raw, w_z, w_delta, w_b, w_c, A, Dskip, delta_bias,
                       ln_g, ln_b, local, proj_w, gate, eps):
+    z = _mm(x1, w_z, xs.dtype).to(xs.dtype).float()
+    return _ss2d_tail_plain(z, xs, x_raw, w_delta, w_b, w_c, A, Dskip, delta_bias, ln_g, ln_b,
+                            local, proj_w, gate, eps)
+
+
+def _ss2d_tail_plain(z, xs, x_raw, w_delta, w_b, w_c, A, Dskip, delta_bias, ln_g, ln_b, local,
+                     proj_w, gate, eps):
+    """The block after its z projection (z: fp32 of the io-rounded z), as
+    ``csrc/ss2d_tail.cuh`` computes it: the scan, LN, the silu(z) gate,
+    +local, out_proj and the gated residual."""
     B, H, W, D = xs.shape
     io = xs.dtype
     seq = efficient_scan(xs, 2)  # [B, 4, L, D]
@@ -75,7 +85,6 @@ def _ss2d_block_plain(x1, xs, x_raw, w_z, w_delta, w_b, w_c, A, Dskip, delta_bia
     mean = y.mean(dim=-1, keepdim=True)
     var = (y * y).mean(dim=-1, keepdim=True) - mean * mean
     yn = (y - mean) * torch.rsqrt(var + eps) * ln_g.float() + ln_b.float()
-    z = _mm(x1, w_z, io).to(io).float()
     og = yn * (z * torch.sigmoid(z))
     if local is not None:
         og = og + local.float()[:, None, None, :]

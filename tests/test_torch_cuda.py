@@ -9,7 +9,8 @@ machine does not need.)  Small shapes with batch 2 and a non-square grid;
 ``chip_smoke.py`` holds the kernels at the serving path's full shapes.
 Tolerances, per element: |kernel - plain| <= atol + rtol * max |plain -
 base| + ulp(plain), where base is the residual the kernel passes through
-(x_raw, x; none for the norm), so rtol holds the part the kernel computes,
+(x_raw, x, the GroupNorm residual; none for the norms), so rtol holds the
+part the kernel computes,
 and the ulp term is the output's own rounding.  fp32 (1e-5, 1e-4) for the
 same arithmetic summed in another order; bf16 (1e-3, 8e-3), two bf16 ulps
 for an intermediate that rounds one ulp apart at an io-dtype rounding point.
@@ -27,7 +28,9 @@ import pytest
 import torch
 
 from founddiff_tpu_torch.ops import attn_block as attn_mod
+from founddiff_tpu_torch.ops import experimental_unified as unified_mod
 from founddiff_tpu_torch.ops import flash_attention as flash_mod
+from founddiff_tpu_torch.ops import groupnorm as gn_mod
 from founddiff_tpu_torch.ops import norm as norm_mod
 from founddiff_tpu_torch.ops import scan as scan_mod
 from founddiff_tpu_torch.ops import ss2d_block as ss2d_mod
@@ -311,3 +314,93 @@ def test_flash_refuses_what_the_kernels_do_not_take(dev):
         flash_mod.flash_fwd(q, q.bfloat16(), q, 1.0)
     with pytest.raises(TypeError):
         flash_mod.flash_fwd(q.half(), q.half(), q.half(), 1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C,res", [(64, True), (128, False)])
+def test_group_norm_kernels(dev, dtype, C, res):
+    g = _gen(C + res)
+    B, R = 2, 12 * 20
+    x = (_n(g, (B, R, C), 1.5, dev) + 0.3).to(dtype)
+    r = _n(g, (B, R, C), 1.0, dev).to(dtype) if res else None
+    gam, bet = _n(g, (B, C), 0.1, dev) + 1, _n(g, (B, C), 0.1, dev)
+    before = (gn_mod.gn_stats.launches, gn_mod.gn_apply.launches)
+    sums = gn_mod.gn_stats(x)
+    want = gn_mod.gn_stats_plain(x)
+    _close(sums[:, 0], want[:, 0], torch.float32)
+    _close(sums[:, 1], want[:, 1], torch.float32)
+    mean, rstd = gn_mod.group_stats(want, R, 8, 1e-5)
+    _close(gn_mod.gn_apply(x, mean, rstd, gam, bet, r),
+           gn_mod.gn_apply_plain(x, mean, rstd, gam, bet, r), dtype, base=r)
+    assert (gn_mod.gn_stats.launches, gn_mod.gn_apply.launches) == tuple(n + 1 for n in before)
+
+
+@pytest.mark.gpu
+def test_group_norm_silu_fn_grads(dev, monkeypatch):
+    monkeypatch.setenv("FOUNDDIFF_GN", "pallas")
+    g = _gen(9)
+    args = (_n(g, (2, 12, 20, 64), 1.5, dev), _n(g, (64,), 0.1, dev) + 1, _n(g, (64,), 0.1, dev),
+            _n(g, (2, 12, 20, 64), 1.0, dev), _n(g, (2, 64), 0.2, dev), _n(g, (2, 64), 0.2, dev))
+    _grad_check(lambda x, s, b, r, ms, mt: gn_mod.group_norm_silu(
+        x, s, b, residual=r, scale_shift=(ms, mt), groups=8), args, dev)
+
+
+def _mamba_args(g, B, H, W, C0, N, dtype, dev, local=True):
+    D, R = 2 * C0, -(-C0 // 16)
+    _, _, A, _, _, Ds, bias = _scan_inputs(g, 1, 1, D, N, torch.float32, dev)
+    u = lambda *s, b: ((torch.rand(s, generator=g) * 2 - 1) * b).to(dev)
+    return dict(
+        x=(_n(g, (B, H, W, C0), 1.0, dev) + 0.2).to(dtype), ln_scale=_n(g, (C0,), 0.1, dev) + 1,
+        ln_bias=_n(g, (C0,), 0.1, dev), mod_scale=_n(g, (B, C0), 0.2, dev),
+        mod_shift=_n(g, (B, C0), 0.2, dev), in_proj_w=u(2 * D, C0, b=C0 ** -0.5),
+        dw_kernel=u(D, 1, 3, 3, b=1 / 3), dw_bias=u(D, b=1 / 3),
+        x_proj_weight=u(4, R + 2 * N, D, b=D ** -0.5), dt_projs_weight=u(4, D, R, b=R ** -0.5),
+        A=A, Dskip=Ds, delta_bias=bias, out_ln_g=_n(g, (D,), 0.1, dev) + 1,
+        out_ln_b=_n(g, (D,), 0.1, dev), local=_n(g, (B, D), 0.2, dev) if local else None,
+        proj_w=u(C0, D, b=D ** -0.5), gate=_n(g, (B, C0), 0.3, dev),
+        d_inner=D, dt_rank=R, d_state=N)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,W,C0,N,local", [(16, 12, 32, 4, True), (8, 8, 64, 16, False)])
+def test_ss2d_mamba_block_kernel(dev, dtype, H, W, C0, N, local):
+    args = _mamba_args(_gen(H * W + C0), 2, H, W, C0, N, dtype, dev, local)
+    before = unified_mod.ss2d_mamba_block.launches
+    got = unified_mod.ss2d_mamba_block(**args)
+    assert unified_mod.ss2d_mamba_block.launches == before + 1
+    _close(got, unified_mod.ss2d_mamba_block_plain(**args), dtype, base=args["x"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,C0,N", [(16, 32, 4), (8, 128, 32)])
+def test_ss2d_mamba_block_fn_grads(dev, H, C0, N):
+    args = _mamba_args(_gen(H + C0 + 1), 2, H, H, C0, N, torch.float32, dev)
+    names = [k for k, v in args.items() if torch.is_tensor(v)]
+    _grad_check(lambda *a: unified_mod.ss2d_mamba_block(
+        **dict(zip(names, a)), d_inner=2 * C0, dt_rank=-(-C0 // 16), d_state=N),
+        [args[k] for k in names], dev)
+
+
+@pytest.mark.gpu
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.zeros(2, 16, 12, device=dev)  # C % 8 != 0
+    with pytest.raises(ValueError):
+        gn_mod.gn_stats(x)
+    args = _mamba_args(_gen(1), 1, 6, 10, 32, 4, torch.float32, dev)
+    args["x"] = torch.zeros(1, 7, 10, 32, device=dev)  # odd H
+    with pytest.raises(ValueError):
+        unified_mod.ss2d_mamba_block(**args)
+
+
+@pytest.mark.gpu
+def test_vector_kernels_refuse_misaligned_tensors(dev):
+    """The GroupNorm and flash kernels load 16 bytes at a time: a contiguous
+    view that starts one element into its storage is refused, not read."""
+    shifted = lambda *s: torch.ones(math.prod(s) + 1, device=dev)[1:].view(*s)
+    with pytest.raises(RuntimeError):
+        gn_mod.gn_stats(shifted(2, 16, 64))
+    q = torch.zeros(1, 1, 8, 32, device=dev)
+    with pytest.raises(RuntimeError):
+        flash_mod.flash_fwd(shifted(1, 1, 8, 32), q, q, 1.0)
