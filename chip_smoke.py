@@ -7,7 +7,7 @@ Phases (any failure exits non-zero before the last line is printed):
 
 1. Device and build: requires CUDA, prints the card's name and power limit,
    turns TF32 off (for every fp32 comparison, and for the fp32 serving and
-   training of phases 7-11), builds the eight kernel libraries from
+   training of phases 7-14), builds the nine kernel libraries from
    ``founddiff_tpu_torch/csrc`` (one nvcc per source, all started together)
    and prints the build seconds.  Phases 1-9 run with ``FOUNDDIFF_GN`` and
    ``FOUNDDIFF_UNIFIED`` unset (the default routes); 10 and 11 set them.
@@ -30,7 +30,16 @@ Phases (any failure exits non-zero before the last line is printed):
    for the GroupNorm pair that of ``F.group_norm`` on a contiguous NCHW
    copy, in ``gn_apply``'s rows only (the pair's one yardstick: the
    normalisation and a per-channel affine, without the per-image fold, the
-   silu or the residual).
+   silu or the residual), for ``layer_norm`` that of ``F.layer_norm``.  The
+   kernels of phases 12-14: ``scan_fused_forward`` at the three 45^2
+   MambaBlocks of a 360^2 slice (L 529, D 512 and 1024, N 32) at batches 1,
+   2 and 4, its h_bounds also against ``scan_forward``'s on the same
+   delta/B/C; ``layer_norm`` at those rows (B * 2025, C 512 and 1024) with
+   and without its affine; the epilogue ``merge_ln_gate`` on the joint
+   layout at the 360^2 top scale where the JAX package runs it on a TPU
+   ([B, 4, 32400, 128], Co 64) and on the split layout at the 16^2 route's
+   2x2 grids (C 512 and 1024) and at 360^2 and 180^2, with and without the
+   folded out_proj.
 3. Main path at full width: ``build(Config())`` on the card (dim 64 x
    (1, 2, 4, 8), full RN50 CLIPIQA tower, seeded random weights with
    non-zero adaLN and prompt), ``make_hoisted_sampler(...,
@@ -96,14 +105,37 @@ Phases (any failure exits non-zero before the last line is printed):
    and 76 / 76 GroupNorm launches per step), each printed beside phases 8
    and 9; then the 38 GroupNorm epilogues of a bs1 fp32 vanilla forward
    timed on each route against that forward's device-busy time.
+12. FoundDiff serving on slices whose deepest grid is odd: the phase-3
+   model on 4 bs1 requests of a 360^2 slice (8 x 45: the three deepest
+   MambaBlocks run at 45^2, on the unfused route) and 2 batches of 4, with 6
+   ``ss2d_image_block``, 18 ``layer_norm_modulated``, 3
+   ``scan_fused_forward`` and 3 ``layer_norm`` launches per UNet forward
+   and no other; slices/s, peak memory, PSNR >= 40 dB of the bs1 request
+   against the plain path (every kernel swapped for its plain version) and
+   a profile of one bs1 and one bs4 request; then the same requests of 16^2
+   slices (the three deepest grids 2x2, on the epilogue route: 6
+   ``ss2d_image_block``, 1 ``attn_block``, 17 ``layer_norm_modulated``, 3
+   ``scan_image_forward`` and 3 ``merge_ln_gate`` per forward), PSNR >= 40
+   dB of the bs1 request against the plain path.
+13. Autograd as phase 6 on the two new routes: one MambaBlock on the
+   unfused route (45^2, C 256, N 32) and one on the epilogue route (2x2, C
+   512, N 32), batch 2, fp32, kernel path against the plain path.
+14. Training at 360^2: phase 7 on ``Config()`` with ``image_size`` 360
+   (1 warm-up, 3 timed fp32 steps, a profiled step and 2 bf16 steps), with
+   12 / 36 / 6 / 6 / 12 / 18 launches per step of ``ss2d_image_block``,
+   ``layer_norm_modulated``, ``scan_fused_forward``, ``layer_norm``,
+   ``scan_forward`` and ``scan_backward`` and no other.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches on
-its path, phase 3 for the serving kernels, phase 10's requests for
+its path, phase 3 for the serving kernels, phase 12's 360^2 requests for
+``scan_fused_forward`` and ``layer_norm`` and its 16^2 requests for
+``merge_ln_gate``, phase 10's requests for
 ``ss2d_mamba_block``, phase 7's timed steps for the scan kernels, phase 8's
 sample for ``flash_fwd``, phase 11's for the GroupNorm pair and phase 9's
 timed fp32 steps for the flash backward; the worst error of phase 2; and the
 summed times of the calls of one bs1 bf16 UNet forward (serving kernels and
-``ss2d_mamba_block``), one bs1 fp32 vanilla UNet forward (``flash_fwd``, the
+``ss2d_mamba_block`` at 512^2, ``scan_fused_forward`` and ``layer_norm`` at
+360^2, ``merge_ln_gate`` at 16^2), one bs1 fp32 vanilla UNet forward (``flash_fwd``, the
 GroupNorm pair) or one fp32 train step (the scan and flash backward
 kernels)); the last is ``{"ok": true, "device": {...}}``.
 A longer record goes to ``chiprun_out/chip_smoke.json``.
@@ -189,6 +221,11 @@ SOURCES = {
                  "founddiff_tpu/ops/groupnorm_pallas.py:50"),
     "ss2d_mamba_block": ("founddiff_tpu_torch/csrc/mamba_block.cu",
                          "founddiff_tpu/ops/experimental_unified.py:173 and :265"),
+    "scan_fused_forward": ("founddiff_tpu_torch/csrc/scan.cu",
+                           "founddiff_tpu/ops/scan_pallas.py:630"),
+    "layer_norm": ("founddiff_tpu_torch/csrc/ln_mod.cu", "founddiff_tpu/ops/norm_pallas.py:23"),
+    "merge_ln_gate": ("founddiff_tpu_torch/csrc/ss2d_epilogue.cu",
+                      "founddiff_tpu/ops/ss2d_fused.py:32"),
 }
 SERVING = ("ss2d_image_block", "attn_block", "layer_norm_modulated")
 FLASH_BWD = ("flash_bwd_dq", "flash_bwd_dkv")
@@ -223,6 +260,25 @@ PER_STEP_ROUTES = {"ss2d_mamba_block": 18, "attn_block": 12, "layer_norm_modulat
                    "gn_stats": 20, "gn_apply": 20, "scan_image_forward": 10,
                    "scan_forward": 18, "scan_backward": 18}
 VANILLA_PER_STEP_GN = dict(VANILLA_PER_STEP, gn_stats=76, gn_apply=76)
+# the two routes of phases 12-14: a 360^2 slice (8 x 45) puts down_3, mid and
+# up_0 on a 45^2 grid (odd: the unfused route), a 16^2 slice on a 2x2 grid
+# (even but too small for the fused block: the epilogue route, whose image
+# scan takes those grids); (C, d_state, blocks per UNet forward) of the three
+ODD_SIZE, EPI_SIZE = 360, 16
+DEEP = ((256, 32, 1), (512, 32, 2))
+ODD_L = 23 ** 2  # the scan length of a 45^2 grid: efficient_scan pads it to 46^2
+# launches per UNet forward at 360^2 (the six even blocks on the fused
+# block, no attn_block: C < 128 or H % 8 != 0 at every scale) and at 16^2
+# (the attention half of up_2, 8^2 at C 128, on attn_block)
+PER_FORWARD_360 = {"ss2d_image_block": 6, "layer_norm_modulated": 18,
+                   "scan_fused_forward": 3, "layer_norm": 3}
+PER_FORWARD_16 = {"ss2d_image_block": 6, "attn_block": 1, "layer_norm_modulated": 17,
+                  "scan_image_forward": 3, "merge_ln_gate": 3}
+# launches per train step at 360^2: the forward twice, the remat backward of
+# the six fused blocks on the decimated scan (image_scan_vmem_ok is False at
+# every even 360^2 scale), the three unfused blocks' scan backward
+PER_STEP_360 = {"ss2d_image_block": 12, "layer_norm_modulated": 36, "scan_fused_forward": 6,
+                "layer_norm": 6, "scan_forward": 12, "scan_backward": 18}
 
 
 def log(*a):
@@ -443,6 +499,133 @@ def scan_image_case(H, C, N, dtype, gen, dev):
     moved = nbytes(*args) + nbytes(x)
     mm = 2 * P * (2 * D * R + 2 * N * D)
     return args, {}, None, moved, [(mm, PEAK_FLOPS[dtype]), (P * D * (6 * N + 5), FP32_FLOPS)]
+
+
+def scan_fused_case(B, C0, N, dtype, gen, dev):
+    """The fused-projection scan of one 45^2 block at batch B: xs the padded
+    decimated sequences of a post-silu activation, the folded weights at
+    the io dtype."""
+    from founddiff_tpu_torch.ops.scan import _derive_weights, scan_chunk
+
+    D, R, L = 2 * C0, -(-C0 // 16), ODD_L
+    xs = torch.nn.functional.silu(_n(gen, (B, 4, L, D), 1.0, dev)).to(dtype)
+    w = _derive_weights(_u(gen, (4, R + 2 * N, D), D ** -0.5, dev),
+                        _u(gen, (4, D, R), R ** -0.5, dev), R, N)
+    A = -torch.arange(1, N + 1, dtype=torch.float32).expand(4, D, N).contiguous().to(dev)
+    args = (xs, *(t.contiguous().to(dtype) for t in w), A, torch.ones(4, D, device=dev),
+            _dt_bias(gen, 4, D, dev))
+    G = 4 * B
+    # xs and the folded weights in and y out at the io dtype, A, Dskip and
+    # bias in and h_bounds out in fp32; the folded projection (D + 2N
+    # multiply-adds per step and channel) on the io dtype's unit, the scan
+    # in fp32
+    moved = nbytes(*args) + nbytes(xs) + 4 * G * -(-L // scan_chunk(N)) * N * D
+    mm = 2 * G * L * D * (D + 2 * N)
+    return args, {}, None, moved, [(mm, PEAK_FLOPS[dtype]), (G * L * D * (6 * N + 5), FP32_FLOPS)]
+
+
+def layer_norm_case(B, C, affine, dtype, gen, dev):
+    """out_norm of a 45^2 block: B * 2025 rows of C; ``F.layer_norm`` (its
+    affine at the io dtype) is the yardstick."""
+    x = _n(gen, (B, 45 * 45, C), 1.0, dev).add_(0.3).to(dtype)
+    g = _n(gen, (C,), 0.1, dev).add_(1.0) if affine else None
+    b = _n(gen, (C,), 0.1, dev) if affine else None
+    lib_w = [None if t is None else t.to(dtype) for t in (g, b)]
+    library = lambda: torch.nn.functional.layer_norm(x, (C,), *lib_w, 1e-5)
+    # x in and out at the io dtype, the affine in fp32; about 8 operations per element
+    return ((x, g, b), {}, None, nbytes(x, g, b) + nbytes(x), [(8 * x.numel(), FP32_FLOPS)],
+            library)
+
+
+def epilogue_case(B, H, C, Co, split, fold, dtype, gen, dev):
+    """The SS2D epilogue at batch B on an H x H grid: ys joint [B, 4, L, C]
+    or split (its row and column views), raw z, the out_norm affine, local
+    at the io dtype and, with ``fold``, out_proj [C, Co], the adaLN gate
+    and the residual."""
+    L, P = (H // 2) ** 2, B * H * H
+    io = torch.tensor([], dtype=dtype).element_size()
+    ys = _n(gen, (B, 4, L, C), 1.0, dev).to(dtype)
+    z = _n(gen, (B, H, H, C), 1.0, dev).to(dtype)
+    scale, bias = _n(gen, (C,), 0.1, dev).add_(1.0), _n(gen, (C,), 0.1, dev)
+    local = _n(gen, (B, C), 0.2, dev).to(dtype)
+    kw = dict(H=H, W=H, gate_silu=True, split=split)
+    args = (ys[:, 0::2], ys[:, 1::2]) if split else (ys,)
+    args += (z, scale, bias, local)
+    # ys, z and local in at the io dtype, the affine in fp32; out at the io
+    # dtype (C channels, or with fold Co after the residual, out_proj at the
+    # io dtype and the gate in fp32 are read); per element about 14 fp32
+    # operations and one exponential (silu), with fold out_proj's products
+    moved = nbytes(ys, z, scale, bias, local)
+    work = [(14 * P * C, FP32_FLOPS), (P * C, SFU_EXP_PER_S)]
+    if fold:
+        kw.update(proj_w=_u(gen, (C, Co), C ** -0.5, dev), gate=_n(gen, (B, Co), 0.3, dev),
+                  residual_x=_n(gen, (B, H, H, Co), 1.0, dev).to(dtype))
+        moved += 2 * io * P * Co + io * C * Co + 4 * B * Co
+        work.append((2 * P * C * Co, PEAK_FLOPS[dtype]))
+    else:
+        moved += io * P * C
+    return args, kw, kw.get("residual_x"), moved, work
+
+
+def unfused_cases(B):
+    """(kernel, label, calls per bs1 UNet forward, builder) of the kernels of
+    phases 12-14 at batch B: the fused scan and ``layer_norm`` at the 360^2
+    slice's three 45^2 blocks (``layer_norm`` also without its affine, 0
+    calls), the epilogue at the 16^2 slice's three 2x2 blocks (split) and,
+    0 calls, at the JAX package's 360^2 top-scale shapes (joint) and at
+    360^2 and 180^2 split, with and without the folded out_proj."""
+    cases = []
+    serve = B != TRAIN_BATCH  # the epilogue runs when serving only
+    for C0, N, n in DEEP:
+        D = 2 * C0
+        cases.append(("scan_fused_forward", f"bs{B} 45^2 L={ODD_L} D={D} N={N}", n,
+                      lambda dt, g, d, C0=C0, N=N: scan_fused_case(B, C0, N, dt, g, d)))
+        for affine in (True, False):
+            cases.append(("layer_norm", f"bs{B} R={B * 2025} C={D}"
+                          + ("" if affine else " no affine"), n if affine else 0,
+                          lambda dt, g, d, D=D, a=affine: layer_norm_case(B, D, a, dt, g, d)))
+        if serve:
+            cases.append(("merge_ln_gate", f"bs{B} split 2x2 C={D} Co={C0}", n,
+                          lambda dt, g, d, D=D, C0=C0: epilogue_case(B, 2, D, C0, True, True,
+                                                                     dt, g, d)))
+    if serve:
+        cases.append(("merge_ln_gate", f"bs{B} joint 360^2 C=128 Co=64", 0,
+                      lambda dt, g, d: epilogue_case(B, 360, 128, 64, False, True, dt, g, d)))
+    if B == 1:
+        for label, H, C, Co, split, fold in (
+                ("joint 360^2 C=128 no fold", 360, 128, 128, False, False),
+                ("split 360^2 C=128 Co=64", 360, 128, 64, True, True),
+                ("split 180^2 C=256 Co=128", 180, 256, 128, True, True),
+                ("split 2x2 C=1024 no fold", 2, 1024, 1024, True, False)):
+            cases.append(("merge_ln_gate", f"bs1 {label}", 0,
+                          lambda dt, g, d, a=(H, C, Co, split, fold): epilogue_case(
+                              1, *a, dt, g, d)))
+    return cases
+
+
+def check_fused_h_bounds():
+    """``scan_fused_forward``'s h_bounds against ``scan_forward``'s on the
+    same delta/B/C (their fp32 products; the fused kernel sums them in
+    another order), fp32, at the training batch: the state the backward
+    reads."""
+    from founddiff_tpu_torch.ops.scan import scan_forward, scan_fused_forward
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(45)
+    result, failed = {}, []
+    for C0, N, _ in DEEP:
+        xs, wd, wb, wc, A, Ds, bias = scan_fused_case(TRAIN_BATCH, C0, N, torch.float32, gen,
+                                                      dev)[0]
+        _, hb = scan_fused_forward(xs, wd, wb, wc, A, Ds, bias)
+        _, hb_ref = scan_forward(xs, xs @ wd[None], A, xs @ wb[None], xs @ wc[None], Ds, bias)
+        err, excess, scale, tol, ok = compare(hb, hb_ref, None, torch.float32)
+        label = f"B{TRAIN_BATCH} D={2 * C0} N={N}"
+        log(f"[kernel] scan_fused_forward h_bounds against scan_forward's, {label}: err "
+            f"{err:.3e}, past 1 ulp {excess:.3e} (tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
+        result[label] = dict(max_abs_err=err, err_past_ulp=excess, tol=tol, ok=ok)
+        if not ok:
+            failed.append(label)
+    return result, failed
 
 
 def train_cases():
@@ -730,19 +913,35 @@ def profile_device(run, tag: str, top: int = 25):
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, groups=groups, kernels=rows)
 
 
-def check_autograd(ss2d_model, plain, wrappers, tag="autograd"):
-    """Phases 6 and 10: d(sum(out * w))/d(x, every parameter) of one
-    MambaBlock at 256^2 C 128 and one at 64^2 C 512, batch 2, fp32, through
-    the kernel path and through the plain path (the wrappers in ``plain``
-    swapped in ``models/ss2d.py`` for their plain versions, which autograd
-    differentiates directly).  On the default route the first block takes
-    the image scan and the second the decimated scan in its backward."""
+@contextlib.contextmanager
+def swapped(swaps):
+    """``swaps``: {(module, name): fn}, each attribute set for the block and
+    restored after it (the plain path: each wrapper's plain version in the
+    module that calls it)."""
+    saved = {k: getattr(*k) for k in swaps}
+    try:
+        for (mod, name), fn in swaps.items():
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def check_autograd(plain, wrappers, tag="autograd", shapes=((256, 128, 8), (64, 512, 32))):
+    """Phases 6, 10 and 13: d(sum(out * w))/d(x, every parameter) of one
+    MambaBlock at each (H = W, C, d_state) of ``shapes`` (by default 256^2 C
+    128 and 64^2 C 512), batch 2, fp32, through the kernel path and through
+    the plain path (``plain``: the swaps of :func:`swapped`, the plain
+    versions, which autograd differentiates directly).  On the default
+    route the first default block takes the image scan and the second the
+    decimated scan in its backward."""
     from founddiff_tpu_torch.factory import init_params
     from founddiff_tpu_torch.models.ss2d import MambaBlock
 
     dev = torch.device("cuda")
     result, failed = {}, []
-    for H, C, N in ((256, 128, 8), (64, 512, 32)):
+    for H, C, N in shapes:
         gen = torch.Generator().manual_seed(H + C)
         block = MambaBlock(C, N, time_dim=256)
         init_params(block, gen)
@@ -763,14 +962,8 @@ def check_autograd(ss2d_model, plain, wrappers, tag="autograd"):
             fn.launches = 0
         g_kernel = grads()
         used = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
-        saved = {n: getattr(ss2d_model, n) for n in plain}
-        try:
-            for n, fn in plain.items():
-                setattr(ss2d_model, n, fn)
+        with swapped(plain):
             g_plain = grads()
-        finally:
-            for n, fn in saved.items():
-                setattr(ss2d_model, n, fn)
         label = f"MambaBlock {H}^2 C={C} N={N}"
         result[label] = grad_errors(tag, label, names, g_kernel, g_plain, used, failed)
         del block, g_kernel, g_plain
@@ -1184,6 +1377,32 @@ def gn_share(card, forward_busy_ms):
     return dict(result, forward_busy_ms=forward_busy_ms)
 
 
+def plain_gate(request, x, plain, wrappers, tag, steps):
+    """The numerics gate of phases 4 and 12: the request of seed 7 through
+    the kernel path and through the plain path (``plain``: the swaps of
+    :func:`swapped`; it must launch no kernel), PSNR >= 40 dB on the [0, 1]
+    output window."""
+    fused = request(x, 7)
+    for fn in wrappers.values():
+        fn.launches = 0
+    with swapped(plain):
+        t0 = time.perf_counter()
+        ref = request(x, 7)
+        t_plain = time.perf_counter() - t0
+    launched = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    if launched:
+        raise AssertionError(f"{tag}: the plain path launched kernels {launched}")
+    gate_db = psnr(fused, ref)
+    max_diff = float((fused - ref).abs().max())
+    size = x.shape[1]
+    log(f"[{tag} gate] DDIM-{steps} {size}^2 bs{len(x)} bf16 kernel vs plain path: PSNR "
+        f"{gate_db:.2f} dB (gate {PSNR_GATE_DB}), max |diff| {max_diff:.3e}, plain path "
+        f"{t_plain:.2f} s")
+    if not (math.isfinite(max_diff) and gate_db >= PSNR_GATE_DB):
+        raise AssertionError(f"{tag} numerics gate failed: {gate_db:.2f} dB")
+    return dict(psnr_db=gate_db, threshold_db=PSNR_GATE_DB, max_abs_diff=max_diff)
+
+
 def psnr(a, b) -> float:
     mse = float(((a.float() - b.float()) ** 2).mean())
     return float("inf") if mse == 0 else 10 * math.log10(1.0 / mse)
@@ -1204,6 +1423,7 @@ def main() -> int:
     from founddiff_tpu_torch.ops import norm as norm_mod
     from founddiff_tpu_torch.ops import scan as scan_mod
     from founddiff_tpu_torch.ops import ss2d_block as ss2d_mod
+    from founddiff_tpu_torch.ops import ss2d_fused as fused_mod
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -1252,28 +1472,44 @@ def main() -> int:
         "gn_stats": (halves(gn_mod.gn_stats), halves(gn_mod.gn_stats_plain)),
         "gn_apply": (gn_mod.gn_apply, gn_mod.gn_apply_plain),
         "ss2d_mamba_block": (unified_mod.ss2d_mamba_block, unified_mod.ss2d_mamba_block_plain),
+        "scan_fused_forward": (scan_mod.scan_fused_forward,
+                               lambda *a: scan_mod.scan_fused_forward_plain(
+                                   *a, scan_mod.scan_chunk(a[4].shape[-1]))),
+        "layer_norm": (norm_mod.layer_norm, norm_mod.layer_norm_plain),
+        # the epilogue on either layout: one kernel, one launch count
+        "merge_ln_gate": (
+            lambda *a, split, **k: (fused_mod.merge_ln_gate_split if split
+                                    else fused_mod.merge_ln_gate)(*a, **k),
+            lambda *a, split, **k: (fused_mod.merge_ln_gate_split_plain if split
+                                    else fused_mod.merge_ln_gate_plain)(*a, **k)),
     }
     wrappers = {k: getattr(mod, k) for k, mod in (
         ("ss2d_image_block", ss2d_mod), ("attn_block", attn_mod),
         ("layer_norm_modulated", norm_mod), ("scan_forward", scan_mod),
         ("scan_backward", scan_mod), ("scan_image_forward", scan_mod), ("flash_fwd", flash_mod),
         ("flash_bwd_dq", flash_mod), ("flash_bwd_dkv", flash_mod), ("gn_stats", gn_mod),
-        ("gn_apply", gn_mod), ("ss2d_mamba_block", unified_mod))}
+        ("gn_apply", gn_mod), ("ss2d_mamba_block", unified_mod),
+        ("scan_fused_forward", scan_mod), ("layer_norm", norm_mod),
+        ("merge_ln_gate", fused_mod))}
 
     # phase 2: kernels against their plain versions
     cases = [(b, *c) for b in (1, 4) for c in kernel_cases(b)]
     cases += [(TRAIN_BATCH, *c) for c in train_cases()]
     cases += flash_cases()
     cases += [(b, *c) for b in (1, TRAIN_BATCH, 4) for c in route_cases(b)]
+    cases += [(b, *c) for b in (1, TRAIN_BATCH, 4) for c in unfused_cases(b)]
     rows, failed = check_kernels(ops, cases)
+    bounds, bounds_failed = check_fused_h_bounds()
+    failed += bounds_failed
     record = dict(card=card, build_seconds=built["seconds"], ptxas=built["logs"],
-                  kernel_cases=rows)
+                  kernel_cases=rows, fused_h_bounds=bounds)
     if failed:
         _write_record(record)
         raise AssertionError(f"kernels disagree with their plain versions: {failed}")
     # phase 3: the main path at full width
     from founddiff_tpu_torch.config import Config
     from founddiff_tpu_torch.factory import build
+    from founddiff_tpu_torch.models import blocks as blocks_mod
     from founddiff_tpu_torch.models import ss2d as ss2d_model
     from founddiff_tpu_torch.pipeline import make_hoisted_sampler
 
@@ -1304,35 +1540,17 @@ def main() -> int:
         f"{main['peak_memory_gib']:.2f} GiB [{card}]")
 
     # phase 4: numerics gate, kernel path against the plain path
-    x1 = x_all[:1]
-    fused = request(x1, 7)
-    plain_default = {"ss2d_image_block": ss2d_mod.ss2d_image_block_plain,
-                     "attn_block": attn_mod.attn_block_plain,
-                     "layer_norm_modulated": norm_mod.layer_norm_modulated_plain}
-    saved = {n: getattr(ss2d_model, n) for n in plain_default}
-    try:
-        for n, fn in plain_default.items():
-            setattr(ss2d_model, n, fn)
-        t0 = time.perf_counter()
-        plain = request(x1, 7)
-        t_plain = time.perf_counter() - t0
-    finally:
-        for n, fn in saved.items():
-            setattr(ss2d_model, n, fn)
-    gate_db = psnr(fused, plain)
-    max_diff = float((fused - plain).abs().max())
-    log(f"[gate] DDIM-{steps} {size}^2 bs1 bf16 kernel vs plain path: PSNR {gate_db:.2f} dB "
-        f"(gate {PSNR_GATE_DB}), max |diff| {max_diff:.3e}, plain path {t_plain:.2f} s")
-    record["gate"] = dict(psnr_db=gate_db, threshold_db=PSNR_GATE_DB, max_abs_diff=max_diff)
-    if not (math.isfinite(max_diff) and gate_db >= PSNR_GATE_DB):
-        raise AssertionError(f"numerics gate failed: {gate_db:.2f} dB")
+    plain_default = {(ss2d_model, "ss2d_image_block"): ss2d_mod.ss2d_image_block_plain,
+                     (ss2d_model, "attn_block"): attn_mod.attn_block_plain,
+                     (ss2d_model, "layer_norm_modulated"): norm_mod.layer_norm_modulated_plain}
+    record["gate"] = plain_gate(request, x_all[:1], plain_default, wrappers, "main", steps)
 
     # phase 5: where the device time of one request goes
     record["profile"] = {f"bs{len(x)}": profile_device(lambda: request(x, 9), f"bs{len(x)}")
                          for x in (x_all[:1], x_all)}
 
     # phase 6: autograd through the kernels against the plain path
-    record["autograd"] = check_autograd(ss2d_model, plain_default, wrappers)
+    record["autograd"] = check_autograd(plain_default, wrappers)
     # phase 7: training at full width
     record["train"] = train_full_width(wrappers, card, Config(), PER_STEP, "train")
     # phase 8: the vanilla DDPM path, serving
@@ -1362,8 +1580,8 @@ def main() -> int:
             raise AssertionError(f"routes numerics gate failed: {on['psnr_db']:.2f} dB")
         on["profile"] = profile_device(lambda: request(x_all[:1], 9), "routes bs1")
         record["routes_autograd"] = check_autograd(
-            ss2d_model, dict(plain_default,
-                             ss2d_mamba_block=unified_mod.ss2d_mamba_block_plain),
+            {**plain_default,
+             (ss2d_model, "ss2d_mamba_block"): unified_mod.ss2d_mamba_block_plain},
             wrappers, "autograd routes")
     record["gn_autograd"] = check_gn_autograd(wrappers)
     with routes_on(**ROUTES):
@@ -1390,6 +1608,44 @@ def main() -> int:
         f"{statistics.median(record['vanilla_train']['step_s']):.4f} s [{card}]")
     record["gn_share"] = gn_share(card, v["profile"]["busy_ms"])
 
+    # phase 12: serving slices whose deepest grid is odd (360^2), and 16^2
+    plain_all = {**plain_default,
+                 (ss2d_model, "selective_scan_fused"): scan_mod.selective_scan_fused_plain,
+                 (ss2d_model, "scan_image"): scan_mod.scan_image_forward_plain,
+                 (ss2d_model, "merge_ln_gate"): fused_mod.merge_ln_gate_plain,
+                 (ss2d_model, "merge_ln_gate_split"): fused_mod.merge_ln_gate_split_plain,
+                 (blocks_mod, "layer_norm"): norm_mod.layer_norm_plain}
+    x_odd = torch.from_numpy(np.random.default_rng(1).random(
+        (4, ODD_SIZE, ODD_SIZE, 1), dtype=np.float32)).cuda()
+    record["odd"], _ = serve_requests(request, x_odd, wrappers, PER_FORWARD_360, steps,
+                                      f"odd {ODD_SIZE}")
+    odd = record["odd"]
+    log(f"[odd {ODD_SIZE}] DDIM-{steps} {ODD_SIZE}^2 bf16: bs1 {odd['bs1_slices_per_s']:.3f} "
+        f"slices/s (request s {[round(t, 4) for t in odd['bs1_request_s']]}), bs4 "
+        f"{odd['bs4_slices_per_s']:.3f} slices/s (batch s "
+        f"{[round(t, 4) for t in odd['bs4_batch_s']]}), peak memory "
+        f"{odd['peak_memory_gib']:.2f} GiB [{card}]")
+    odd["gate"] = plain_gate(request, x_odd[:1], plain_all, wrappers, f"odd {ODD_SIZE}",
+                             steps)
+    odd["profile"] = {f"bs{len(x)}": profile_device(lambda: request(x, 9),
+                                                    f"odd {ODD_SIZE} bs{len(x)}")
+                      for x in (x_odd[:1], x_odd)}
+    x_small = torch.from_numpy(np.random.default_rng(2).random(
+        (4, EPI_SIZE, EPI_SIZE, 1), dtype=np.float32)).cuda()
+    record["small"], _ = serve_requests(request, x_small, wrappers, PER_FORWARD_16, steps,
+                                        f"small {EPI_SIZE}")
+    record["small"]["gate"] = plain_gate(request, x_small[:1], plain_all, wrappers,
+                                         f"small {EPI_SIZE}", steps)
+    # phase 13: autograd on the unfused and the epilogue routes
+    record["unfused_autograd"] = check_autograd(
+        plain_all, wrappers, "autograd unfused",
+        shapes=((45, DEEP[0][0], DEEP[0][1]), (2, DEEP[1][0], DEEP[1][1])))
+    # phase 14: training at 360^2
+    cfg_odd = Config()
+    cfg_odd.diffusion.image_size = ODD_SIZE
+    record["train_odd"] = train_full_width(wrappers, card, cfg_odd, PER_STEP_360,
+                                           f"train {ODD_SIZE}")
+
     kernels = []
     for k, (src, tpu) in SOURCES.items():
         mine = [r for r in rows if r["kernel"] == k]
@@ -1399,6 +1655,10 @@ def main() -> int:
         elif k == "ss2d_mamba_block":  # one bs1 bf16 UNet forward, both routes on
             main_rows = [r for r in mine if r["dtype"] == "bfloat16" and r["batch"] == 1]
             n = record["routes"]["launches"][k]
+        elif k in ("scan_fused_forward", "layer_norm", "merge_ln_gate"):
+            # one bs1 bf16 UNet forward at 360^2 (the epilogue: at 16^2)
+            main_rows = [r for r in mine if r["dtype"] == "bfloat16" and r["batch"] == 1]
+            n = record["small" if k == "merge_ln_gate" else "odd"]["launches"][k]
         elif k in ("flash_fwd",) + GN:  # one bs1 fp32 vanilla UNet forward
             main_rows = [r for r in mine if r["dtype"] == "float32" and r["batch"] == 1]
             n = record["vanilla_gn" if k in GN else "vanilla"]["launches"][k]

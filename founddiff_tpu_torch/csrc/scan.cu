@@ -1,5 +1,6 @@
 // Selective scan over [G, L, *] direction sequences (G = batch * K
-// directions): forward with the chunk-entry states, and its backward.
+// directions): forward with the chunk-entry states, its backward, and the
+// forward with the delta/B/C projections inside.
 //
 // Replaces the TPU kernels _scan_kernel (founddiff_tpu/ops/scan_pallas.py:269,
 // pallas_call :379 in _pallas_fwd) and _scan_bwd_kernel (:415, pallas_call
@@ -35,7 +36,24 @@
 // constraints and are not ported; padding is not needed, since a chunk
 // simply ends at L (the TPU's padded steps have delta' = 0 and change
 // nothing).
-#include "common.cuh"
+//
+// The fused-projection forward replaces the TPU kernel _scan_kernel_fused
+// (scan_pallas.py:630, pallas_call :738 in _pallas_fwd_fused, through
+// selective_scan_pallas_fused :817), the scan of the SS2D blocks on an odd
+// grid (models/ss2d.py:467-475).  Its input is the decimated sequence xs
+// [G, L, D] with the folded weights [K, D, D+2N] (delta | B | C); its
+// outputs are y and the same h_bounds as the forward above, so its
+// backward is scan_backward (_ssf_bwd, :791-812).  Bound on the H100: the
+// [D, D+2N] projection at D = 512 and 1024, 2 * D * (D + 2N) operations per
+// step against the scan's 6 * N * D, on the fp32 CUDA cores of
+// common.cuh's tiled GEMM (no tensor cores yet), then the bytes of the fp32
+// projections it passes through device memory.  Design: that GEMM with
+// delta' = softplus(acc + bias) in its epilogue (EpiProj of
+// scan_common.cuh, rows read straight from xs), then the forward's three
+// passes reading delta'/B/C from the projections unrounded, as the TPU
+// kernel keeps them in VMEM.  The TPU kernel's masked padding of the last
+// chunk is not needed: a chunk ends at L (L = 529 at a 45^2 grid).
+#include "scan_common.cuh"
 
 namespace {
 
@@ -384,6 +402,93 @@ int backward_n(const void* u, const void* dl, const void* Bm, const void* Cm, co
 #undef FD_BWD
 }
 
+// ---------------------------------------------------------------------------
+// fused-projection forward
+// ---------------------------------------------------------------------------
+// As fwd_chunk_kernel, with delta' (softplus applied), B and C read from the
+// projection rows proj [G, L, D+2N] fp32; K = 4 directions.
+template <typename T, int NS, bool FINAL>
+__global__ void __launch_bounds__(FWD_THREADS)
+fused_chunk_kernel(const T* __restrict__ u, const float* __restrict__ proj,
+                   const float* __restrict__ A, const float* __restrict__ Ds,
+                   T* __restrict__ y, float* __restrict__ hb, float* __restrict__ dsum, int L,
+                   int D, int TC, int NC) {
+  const int d = blockIdx.x * FWD_THREADS + threadIdx.x;
+  const int c = blockIdx.y, g = blockIdx.z;
+  if (d >= D) return;
+  const int k = g & 3, NP = D + 2 * NS;
+  float a[NS], h[NS];
+  float* hbp = hb + ((long long)g * NC + c) * NS * D + d;  // [g, c, n, d]
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+    a[n] = A[((long long)k * D + d) * NS + n];
+    h[n] = FINAL ? hbp[(long long)n * D] : 0.f;
+  }
+  const float dsk = FINAL ? Ds[k * D + d] : 0.f;
+  float s = 0.f;
+  const int l1 = min(L, (c + 1) * TC);
+  for (int l = c * TC; l < l1; ++l) {
+    const long long row = (long long)g * L + l;
+    const float* pr = proj + row * NP;
+    const float dlt = pr[d];
+    const float uu = fd::to_f<T>(u[row * D + d]);
+    const float du = dlt * uu;
+    float yv = 0.f;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      h[n] = expf(dlt * a[n]) * h[n] + du * pr[D + n];
+      if (FINAL) yv = fmaf(pr[D + NS + n], h[n], yv);
+    }
+    if (FINAL) {
+      y[row * D + d] = fd::from_f<T>(yv + dsk * uu);
+    } else {
+      s += dlt;
+    }
+  }
+  if (!FINAL) {
+#pragma unroll
+    for (int n = 0; n < NS; ++n) hbp[(long long)n * D] = h[n];
+    dsum[((long long)g * NC + c) * D + d] = s;
+  }
+}
+
+template <typename T, int NS>
+int fused_forward(const T* u, const T* wproj, const float* A, const float* Ds,
+                  const float* bias, T* y, float* hb, float* proj, float* dsum, int G, int L,
+                  int D, int TC, cudaStream_t s) {
+  const int NP = D + 2 * NS, NC = (L + TC - 1) / TC;
+  FD_TRY((fd::gemm<T>(G, L, NP, D, fd::RowStrided<T>{u, (long long)L * D, D}, wproj,
+                      (long long)D * NP, 4, NP, fd::EpiProj{proj, bias, L, D, NP}, s)));
+  dim3 grid((D + FWD_THREADS - 1) / FWD_THREADS, NC, G);
+  fused_chunk_kernel<T, NS, false><<<grid, FWD_THREADS, 0, s>>>(u, proj, A, Ds, y, hb, dsum,
+                                                                L, D, TC, NC);
+  FD_TRY(cudaGetLastError());
+  const long long total = (long long)G * NS * D;
+  carry_kernel<false><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(A, dsum, hb, 4, D, NS,
+                                                                      NC, total);
+  FD_TRY(cudaGetLastError());
+  fused_chunk_kernel<T, NS, true><<<grid, FWD_THREADS, 0, s>>>(u, proj, A, Ds, y, hb, dsum, L,
+                                                               D, TC, NC);
+  FD_TRY(cudaGetLastError());
+  return 0;
+}
+
+template <typename T>
+int fused_forward_n(const void* u, const void* wproj, const float* A, const float* Ds,
+                    const float* bias, void* y, float* hb, float* proj, float* dsum, int G,
+                    int L, int D, int NS, int TC, cudaStream_t s) {
+  const T* ut = static_cast<const T*>(u);
+  const T* wt = static_cast<const T*>(wproj);
+  T* yt = static_cast<T*>(y);
+  switch (NS) {
+    case 4: return fused_forward<T, 4>(ut, wt, A, Ds, bias, yt, hb, proj, dsum, G, L, D, TC, s);
+    case 8: return fused_forward<T, 8>(ut, wt, A, Ds, bias, yt, hb, proj, dsum, G, L, D, TC, s);
+    case 16: return fused_forward<T, 16>(ut, wt, A, Ds, bias, yt, hb, proj, dsum, G, L, D, TC, s);
+    case 32: return fused_forward<T, 32>(ut, wt, A, Ds, bias, yt, hb, proj, dsum, G, L, D, TC, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // u, dl [G, L, D], Bm, Cm [G, L, N] at the io dtype (G = Bsz * K, direction
@@ -422,5 +527,23 @@ extern "C" int scan_backward(const void* u, const void* dl, const void* Bm, cons
     return backward_n<__nv_bfloat16>(u, dl, Bm, Cm, A, Ds, bias, hb, dy, gu, gdl, gB, gC, gA,
                                      gD, gbias, zl, dsum, gBp, gCp, gAp, gDp, gbp, Bsz, K, L,
                                      D, NS, TC, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// xs [G, L, D] (G = Bsz * 4, direction g % 4) and wproj [4, D, D+2N]
+// (delta | B | C) at the io dtype; A [4, D, N], Ds and bias [4, D] fp32.
+// Writes y [G, L, D] (io) and hb [G, NC, N, D] fp32 as scan_forward does.
+// Scratch (fp32): proj [G, L, D+2N], dsum [G, NC, D].
+extern "C" int scan_fused_forward(const void* xs, const void* wproj, const float* A,
+                                  const float* Ds, const float* bias, void* y, float* hb,
+                                  float* proj, float* dsum, int G, int L, int D, int NS, int TC,
+                                  int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return fused_forward_n<float>(xs, wproj, A, Ds, bias, y, hb, proj, dsum, G, L, D, NS, TC,
+                                  s);
+  if (dtype == 1)
+    return fused_forward_n<__nv_bfloat16>(xs, wproj, A, Ds, bias, y, hb, proj, dsum, G, L, D,
+                                          NS, TC, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from founddiff_tpu_torch.ops.attn_block import transposed_attention
 from founddiff_tpu_torch.ops.flash_attention import flash_attention
 from founddiff_tpu_torch.ops.groupnorm import group_norm_silu
+from founddiff_tpu_torch.ops.norm import layer_norm
 
 
 def conv_nhwc(x, weight, bias=None, stride=1, padding=0, groups=1):
@@ -50,6 +51,15 @@ class Conv(nn.Conv2d):
         y = conv_nhwc(x, self.weight[:, :c1], None, **kw)
         y = y + conv_nhwc(skip, self.weight[:, c1:], None, **kw)
         return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+class LNorm(nn.LayerNorm):
+    """LayerNorm over the last axis through :func:`layer_norm`, the kernel
+    of ``_ln_kernel`` (blocks.py:200-220); the parameters and their names are
+    ``nn.LayerNorm``'s."""
+
+    def forward(self, x):
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 def conv(c_in, c_out, k, stride=1, padding=None, groups=1, bias=True):

@@ -9,12 +9,20 @@ Routing is the TPU default of the JAX package (ss2d.py:267-317, 577-603):
 - every SS2D on an even grid of at least 4x4 runs :func:`ss2d_image_block`
   (delta/B/C projections, scan, LayerNorm, silu gate, conditioning,
   out_proj, adaLN gate and residual in one op);
+- on another even grid (a side of 2) the epilogue route (ss2d.py:319-389):
+  in_proj, the image scan where :func:`image_scan_vmem_ok` holds (else the
+  fused-projection scan of the decimated sequences), then
+  :func:`merge_ln_gate_split` (:func:`merge_ln_gate`) with out_proj, the
+  adaLN gate and the residual folded in;
+- on an odd grid (a slice side of 8 times an odd number makes the three
+  deepest grids odd) the unfused route (:390-401): the fused-projection
+  scan :func:`selective_scan_fused`, EfficientMerge, :class:`LNorm`, the
+  silu(z) gate, conditioning, out_proj and the gated residual;
 - the attention half is :func:`attn_block` at C >= 128, else
   :func:`layer_norm_modulated` (norm2) + the plain TransposedAttention.
 
-The unfused SS2D composition (other grids) runs on CPU tensors only.
-Parameter names follow the reference (src/emamba2.py:404-751,
-src/DADiff.py:453-488).
+CPU tensors take the same routes through the plain versions.  Parameter
+names follow the reference (src/emamba2.py:404-751, src/DADiff.py:453-488).
 """
 
 from __future__ import annotations
@@ -23,20 +31,23 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from founddiff_tpu_torch.models.blocks import Dense, TransposedAttention, conv_nhwc
+from founddiff_tpu_torch.models.blocks import Dense, LNorm, TransposedAttention, conv_nhwc
 from founddiff_tpu_torch.ops.attn_block import attn_block, attn_block_route
 from founddiff_tpu_torch.ops.experimental_unified import (
     mamba_block_ok,
     ss2d_mamba_block,
     unified_route,
 )
-from founddiff_tpu_torch.ops.norm import layer_norm, layer_norm_modulated
-from founddiff_tpu_torch.ops.selective_scan import (
-    efficient_merge,
-    efficient_scan,
-    selective_scan_chunked,
+from founddiff_tpu_torch.ops.norm import layer_norm_modulated
+from founddiff_tpu_torch.ops.scan import (
+    _derive_weights,
+    image_scan_vmem_ok,
+    scan_image,
+    selective_scan_fused,
 )
+from founddiff_tpu_torch.ops.selective_scan import efficient_merge, efficient_scan
 from founddiff_tpu_torch.ops.ss2d_block import block_scan_ok, ss2d_image_block
+from founddiff_tpu_torch.ops.ss2d_fused import merge_ln_gate, merge_ln_gate_split
 
 K_DIRS = 4
 
@@ -58,7 +69,7 @@ class SS2D(nn.Module):
         self.dt_projs_bias = nn.Parameter(torch.empty(K_DIRS, D))
         self.A_logs = nn.Parameter(torch.empty(K_DIRS * D, d_state))
         self.Ds = nn.Parameter(torch.ones(K_DIRS * D))
-        self.out_norm = nn.LayerNorm(D)
+        self.out_norm = LNorm(D)
         self.out_proj = Dense(D, d_model, bias=False)
         self.attn = nn.Sequential(Dense(context_dim, D, bias=False), nn.SiLU())
 
@@ -81,9 +92,9 @@ class SS2D(nn.Module):
                 delta_bias=self.dt_projs_bias, ln_g=self.out_norm.weight,
                 ln_b=self.out_norm.bias, local=local, proj_w=self.out_proj.weight.t(),
                 gate=gate, dt_rank=self.dt_rank, d_state=N, eps=1e-5)
-        if x1.is_cuda:
-            raise ValueError(f"SS2D on the card takes even grids >= 4x4, got {H}x{W}")
-        return self._unfused(x1, xs, c, local, A, Ds, gate, residual)
+        if H % 2 == 0 and W % 2 == 0:
+            return self._epilogue(x1, xs, local, A, Ds, gate, residual)
+        return self._unfused(x1, xs, local, A, Ds, gate, residual)
 
     def forward_unified(self, x, c, norm1, mod_scale, mod_shift, gate):
         """The whole SS2D half of the MambaBlock from its raw input x as one
@@ -98,19 +109,37 @@ class SS2D(nn.Module):
             self.attn(c)[:, 0] if c is not None else None, self.out_proj.weight, gate,
             d_inner=D, dt_rank=self.dt_rank, d_state=N)
 
-    def _unfused(self, x1, xs, c, local, A, Ds, gate, residual):
-        """Plain composition for grids the fused block does not take
-        (ss2d.py:319-401 with the chunked scan)."""
-        B, H, W, _ = x1.shape
-        R, N = self.dt_rank, self.d_state
+    def _scan_seq(self, xs, A, Ds):
+        """The fused-projection scan of the decimated sequences:
+        ys [B, 4, L, D] at xs's dtype (``_scan_core``, ss2d.py:422-475)."""
+        return selective_scan_fused(efficient_scan(xs, 2), self.x_proj_weight,
+                                    self.dt_projs_weight, A, Ds, self.dt_projs_bias,
+                                    self.dt_rank, self.d_state)
+
+    def _epilogue(self, x1, xs, local, A, Ds, gate, residual):
+        """Even grids the fused block does not take (ss2d.py:319-389): the
+        scan, then one epilogue op with out_proj, the adaLN gate and the
+        residual folded in."""
+        H, W = x1.shape[1:3]
+        D, N, io = self.d_inner, self.d_state, x1.dtype
+        z = F.linear(x1, self.in_proj.weight[D:].to(io))
+        fold = dict(proj_w=self.out_proj.weight.t().to(io), gate=gate.to(io),
+                    residual_x=residual, H=H, W=W, eps=1e-5, gate_silu=True)
+        norm = (z, self.out_norm.weight, self.out_norm.bias, local)
+        if image_scan_vmem_ok(H, W, D, N):
+            w = _derive_weights(self.x_proj_weight, self.dt_projs_weight, self.dt_rank, N)
+            ys = scan_image(xs, *(t.to(io) for t in w), A, Ds, self.dt_projs_bias)
+            return merge_ln_gate_split(ys[:, 0::2], ys[:, 1::2], *norm, **fold)
+        return merge_ln_gate(self._scan_seq(xs, A, Ds), *norm, **fold)
+
+    def _unfused(self, x1, xs, local, A, Ds, gate, residual):
+        """Odd grids (ss2d.py:319-325, 390-401): the fused-projection scan of
+        the padded decimated sequences, EfficientMerge, LNorm, the silu(z)
+        gate, conditioning, out_proj and the gated residual."""
+        H, W = x1.shape[1:3]
         z = F.silu(F.linear(x1, self.in_proj.weight[self.d_inner:].to(x1.dtype)))
-        seq = efficient_scan(xs, 2)
-        x_dbl = torch.einsum("bkld,kcd->bklc", seq, self.x_proj_weight.to(seq.dtype))
-        dts, Bs, Cs = torch.split(x_dbl, [R, N, N], dim=-1)
-        dts = torch.einsum("bklr,kdr->bkld", dts, self.dt_projs_weight.to(seq.dtype))
-        ys = selective_scan_chunked(seq, dts, A, Bs, Cs, Ds, self.dt_projs_bias)
-        y = efficient_merge(ys, H, W, 2).to(x1.dtype)
-        y = layer_norm(y, self.out_norm.weight, self.out_norm.bias, 1e-5) * z
+        y = efficient_merge(self._scan_seq(xs, A, Ds), H, W, 2)
+        y = self.out_norm(y) * z
         if local is not None:
             y = y + local[:, None, None, :]
         out = self.out_proj(y)

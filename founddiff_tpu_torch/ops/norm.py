@@ -1,11 +1,15 @@
 """LayerNorm and LayerNorm + adaLN modulation.
 
-``layer_norm_modulated`` replaces the TPU kernel ``_ln_mod_kernel``
-(``founddiff_tpu/ops/norm_pallas.py:123``): ``LN(x)`` with fp32 statistics,
-an optional affine, then ``* (1 + mod_scale_b) + mod_shift_b``.  CUDA
-tensors go to ``csrc/ln_mod.cu``; CPU tensors to the plain version
-:func:`_ln_mod`.  The backward is ``_fused_ln_mod_bwd``'s
-(norm_pallas.py:196-204): autograd through the plain version.
+``layer_norm`` replaces the TPU kernel ``_ln_kernel``
+(``founddiff_tpu/ops/norm_pallas.py:23``): ``LN(x)`` over the last axis with
+the one-pass fp32 statistics ``E[x^2] - mean^2`` and an optional affine,
+the result at x's dtype.  ``layer_norm_modulated`` replaces
+``_ln_mod_kernel`` (:123): the same, then ``* (1 + mod_scale_b) +
+mod_shift_b``.  CUDA tensors go to ``csrc/ln_mod.cu`` (one entry each);
+CPU tensors to the plain versions :func:`_ln` and :func:`_ln_mod`.  The
+backwards are ``_fused_ln_bwd``'s (norm_pallas.py:87-96: autograd through
+the two-pass :func:`layer_norm_two_pass`) and ``_fused_ln_mod_bwd``'s
+(:196-204: autograd through :func:`_ln_mod`).
 """
 
 from __future__ import annotations
@@ -19,10 +23,11 @@ from founddiff_tpu_torch.ops import _build
 from founddiff_tpu_torch.ops.remat import remat_grads
 
 
-def layer_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
-               bias: Optional[torch.Tensor] = None, eps: float = 1e-5) -> torch.Tensor:
-    """Plain LayerNorm over the last axis with fp32 statistics
-    (``_xla_layer_norm``, norm_pallas.py:72-79)."""
+def layer_norm_two_pass(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
+                        bias: Optional[torch.Tensor] = None, eps: float = 1e-5) -> torch.Tensor:
+    """Plain LayerNorm over the last axis with fp32 two-pass statistics
+    (``_xla_layer_norm``, norm_pallas.py:72-79): the composition the
+    backward of :func:`layer_norm` differentiates."""
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
@@ -30,6 +35,68 @@ def layer_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
     if scale is not None:
         y = y * scale.float() + bias.float()
     return y.to(x.dtype)
+
+
+def _ln(x2, scale, bias, eps):
+    """Plain version of the LayerNorm kernel: x2 [R, C]; the one-pass
+    ``E[x^2] - mean^2`` variance of ``_ln_kernel``."""
+    xf = x2.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * scale.float() + bias.float()
+    return y.to(x2.dtype)
+
+
+def _ln_cuda(x2, scale, bias, eps):
+    R, C = x2.shape
+    x2 = x2.contiguous()
+    f32 = lambda t: None if t is None else t.detach().float().contiguous()
+    g, b = f32(scale), f32(bias)
+    _build.expect(x2.device, scale=(g, (C,)), bias=(b, (C,)))
+    out = torch.empty_like(x2)
+    fn = _build.declare(_build.load("ln_mod"), "ln_forward", 4,
+                        [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
+    rc = fn(_build.ptr(x2), _build.ptr(g), _build.ptr(b), _build.ptr(out), R, C, eps,
+            int(g is not None), _build.dtype_code(x2), _build.stream())
+    _build.check(rc, "ln_forward")
+    layer_norm.launches += 1
+    return out
+
+
+class _LnFn(torch.autograd.Function):
+    """Forward: the kernel on CUDA tensors, the plain version on CPU tensors.
+    Backward: autograd through :func:`layer_norm_two_pass`."""
+
+    @staticmethod
+    def forward(ctx, eps, x2, scale, bias):
+        ctx.eps = eps
+        ctx.save_for_backward(x2, scale, bias)
+        return (_ln_cuda if x2.is_cuda else _ln)(x2, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        eps = ctx.eps
+        return (None, *remat_grads(lambda *a: layer_norm_two_pass(*a, eps),
+                                   ctx.saved_tensors, ctx.needs_input_grad[1:], g))
+
+
+def layer_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
+               bias: Optional[torch.Tensor] = None, eps: float = 1e-5) -> torch.Tensor:
+    """``LayerNorm(x)`` over the last axis, result at x's dtype; scale and
+    bias [C] or both None.  CUDA tensors launch the kernel; CPU tensors take
+    the plain version.  Differentiable in every tensor argument."""
+    shape = x.shape
+    return _LnFn.apply(eps, x.reshape(-1, shape[-1]), scale, bias).reshape(shape)
+
+
+def layer_norm_plain(x, scale=None, bias=None, eps: float = 1e-5):
+    """The plain version of :func:`layer_norm` on any device."""
+    return _ln(x.reshape(-1, x.shape[-1]), scale, bias, eps).reshape(x.shape)
+
+
+layer_norm.launches = 0
 
 
 def _ln_mod(x3, scale, bias, mod_scale, mod_shift, eps):

@@ -1,7 +1,7 @@
 """Selective scan with its backward, and the image-direct scan (the
 counterpart of ``founddiff_tpu/ops/scan_pallas.py``).
 
-Three kernels, each with its plain PyTorch version beside it:
+Four kernels, each with its plain PyTorch version beside it:
 
 - ``scan_forward`` replaces ``_scan_kernel`` (scan_pallas.py:269): the scan
   of [B, K, L, D] direction sequences, which also returns ``h_bounds
@@ -9,13 +9,17 @@ Three kernels, each with its plain PyTorch version beside it:
   steps;
 - ``scan_backward`` replaces ``_scan_bwd_kernel`` (:415): the seven
   gradients from a replay of each chunk and the adjoint recurrence;
+- ``scan_fused_forward`` replaces ``_scan_kernel_fused`` (:630): the scan of
+  [B, 4, L, D] sequences with the delta/B/C projections inside, returning
+  the same ``h_bounds`` as ``scan_forward``;
 - ``scan_image_forward`` replaces ``_scan_kernel_image`` (:895): the four
   step-2 decimated direction scans straight from an NHWC image, with the
   delta/B/C projections inside.
 
 CUDA tensors go to ``csrc/scan.cu`` and ``csrc/scan_image.cu``; CPU tensors to
-the plain versions.  :class:`SelectiveScanFn` and :class:`ScanImageFn` are the
-``custom_vjp``s of ``selective_scan_pallas`` (:1141-1174) and
+the plain versions.  :class:`SelectiveScanFn`, :class:`SelectiveScanFusedFn`
+and :class:`ScanImageFn` are the ``custom_vjp``s of ``selective_scan_pallas``
+(:1141-1174), ``_selective_scan_pallas_fused`` (:784-814) and
 ``_scan_image`` (:1032-1098).  Math (per direction k, channel d, state n):
 
     delta' = softplus(delta + delta_bias)
@@ -247,6 +251,132 @@ def selective_scan(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk: Optional[i
                                  chunk or scan_chunk(A.shape[-1]))
 
 
+def _projected_scan_bwd(xs, w_delta, w_b, w_c, A, Dskip, delta_bias, h_bounds, g):
+    """The backward of a scan whose delta/B/C are products of its input xs
+    [B, 4, L, D] (``_ssf_bwd``, scan_pallas.py:791-812): delta/B/C again at
+    the io dtype, ``scan_backward``, then the chain through the products.
+    Returns ``(gxs, gw_delta, gw_b, gw_c, gA, gDskip, gdelta_bias)``."""
+    io = xs.dtype
+    wd, wb, wc = (w.to(io) for w in (w_delta, w_b, w_c))
+    delta, Bmat, Cmat = xs @ wd[None], xs @ wb[None], xs @ wc[None]
+    if h_bounds is None:
+        _, h_bounds = scan_forward(xs, delta, A, Bmat, Cmat, Dskip, delta_bias)
+    gu, gdl, ga, gb, gc, gd, gbias = scan_backward(
+        xs, delta, A, Bmat, Cmat, Dskip, delta_bias, h_bounds, g.to(io).contiguous())
+    gxs = (gu + gdl @ wd.transpose(1, 2)[None] + gb @ wb.transpose(1, 2)[None]
+           + gc @ wc.transpose(1, 2)[None])
+    gwd = torch.einsum("bkld,bkle->kde", xs, gdl).to(w_delta.dtype)
+    gwb = torch.einsum("bkld,bkln->kdn", xs, gb).to(w_b.dtype)
+    gwc = torch.einsum("bkld,bkln->kdn", xs, gc).to(w_c.dtype)
+    return gxs, gwd, gwb, gwc, ga, gd, gbias
+
+
+# --- fused-projection scan ------------------------------------------------------
+
+
+def scan_fused_forward_plain(xs, w_delta, w_b, w_c, A, Dskip, delta_bias, chunk: int):
+    """Plain version of ``scan_fused_forward``: the three projections
+    (io-dtype operands, fp32 sums, unrounded) and the chunked scan;
+    ``(y [B,4,L,D] at xs's dtype, h_bounds)``."""
+    io = xs.dtype
+    w = lambda t: t[None].to(io).float()
+    sf = xs.float()
+    y, hb = selective_scan_chunked(xs, sf @ w(w_delta), A, sf @ w(w_b), sf @ w(w_c), Dskip,
+                                   delta_bias, chunk=chunk, return_bounds=True)
+    return y.to(io), hb
+
+
+def _scan_fused_cuda(xs, w_delta, w_b, w_c, A, Dskip, delta_bias, chunk: int):
+    Bsz, K, L, D = xs.shape
+    N = A.shape[-1]
+    _check_state(N)
+    if K != 4:
+        raise ValueError(f"scan_fused_forward takes the 4 SS2D directions, got K = {K}")
+    io = xs.dtype
+    xs = xs.contiguous()
+    wproj = torch.cat([w_delta, w_b, w_c], dim=-1).to(io).contiguous()  # [4, D, D+2N]
+    f32 = lambda t: t.detach().float().contiguous()
+    A32, Ds32, bias32 = f32(A), f32(Dskip), f32(delta_bias)
+    dev = xs.device
+    _build.expect(dev, wproj=(wproj, (4, D, D + 2 * N)), A=(A32, (4, D, N)),
+                  Dskip=(Ds32, (4, D)), delta_bias=(bias32, (4, D)))
+    G, NC = Bsz * 4, -(-L // chunk)
+    y = torch.empty_like(xs)
+    hb = torch.empty(G, NC, N, D, device=dev)
+    proj = torch.empty(G * L * (D + 2 * N), device=dev)
+    dsum = torch.empty(G * NC * D, device=dev)
+    fn = _build.declare(_build.load("scan"), "scan_fused_forward", 9, [ctypes.c_int] * 6)
+    rc = fn(*map(_build.ptr, (xs, wproj, A32, Ds32, bias32, y, hb, proj, dsum)),
+            G, L, D, N, chunk, _build.dtype_code(xs), _build.stream())
+    _build.check(rc, "scan_fused_forward")
+    scan_fused_forward.launches += 1
+    return y, hb
+
+
+def scan_fused_forward(xs, w_delta, w_b, w_c, A, Dskip, delta_bias,
+                       chunk: Optional[int] = None):
+    """The scan of xs [B, 4, L, D] with delta = xs @ w_delta [4, D, D], B =
+    xs @ w_b, C = xs @ w_c ([4, D, N]): ``(y [B,4,L,D] at xs's dtype,
+    h_bounds [B*4, NC, N, D] fp32)``, h_bounds as ``scan_forward`` gives
+    them at the same ``chunk``.  CUDA tensors launch the kernel; CPU tensors
+    take the plain version."""
+    chunk = chunk or scan_chunk(A.shape[-1])
+    fn = _scan_fused_cuda if xs.is_cuda else scan_fused_forward_plain
+    return fn(xs, w_delta, w_b, w_c, A, Dskip, delta_bias, chunk)
+
+
+scan_fused_forward.launches = 0
+
+
+class SelectiveScanFusedFn(torch.autograd.Function):
+    """``_selective_scan_pallas_fused``'s custom_vjp: ``apply(xs, w_delta,
+    w_b, w_c, A, Dskip, delta_bias)`` with the folded weights at xs's dtype.
+    Forward ``scan_fused_forward`` (which saves ``h_bounds``); backward
+    ``_ssf_bwd``'s: delta/B/C again at the io dtype, ``scan_backward`` and
+    the chain through the projections."""
+
+    @staticmethod
+    def forward(ctx, xs, w_delta, w_b, w_c, A, Dskip, delta_bias):
+        y, hb = scan_fused_forward(xs, w_delta, w_b, w_c, A, Dskip, delta_bias)
+        ctx.save_for_backward(xs, w_delta, w_b, w_c, A, Dskip, delta_bias, hb)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return _projected_scan_bwd(*ctx.saved_tensors, g)
+
+
+def _derive_weights(x_proj_weight, dt_projs_weight, dt_rank: int, d_state: int):
+    """Fold dt_projs into x_proj (ss2d_block.py:412-418,
+    scan_pallas.py:839-844): w_delta [K, D, D], w_b / w_c [K, D, N]."""
+    R, N = dt_rank, d_state
+    wx = x_proj_weight
+    w_delta = torch.einsum("krd,ker->kde", wx[:, :R, :], dt_projs_weight)
+    w_b = wx[:, R:R + N, :].transpose(1, 2)
+    w_c = wx[:, R + N:R + 2 * N, :].transpose(1, 2)
+    return w_delta, w_b, w_c
+
+
+def selective_scan_fused(xs, x_proj_weight, dt_projs_weight, A, Dskip, delta_bias,
+                         dt_rank: int, d_state: int):
+    """``selective_scan_pallas_fused`` (scan_pallas.py:817-850): the SS2D
+    core of xs [B, 4, L, D] from the unfolded weights x_proj_weight [4,
+    R+2N, D] and dt_projs_weight [4, D, R], with delta_softplus=True.  The
+    dt low rank is folded into one [D, D] matrix and every weight cast to
+    xs's dtype, as the JAX op does.  Returns y [B, 4, L, D] at xs's dtype;
+    differentiable in every tensor argument."""
+    w = _derive_weights(x_proj_weight, dt_projs_weight, dt_rank, d_state)
+    return SelectiveScanFusedFn.apply(xs, *(t.to(xs.dtype) for t in w), A, Dskip, delta_bias)
+
+
+def selective_scan_fused_plain(xs, x_proj_weight, dt_projs_weight, A, Dskip, delta_bias,
+                               dt_rank: int, d_state: int):
+    """The plain version of :func:`selective_scan_fused` on any device."""
+    w = _derive_weights(x_proj_weight, dt_projs_weight, dt_rank, d_state)
+    return scan_fused_forward_plain(xs, *(t.to(xs.dtype) for t in w), A, Dskip, delta_bias,
+                                    scan_chunk(d_state))[0]
+
+
 # --- image-direct scan --------------------------------------------------------
 
 # The TPU kernel's VMEM budget (scan_pallas.py:42) and chunk rules, copied so
@@ -299,16 +429,11 @@ def image_scan_vmem_ok(H: int, W: int, d_inner: int, d_state: int) -> bool:
 
 
 def scan_image_forward_plain(x, w_delta, w_b, w_c, A, Dskip, delta_bias):
-    """Plain version of ``scan_image_forward``: EfficientScan, the three
-    projections (io-dtype operands, fp32 sums, unrounded) and the chunked
-    scan; ys [B, 4, L, D] rounded to x's dtype."""
-    io = x.dtype
-    seq = efficient_scan(x, 2)
-    w = lambda t: t[None].to(io).float()
-    sf = seq.float()
-    ys = selective_scan_chunked(seq, sf @ w(w_delta), A, sf @ w(w_b), sf @ w(w_c), Dskip,
-                                delta_bias, chunk=_IMAGE_CHUNK)
-    return ys.to(io)
+    """Plain version of ``scan_image_forward``: EfficientScan, then the plain
+    fused-projection scan at the image kernel's chunk; ys [B, 4, L, D] at
+    x's dtype."""
+    return scan_fused_forward_plain(efficient_scan(x, 2), w_delta, w_b, w_c, A, Dskip,
+                                    delta_bias, _IMAGE_CHUNK)[0]
 
 
 def _scan_image_cuda(x, w_delta, w_b, w_c, A, Dskip, delta_bias):
@@ -371,24 +496,20 @@ class ScanImageFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, w_delta, w_b, w_c, A, Dskip, delta_bias = ctx.saved_tensors
+        x, *rest = ctx.saved_tensors
         B, H, W, D = x.shape
-        io = x.dtype
-        xs = efficient_scan(x, 2)  # [B, 4, L, D]
-        wd, wb, wc = (w.to(io) for w in (w_delta, w_b, w_c))
-        delta, Bmat, Cmat = xs @ wd[None], xs @ wb[None], xs @ wc[None]
-        _, hb = scan_forward(xs, delta, A, Bmat, Cmat, Dskip, delta_bias)
-        gu, gdl, ga, gb, gc, gd, gbias = scan_backward(
-            xs, delta, A, Bmat, Cmat, Dskip, delta_bias, hb, g.to(io).contiguous())
-        gxs = (gu + gdl @ wd.transpose(1, 2)[None] + gb @ wb.transpose(1, 2)[None]
-               + gc @ wc.transpose(1, 2)[None])
-        gx = efficient_merge(gxs, H, W, 2).to(x.dtype)
-        gwd = torch.einsum("bkld,bkle->kde", xs, gdl).to(w_delta.dtype)
-        gwb = torch.einsum("bkld,bkln->kdn", xs, gb).to(w_b.dtype)
-        gwc = torch.einsum("bkld,bkln->kdn", xs, gc).to(w_c.dtype)
-        return gx, gwd, gwb, gwc, ga, gd, gbias
+        gxs, *grads = _projected_scan_bwd(efficient_scan(x, 2), *rest, None, g)
+        return (efficient_merge(gxs, H, W, 2).to(x.dtype), *grads)
 
 
-__all__ = ["SelectiveScanFn", "ScanImageFn", "image_scan_vmem_ok", "scan_backward",
-           "scan_backward_plain", "scan_chunk", "scan_forward", "scan_forward_plain",
-           "scan_image_forward", "scan_image_forward_plain", "selective_scan"]
+def scan_image(x, w_delta, w_b, w_c, A, Dskip, delta_bias):
+    """The differentiable image-direct scan, :class:`ScanImageFn`; its plain
+    version is :func:`scan_image_forward_plain` under autograd."""
+    return ScanImageFn.apply(x, w_delta, w_b, w_c, A, Dskip, delta_bias)
+
+
+__all__ = ["SelectiveScanFn", "SelectiveScanFusedFn", "ScanImageFn", "image_scan_vmem_ok",
+           "scan_backward", "scan_backward_plain", "scan_chunk", "scan_forward",
+           "scan_forward_plain", "scan_fused_forward", "scan_fused_forward_plain",
+           "scan_image", "scan_image_forward", "scan_image_forward_plain", "selective_scan",
+           "selective_scan_fused", "selective_scan_fused_plain"]

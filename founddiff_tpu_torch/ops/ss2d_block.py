@@ -25,16 +25,21 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from founddiff_tpu_torch.ops import _build
 from founddiff_tpu_torch.ops.remat import remat_grads
-from founddiff_tpu_torch.ops.scan import ScanImageFn, image_scan_vmem_ok, selective_scan
+from founddiff_tpu_torch.ops.scan import (
+    ScanImageFn,
+    _derive_weights,
+    image_scan_vmem_ok,
+    selective_scan,
+)
 from founddiff_tpu_torch.ops.selective_scan import (
     efficient_merge,
     efficient_scan,
     selective_scan_chunked,
 )
+from founddiff_tpu_torch.ops.ss2d_fused import _merge_ln_gate_xla
 
 _STATE_SIZES = (4, 8, 16, 32)
 _CHUNK = 128  # scan chunk of the CUDA kernel (positions per chunk)
@@ -43,17 +48,6 @@ _CHUNK = 128  # scan chunk of the CUDA kernel (positions per chunk)
 def block_scan_ok(H: int, W: int) -> bool:
     """Shapes the fused block takes: step-2 decimation needs even H and W."""
     return H % 2 == 0 and W % 2 == 0 and H >= 4 and W >= 4
-
-
-def _derive_weights(x_proj_weight, dt_projs_weight, dt_rank: int, d_state: int):
-    """Fold dt_projs into x_proj (ss2d_block.py:412-418):
-    w_delta [K, D, D], w_b / w_c [K, D, N]."""
-    R, N = dt_rank, d_state
-    wx = x_proj_weight
-    w_delta = torch.einsum("krd,ker->kde", wx[:, :R, :], dt_projs_weight)
-    w_b = wx[:, R:R + N, :].transpose(1, 2)
-    w_c = wx[:, R + N:R + 2 * N, :].transpose(1, 2)
-    return w_delta, w_b, w_c
 
 
 def _mm(a, w, io):
@@ -148,8 +142,8 @@ def ss2d_compose(x1, xs_conv, x_raw, w_z, w_delta, w_b, w_c, A, Dskip, delta_bia
 
     The scan is :class:`ScanImageFn` where :func:`image_scan_vmem_ok` holds
     and the decimated :func:`selective_scan` elsewhere, with ys rounded to
-    the io dtype; z comes from an io-dtype product; the gated product rounds
-    to z's dtype before out_proj, whose sums are fp32."""
+    the io dtype; z comes from an io-dtype product; the epilogue is
+    :func:`~founddiff_tpu_torch.ops.ss2d_fused._merge_ln_gate_xla`."""
     B, H, W, D = xs_conv.shape
     N = A.shape[-1]
     io = xs_conv.dtype
@@ -159,17 +153,8 @@ def ss2d_compose(x1, xs_conv, x_raw, w_z, w_delta, w_b, w_c, A, Dskip, delta_bia
         xs = efficient_scan(xs_conv, 2)  # [B, K, L, D]
         dts, Bs, Cs = (xs @ w.to(io)[None] for w in (w_delta, w_b, w_c))
         ys = selective_scan(xs, dts, A, Bs, Cs, Dskip, delta_bias).to(io)
-    z = x1 @ w_z.to(x1.dtype)
-    yf = efficient_merge(ys, H, W, 2).float()
-    mean = yf.mean(dim=-1, keepdim=True)
-    var = (yf * yf).mean(dim=-1, keepdim=True) - mean * mean
-    yn = (yf - mean) * torch.rsqrt(var + eps) * ln_g.float() + ln_b.float()
-    out = yn * F.silu(z.float())
-    if local is not None:
-        out = out + local.float()[:, None, None, :]
-    out = out.to(z.dtype)
-    proj = out.float() @ proj_w.to(out.dtype).float()
-    return (x_raw.float() + gate.float()[:, None, None, :] * proj).to(z.dtype)
+    return _merge_ln_gate_xla(ys, x1 @ w_z.to(x1.dtype), ln_g, ln_b, local, H, W, eps,
+                              gate_silu=True, proj_w=proj_w, gate=gate, rx=x_raw)
 
 
 class _SS2DBlockFn(torch.autograd.Function):

@@ -34,6 +34,7 @@ from founddiff_tpu_torch.ops import groupnorm as gn_mod
 from founddiff_tpu_torch.ops import norm as norm_mod
 from founddiff_tpu_torch.ops import scan as scan_mod
 from founddiff_tpu_torch.ops import ss2d_block as ss2d_mod
+from founddiff_tpu_torch.ops import ss2d_fused as fused_mod
 
 TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-3, 8e-3)}
 MANTISSA_BITS = {torch.float32: 23, torch.bfloat16: 7}
@@ -404,3 +405,97 @@ def test_vector_kernels_refuse_misaligned_tensors(dev):
     q = torch.zeros(1, 1, 8, 32, device=dev)
     with pytest.raises(RuntimeError):
         flash_mod.flash_fwd(shifted(1, 1, 8, 32), q, q, 1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C,affine", [(512, True), (40, False)])
+def test_layer_norm_kernel(dev, dtype, C, affine):
+    g = _gen(C + affine)
+    x = (_n(g, (2, 9, 7, C), 1.0, dev) + 0.3).to(dtype)
+    scale = _n(g, (C,), 0.1, dev) + 1 if affine else None
+    bias = _n(g, (C,), 0.1, dev) if affine else None
+    before = norm_mod.layer_norm.launches
+    got = norm_mod.layer_norm(x, scale, bias)
+    assert norm_mod.layer_norm.launches == before + 1
+    _close(got, norm_mod.layer_norm_plain(x, scale, bias), dtype)
+
+
+def _fused_scan_inputs(g, B, L, D, N, dtype, dev):
+    u, _, A, _, _, Ds, bias = _scan_inputs(g, B, L, D, N, dtype, dev)
+    w = lambda n: (_n(g, (4, D, n), D ** -0.5, dev)).to(dtype)
+    return u, w(D), w(N), w(N), A, Ds, bias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("L,D,N", [(37, 64, 4), (529, 96, 32), (100, 128, 16)])
+def test_scan_fused_forward_kernel(dev, dtype, L, D, N):
+    """Ragged L (37, 529 = 23^2: a 45^2 grid's padded decimation); y and
+    h_bounds against the plain version."""
+    args = _fused_scan_inputs(_gen(L + D + 1), 2, L, D, N, dtype, dev)
+    before = scan_mod.scan_fused_forward.launches
+    y, hb = scan_mod.scan_fused_forward(*args)
+    assert scan_mod.scan_fused_forward.launches == before + 1
+    y_p, hb_p = scan_mod.scan_fused_forward_plain(*args, scan_mod.scan_chunk(N))
+    _close(y, y_p, dtype)
+    _close(hb, hb_p, torch.float32)
+
+
+@pytest.mark.gpu
+def test_selective_scan_fused_fn_grads(dev):
+    args = _fused_scan_inputs(_gen(12), 2, 75, 64, 8, torch.float32, dev)
+    _grad_check(scan_mod.SelectiveScanFusedFn.apply, args, dev)
+
+
+def _epilogue_args(g, B, H, W, C, Co, dtype, dev, local, fold):
+    L = (H // 2) * (W // 2)
+    args = dict(ys=_n(g, (B, 4, L, C), 1.0, dev).to(dtype), z=_n(g, (B, H, W, C), 1.0, dev).to(dtype),
+                scale=_n(g, (C,), 0.1, dev) + 1, bias=_n(g, (C,), 0.1, dev),
+                local=_n(g, (B, C), 0.2, dev).to(dtype) if local else None)
+    kw = dict(H=H, W=W, gate_silu=True)
+    if fold:
+        kw.update(proj_w=_n(g, (C, Co), C ** -0.5, dev), gate=_n(g, (B, Co), 0.3, dev),
+                  residual_x=_n(g, (B, H, W, Co), 1.0, dev).to(dtype))
+    return args, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("H,W,C,Co,local,fold", [(2, 2, 512, 256, True, True),
+                                                 (12, 20, 64, 32, False, True),
+                                                 (8, 6, 96, 96, True, False)])
+def test_ss2d_epilogue_kernel(dev, dtype, split, H, W, C, Co, local, fold):
+    args, kw = _epilogue_args(_gen(H * W + C), 2, H, W, C, Co, dtype, dev, local, fold)
+    ys = args.pop("ys")
+    before = fused_mod.merge_ln_gate.launches
+    if split:
+        rows, cols = ys[:, 0::2], ys[:, 1::2]
+        got = fused_mod.merge_ln_gate_split(rows, cols, **args, **kw)
+        want = fused_mod.merge_ln_gate_split_plain(rows, cols, **args, **kw)
+    else:
+        got = fused_mod.merge_ln_gate(ys, **args, **kw)
+        want = fused_mod.merge_ln_gate_plain(ys, **args, **kw)
+    assert fused_mod.merge_ln_gate.launches == before + 1
+    _close(got, want, dtype, base=kw.get("residual_x"))
+
+
+@pytest.mark.gpu
+def test_merge_ln_gate_fn_grads(dev):
+    args, kw = _epilogue_args(_gen(13), 2, 6, 4, 64, 32, torch.float32, dev, True, True)
+    names = [k for k, v in args.items()] + ["proj_w", "gate", "residual_x"]
+    vals = list(args.values()) + [kw.pop(k) for k in ("proj_w", "gate", "residual_x")]
+    _grad_check(lambda *a: fused_mod.merge_ln_gate(**dict(zip(names, a)), **kw), vals, dev)
+
+
+@pytest.mark.gpu
+def test_unfused_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    args = _fused_scan_inputs(_gen(14), 1, 10, 32, 4, torch.float32, dev)
+    with pytest.raises(ValueError):  # d_state 6
+        scan_mod.scan_fused_forward(*args[:4], torch.zeros(4, 32, 6, device=dev), *args[5:])
+    with pytest.raises(TypeError):
+        norm_mod.layer_norm(torch.zeros(4, 16, device=dev, dtype=torch.half))
+    a, kw = _epilogue_args(_gen(15), 1, 4, 4, 32, 32, torch.float32, dev, False, False)
+    with pytest.raises(ValueError):  # odd W
+        fused_mod.merge_ln_gate(a["ys"], a["z"][:, :, :3], a["scale"], a["bias"], H=4, W=3)
