@@ -39,7 +39,11 @@ Phases (any failure exits non-zero before the last line is printed):
    layout at the 360^2 top scale where the JAX package runs it on a TPU
    ([B, 4, 32400, 128], Co 64) and on the split layout at the 16^2 route's
    2x2 grids (C 512 and 1024) and at 360^2 and 180^2, with and without the
-   folded out_proj.
+   folded out_proj.  The edges of the redesigned kernels, none on the main
+   path: ``ss2d_image_block`` in bf16 on the tensor cores at C0 40, N 4
+   (ragged GEMM tiles), ``layer_norm`` and ``layer_norm_modulated`` at C 100
+   and on a misaligned view; and every scan kernel, the fused block and the
+   unified op at d_state 64, at the 32^2 blocks of phase 15.
 3. Main path at full width: ``build(Config())`` on the card (dim 64 x
    (1, 2, 4, 8), full RN50 CLIPIQA tower, seeded random weights with
    non-zero adaLN and prompt), ``make_hoisted_sampler(...,
@@ -125,6 +129,12 @@ Phases (any failure exits non-zero before the last line is printed):
    12 / 36 / 6 / 6 / 12 / 18 launches per step of ``ss2d_image_block``,
    ``layer_norm_modulated``, ``scan_fused_forward``, ``layer_norm``,
    ``scan_forward`` and ``scan_backward`` and no other.
+15. d_state 64: ``Config()`` with ``dim_mults`` (1, 2, 4, 8, 16) (down_4, mid
+   and up_0 on a 32^2 grid with d_state 64), one bs1 bf16 request of a
+   512^2 slice with 11 ``ss2d_image_block``, 8 ``attn_block`` and 14
+   ``layer_norm_modulated`` launches per UNet forward, PSNR >= 40 dB against
+   the plain path, and autograd as phase 6 on one MambaBlock at 32^2, C 512,
+   d_state 64.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches on
 its path, phase 3 for the serving kernels, phase 12's 360^2 requests for
@@ -137,7 +147,8 @@ summed times of the calls of one bs1 bf16 UNet forward (serving kernels and
 ``ss2d_mamba_block`` at 512^2, ``scan_fused_forward`` and ``layer_norm`` at
 360^2, ``merge_ln_gate`` at 16^2), one bs1 fp32 vanilla UNet forward (``flash_fwd``, the
 GroupNorm pair) or one fp32 train step (the scan and flash backward
-kernels)); the last is ``{"ok": true, "device": {...}}``.
+kernels); and ``d_state``, the state sizes phase 2 held it at, where it has
+one); the last is ``{"ok": true, "device": {...}}``.
 A longer record goes to ``chiprun_out/chip_smoke.json``.
 """
 
@@ -279,6 +290,13 @@ PER_FORWARD_16 = {"ss2d_image_block": 6, "attn_block": 1, "layer_norm_modulated"
 # every even 360^2 scale), the three unfused blocks' scan backward
 PER_STEP_360 = {"ss2d_image_block": 12, "layer_norm_modulated": 36, "scan_fused_forward": 6,
                 "layer_norm": 6, "scan_forward": 12, "scan_backward": 18}
+# phase 15: a five-level UNet (dim 64 x (1, 2, 4, 8, 16)) at 512^2 puts
+# down_4 (C 512), mid and up_0 (C 1024) on a 32^2 grid with d_state 64;
+# per UNet forward 11 fused blocks, 8 attention halves (C >= 128 at H % 8 ==
+# 0) and 14 layer_norm_modulated (11 norm1, 3 norm2 at C 64)
+FIVE_MULTS = (1, 2, 4, 8, 16)
+PER_FORWARD_5 = {"ss2d_image_block": 11, "attn_block": 8, "layer_norm_modulated": 14}
+N64 = ((512, 64), (1024, 64))  # (C0, d_state) of the 32^2 blocks
 
 
 def log(*a):
@@ -501,13 +519,13 @@ def scan_image_case(H, C, N, dtype, gen, dev):
     return args, {}, None, moved, [(mm, PEAK_FLOPS[dtype]), (P * D * (6 * N + 5), FP32_FLOPS)]
 
 
-def scan_fused_case(B, C0, N, dtype, gen, dev):
-    """The fused-projection scan of one 45^2 block at batch B: xs the padded
-    decimated sequences of a post-silu activation, the folded weights at
-    the io dtype."""
+def scan_fused_case(B, C0, N, dtype, gen, dev, L=ODD_L):
+    """The fused-projection scan of one 45^2 block (by default) at batch B:
+    xs the padded decimated sequences of a post-silu activation, the folded
+    weights at the io dtype."""
     from founddiff_tpu_torch.ops.scan import _derive_weights, scan_chunk
 
-    D, R, L = 2 * C0, -(-C0 // 16), ODD_L
+    D, R = 2 * C0, -(-C0 // 16)
     xs = torch.nn.functional.silu(_n(gen, (B, 4, L, D), 1.0, dev)).to(dtype)
     w = _derive_weights(_u(gen, (4, R + 2 * N, D), D ** -0.5, dev),
                         _u(gen, (4, D, R), R ** -0.5, dev), R, N)
@@ -600,6 +618,62 @@ def unfused_cases(B):
             cases.append(("merge_ln_gate", f"bs1 {label}", 0,
                           lambda dt, g, d, a=(H, C, Co, split, fold): epilogue_case(
                               1, *a, dt, g, d)))
+    return cases
+
+
+def ln_ragged_case(kname, R, C, aligned, dtype, gen, dev):
+    """``layer_norm`` / ``layer_norm_modulated`` on x [1, R, C] where C need
+    not be a multiple of 8 and x may be a contiguous view that starts one
+    element into its storage (the row kernel's scalar loop); the modulation
+    as the adaLN gives it, two chunks of one [1, 6C] row."""
+    n = R * C
+    buf = _n(gen, (n + 1,), 1.0, dev).add_(0.3).to(dtype)
+    x = (buf[:n] if aligned else buf[1:]).view(1, R, C)
+    g, b = _n(gen, (C,), 0.1, dev).add_(1.0), _n(gen, (C,), 0.1, dev)
+    flops = 10 * x.numel()
+    if kname == "layer_norm":
+        lib_w = [t.to(dtype) for t in (g, b)]
+        library = lambda: torch.nn.functional.layer_norm(x, (C,), *lib_w, 1e-5)
+        return ((x, g, b), {}, None, nbytes(x, g, b) + nbytes(x), [(flops, FP32_FLOPS)],
+                library)
+    ms, mt = _n(gen, (1, 6 * C), 0.2, dev).chunk(6, dim=-1)[:2]
+    return ((x, g, b, ms, mt), {}, None, nbytes(x, g, b, ms, mt) + nbytes(x),
+            [(flops, FP32_FLOPS)])
+
+
+def slice6_cases():
+    """(batch, kernel, label, count, make) of the redesigned kernels'
+    edges, none on the main path (count 0): the fused block in bf16 on the
+    tensor cores at widths that leave ragged GEMM tiles (C0 40, N 4: D 80,
+    D + 2N 88, L 36), the row LayerNorm at C 100 (no multiple of 8) and on
+    a misaligned view; and every scan kernel, the fused block and the
+    unified op at d_state 64, at the 32^2 blocks of phase 15's five-level
+    UNet (the scans of its backward at the training batch)."""
+    cases = [(1, "ss2d_image_block", "bs1 12^2 C0=40 D=80 N=4 ragged tiles", 0,
+              lambda dt, g, d: ss2d_case(1, 12, 40, 4, dt, g, d))]
+    for kname in ("layer_norm", "layer_norm_modulated"):
+        for R, C, aligned in ((2025, 100, True), (2025, 512, False)):
+            label = f"bs1 R={R} C={C}" + ("" if aligned else " misaligned")
+            cases.append((1, kname, label, 0, lambda dt, g, d, k=kname, R=R, C=C, a=aligned:
+                          ln_ragged_case(k, R, C, a, dt, g, d)))
+    for C0, N in N64:
+        cases.append((1, "ss2d_image_block", f"bs1 32^2 C0={C0} D={2 * C0} N={N}", 0,
+                      lambda dt, g, d, C0=C0, N=N: ss2d_case(1, 32, C0, N, dt, g, d)))
+    C0, N = N64[0]
+    L = 16 * 16
+    label = f"B{TRAIN_BATCH}x4 L={L} D={2 * C0} N={N}"
+    cases += [
+        (TRAIN_BATCH, "scan_forward", label, 0,
+         lambda dt, g, d: scan_fwd_case(32, C0, N, dt, g, d)),
+        (TRAIN_BATCH, "scan_backward", label, 0,
+         lambda dt, g, d: scan_bwd_case(32, C0, N, dt, g, d)),
+        (TRAIN_BATCH, "scan_image_forward", f"B{TRAIN_BATCH} 32^2 D={2 * C0} N={N}", 0,
+         lambda dt, g, d: scan_image_case(32, C0, N, dt, g, d)),
+        (1, "scan_fused_forward", f"bs1 L={L} D={2 * C0} N={N}", 0,
+         lambda dt, g, d: scan_fused_case(1, C0, N, dt, g, d, L=L)),
+        (1, "ss2d_mamba_block", f"bs1 32^2 C0={C0} D={2 * C0} N={N}", 0,
+         lambda dt, g, d: mamba_case(1, 32, C0, N, dt, g, d)),
+    ]
     return cases
 
 
@@ -841,7 +915,8 @@ def check_kernels(ops, cases):
             torch.cuda.synchronize()
             err, excess, scale, tol, ok = compare(got, want, base, dtype)
             ms = cuda_ms(lambda: kernel(*args, **kw))
-            pms = cuda_ms(lambda: plain(*args, **kw))
+            # the plain version is no yardstick of speed: 3 timed calls
+            pms = cuda_ms(lambda: plain(*args, **kw), reps=3, warm=1)
             lms = cuda_ms(library[0]) if library else None
             bms, t_bytes, t_ops = bound_ms(moved, work)
             by = "bytes" if t_bytes >= t_ops else "operations"
@@ -1403,6 +1478,55 @@ def plain_gate(request, x, plain, wrappers, tag, steps):
     return dict(psnr_db=gate_db, threshold_db=PSNR_GATE_DB, max_abs_diff=max_diff)
 
 
+def five_level(wrappers, plain, x, card):
+    """Phase 15: ``Config()`` with ``dim_mults`` (1, 2, 4, 8, 16), built on
+    the card through ``FoundDiffDenoiser`` (the factory keeps base_d_state
+    4, so level 4 has d_state 64): one bs1 bf16 request of a 512^2 slice,
+    checked as phase 3 with PER_FORWARD_5 launches per UNet forward, the
+    plain-path gate of phase 4, and phase 6's autograd check on one
+    MambaBlock of that level (32^2, C 512, d_state 64)."""
+    from founddiff_tpu_torch.config import Config
+    from founddiff_tpu_torch.factory import build
+    from founddiff_tpu_torch.pipeline import make_hoisted_sampler
+
+    cfg = Config()
+    cfg.model.dim_mults = FIVE_MULTS
+    diffusion, model = build(cfg, device="cuda", seed=0)
+    perturb_gates(model, seed=0)
+    states = sorted({m.mamba.d_state for m in model.modules() if hasattr(m, "mamba")})
+    sampler = make_hoisted_sampler(model, diffusion, compute_dtype=torch.bfloat16)
+    steps = cfg.diffusion.sampling_timesteps
+
+    def request(x, seed):
+        out = sampler(x, generator=torch.Generator().manual_seed(seed))
+        torch.cuda.synchronize()
+        return out
+
+    request(x, 0)  # warm-up
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = request(x, 100)
+    request_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    for k, n in launches.items():
+        if n != PER_FORWARD_5.get(k, 0) * steps:
+            raise AssertionError(f"five-level: {k} {n} launches in {steps} UNet forwards, want "
+                                 f"{PER_FORWARD_5.get(k, 0)} per forward")
+    if out.shape != x.shape or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"five-level: bad output {tuple(out.shape)}")
+    log(f"[five-level] dim 64 x {FIVE_MULTS}, d_state {states}, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters: DDIM-{steps} "
+        f"512^2 bs1 bf16 request {request_s:.4f} s, launches {launches} [{card}]")
+    gate = plain_gate(request, x, plain, wrappers, "five-level", steps)
+    del model, diffusion, sampler
+    torch.cuda.empty_cache()
+    grads = check_autograd(plain, wrappers, "autograd d_state 64",
+                           shapes=((32, N64[0][0], N64[0][1]),))
+    return dict(d_states=states, request_s=request_s, launches=launches, gate=gate,
+                autograd=grads)
+
+
 def psnr(a, b) -> float:
     mse = float(((a.float() - b.float()) ** 2).mean())
     return float("inf") if mse == 0 else 10 * math.log10(1.0 / mse)
@@ -1498,6 +1622,7 @@ def main() -> int:
     cases += flash_cases()
     cases += [(b, *c) for b in (1, TRAIN_BATCH, 4) for c in route_cases(b)]
     cases += [(b, *c) for b in (1, TRAIN_BATCH, 4) for c in unfused_cases(b)]
+    cases += slice6_cases()
     rows, failed = check_kernels(ops, cases)
     bounds, bounds_failed = check_fused_h_bounds()
     failed += bounds_failed
@@ -1645,6 +1770,9 @@ def main() -> int:
     cfg_odd.diffusion.image_size = ODD_SIZE
     record["train_odd"] = train_full_width(wrappers, card, cfg_odd, PER_STEP_360,
                                            f"train {ODD_SIZE}")
+    # phase 15: a five-level UNet, d_state 64 at its 32^2 level
+    torch.cuda.empty_cache()
+    record["five_level"] = five_level(wrappers, plain_default, x_all[:1], card)
 
     kernels = []
     for k, (src, tpu) in SOURCES.items():
@@ -1666,12 +1794,15 @@ def main() -> int:
             main_rows = [r for r in mine if r["dtype"] == "float32"]
             n = record["vanilla_train" if k in FLASH_BWD else "train"]["launches"][k]
         total = lambda key: sum(r[key] * r["per_forward"] for r in main_rows)
+        states = sorted({int(w[2:]) for r in mine for w in r["shape"].split()
+                         if w.startswith("N=")})
         kernels.append(dict(
             name=k, route="cuda", source=src, replaces=tpu, launches=n,
             max_abs_err=max(r["max_abs_err"] for r in mine), ms=total("ms"),
             plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
             bound_by="bytes" if total("bytes_ms") >= total("ops_ms") else "operations",
-            library_ms=total("library_ms") if main_rows[0]["library_ms"] is not None else None))
+            library_ms=total("library_ms") if main_rows[0]["library_ms"] is not None else None,
+            **({"d_state": states} if states else {})))
     record["kernels"] = kernels
     _write_record(record)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

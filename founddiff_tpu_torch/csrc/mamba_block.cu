@@ -21,10 +21,11 @@
 // Bound on the H100 (as chip_smoke.py counts it): the products (in_proj's
 // 2*C0*D multiply-adds per pixel, delta/B/C through their rank-R factors,
 // out_proj's D*C0) on the tensor cores in bf16, the scan's and the depthwise
-// conv's fp32 operations, or the bytes of x in and out.  This first version runs its
-// products on the fp32 CUDA cores through the simple tiled GEMM of
-// common.cuh and passes xc, U, xs, the projections, y and the LN statistics
-// through device memory, so it sits far above that bound (PERF.md).
+// conv's fp32 operations, or the bytes of x in and out.  This version runs
+// in_proj on the fp32 CUDA cores through the tiled GEMM of common.cuh, the
+// tail's three products in bf16 on the tensor cores (ss2d_tail.cuh), and
+// passes xc, U, xs, the projections, y and the LN statistics through device
+// memory, so it sits far above that bound (PERF.md).
 // Design, on the caller's stream:
 //   1. LN-center rows, one warp per pixel (fd::ln_rows without affine);
 //   2. in_proj's x half as a GEMM batched over images (B operand Wxg_b),
@@ -88,7 +89,7 @@ int run(const void* x_, const void* wxg_, const float* bx, const void* wzg_, con
                                 static_cast<const T*>(wproj_), A, Ds, dbias, lng, lnb, local,
                                 static_cast<const T*>(pw_), gate, static_cast<T*>(out_), proj,
                                 csum, cstate, ybuf, stats, static_cast<T*>(og_), B, H, W, C0, D,
-                                NS, TC, eps, s);
+                                NS, TC, eps, /*tc=*/true, s);
 }
 
 }  // namespace

@@ -36,6 +36,14 @@
 // constraints and are not ported; padding is not needed, since a chunk
 // simply ends at L (the TPU's padded steps have delta' = 0 and change
 // nothing).
+// State sizes: N in {4, 8, 16, 32, 64}, a template argument each, the
+// states in registers.  N = 64 (the deepest level of a five-level UNet,
+// base_d_state 4 * 2^4) costs what it must: the backward's main pass holds
+// five [64] arrays a thread, so it runs at 255 registers and spills about
+// 300 bytes a thread to local memory (-Xptxas -v on sm_90a; the forward
+// passes use 168 registers and do not spill), and its 8-step chunk of
+// replayed states is 64 KB of shared memory, above the 48 KB default, so it
+// opts in with cudaFuncSetAttribute.  Other sizes raise in the wrapper.
 //
 // The fused-projection forward replaces the TPU kernel _scan_kernel_fused
 // (scan_pallas.py:630, pallas_call :738 in _pallas_fwd_fused, through
@@ -350,7 +358,9 @@ int backward(const T* u, const T* dl, const T* Bm, const T* Cm, const float* A,
                                                                      total);
   FD_TRY(cudaGetLastError());
   const size_t smem = (size_t)TC * NS * WARP * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024)  // N = 64 at the 8-step chunk: 64 KB, an opt-in size
+    FD_TRY(cudaFuncSetAttribute(bwd_main_kernel<T, NS>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
   dim3 grid2(nd, NC, G);
   bwd_main_kernel<T, NS><<<grid2, WARP, smem, s>>>(u, dl, Bm, Cm, dy, A, Ds, bias, hb, zl, gu,
                                                    gdl, gBp, gCp, gAp, gDp, gbp, K, L, D, TC,
@@ -377,6 +387,7 @@ int forward_n(const void* u, const void* dl, const void* Bm, const void* Cm, con
     case 8: return forward<T, 8>(c(u), c(dl), c(Bm), c(Cm), A, Ds, bias, yt, hb, dsum, G, K, L, D, TC, s);
     case 16: return forward<T, 16>(c(u), c(dl), c(Bm), c(Cm), A, Ds, bias, yt, hb, dsum, G, K, L, D, TC, s);
     case 32: return forward<T, 32>(c(u), c(dl), c(Bm), c(Cm), A, Ds, bias, yt, hb, dsum, G, K, L, D, TC, s);
+    case 64: return forward<T, 64>(c(u), c(dl), c(Bm), c(Cm), A, Ds, bias, yt, hb, dsum, G, K, L, D, TC, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -397,6 +408,7 @@ int backward_n(const void* u, const void* dl, const void* Bm, const void* Cm, co
     case 8: return FD_BWD(8);
     case 16: return FD_BWD(16);
     case 32: return FD_BWD(32);
+    case 64: return FD_BWD(64);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FD_BWD
@@ -485,6 +497,7 @@ int fused_forward_n(const void* u, const void* wproj, const float* A, const floa
     case 8: return fused_forward<T, 8>(ut, wt, A, Ds, bias, yt, hb, proj, dsum, G, L, D, TC, s);
     case 16: return fused_forward<T, 16>(ut, wt, A, Ds, bias, yt, hb, proj, dsum, G, L, D, TC, s);
     case 32: return fused_forward<T, 32>(ut, wt, A, Ds, bias, yt, hb, proj, dsum, G, L, D, TC, s);
+    case 64: return fused_forward<T, 64>(ut, wt, A, Ds, bias, yt, hb, proj, dsum, G, L, D, TC, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

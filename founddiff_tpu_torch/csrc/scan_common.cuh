@@ -160,7 +160,7 @@ int image_scan(const T* xs, const float* proj, const float* A, const float* Ds, 
   return 0;
 }
 
-// image_scan for a runtime state size in {4, 8, 16, 32}
+// image_scan for a runtime state size in {4, 8, 16, 32, 64}
 template <typename T, class Out>
 int image_scan_n(const T* xs, const float* proj, const float* A, const float* Ds, float* csum,
                  float* cstate, Out out, int B, int H, int W, int D, int NS, int L, int TC,
@@ -170,6 +170,7 @@ int image_scan_n(const T* xs, const float* proj, const float* A, const float* Ds
     case 8: return image_scan<T, 8>(xs, proj, A, Ds, csum, cstate, out, B, H, W, D, L, TC, NC, s);
     case 16: return image_scan<T, 16>(xs, proj, A, Ds, csum, cstate, out, B, H, W, D, L, TC, NC, s);
     case 32: return image_scan<T, 32>(xs, proj, A, Ds, csum, cstate, out, B, H, W, D, L, TC, NC, s);
+    case 64: return image_scan<T, 64>(xs, proj, A, Ds, csum, cstate, out, B, H, W, D, L, TC, NC, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

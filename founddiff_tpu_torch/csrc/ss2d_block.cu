@@ -11,9 +11,11 @@
 // factors, B/C, z, out_proj) and the scan about 6*N*D fp32 operations.  This
 // first version folds the rank-R delta projection into one [D, D] matrix
 // (D*(D+2N) multiply-adds for delta/B/C, 6x to 8.5x the rank-R count), runs
-// the products on the fp32 CUDA cores through a simple tiled GEMM, not the
-// tensor cores, and passes the projections, y and the LN statistics through
-// device memory, so it sits far above that bound (PERF.md has the times).
+// the products in bf16 on the tensor cores (fd::gemm_tc: mma.sync with fp32
+// sums; fp32 stays on the CUDA cores through fd::gemm), and passes the
+// projections, y and the LN statistics through device memory, so it sits
+// above that bound (PERF.md has the times).  tc = 0 keeps bf16 on fd::gemm,
+// the earlier route, for the checks that hold one against the other.
 // Design: the five launches of ss2d_tail.cuh (projection GEMM, chunked scan,
 // LN statistics, the z GEMM with the gated epilogue, out_proj with the gated
 // residual), with one W_z and no z bias.
@@ -31,13 +33,13 @@ int run(const void* x1_, const void* xs_, const void* xr_, const void* wz_,
         const float* lng, const float* lnb, const float* local, const void* pw_,
         const float* gate, void* out_, float* proj, float* csum, float* cstate, float* ybuf,
         float* stats, void* og_, int B, int H, int W, int C0, int D, int NS, int TC,
-        float eps, cudaStream_t s) {
+        float eps, bool tc, cudaStream_t s) {
   return fd::ss2d_tail<T, false>(static_cast<const T*>(x1_), static_cast<const T*>(xs_),
                                  static_cast<const T*>(xr_), static_cast<const T*>(wz_),
                                  nullptr, static_cast<const T*>(wproj_), A, Ds, dbias, lng,
                                  lnb, local, static_cast<const T*>(pw_), gate,
                                  static_cast<T*>(out_), proj, csum, cstate, ybuf, stats,
-                                 static_cast<T*>(og_), B, H, W, C0, D, NS, TC, eps, s);
+                                 static_cast<T*>(og_), B, H, W, C0, D, NS, TC, eps, tc, s);
 }
 
 }  // namespace
@@ -47,15 +49,16 @@ extern "C" int ss2d_block_forward(
     const float* A, const float* Ds, const float* dbias, const float* lng,
     const float* lnb, const float* local, const void* pw, const float* gate, void* out,
     float* proj, float* csum, float* cstate, float* ybuf, float* stats, void* og, int B,
-    int H, int W, int C0, int D, int NS, int TC, float eps, int dtype,
+    int H, int W, int C0, int D, int NS, int TC, float eps, int tc, int dtype,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return run<float>(x1, xs, xr, wz, wproj, A, Ds, dbias, lng, lnb, local, pw, gate, out,
-                      proj, csum, cstate, ybuf, stats, og, B, H, W, C0, D, NS, TC, eps, s);
+                      proj, csum, cstate, ybuf, stats, og, B, H, W, C0, D, NS, TC, eps, tc != 0,
+                      s);
   if (dtype == 1)
     return run<__nv_bfloat16>(x1, xs, xr, wz, wproj, A, Ds, dbias, lng, lnb, local, pw,
                               gate, out, proj, csum, cstate, ybuf, stats, og, B, H, W, C0,
-                              D, NS, TC, eps, s);
+                              D, NS, TC, eps, tc != 0, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -12,6 +12,7 @@ same weights on every device.
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Optional, Tuple, Union
 
 import torch
@@ -90,19 +91,31 @@ def init_params(model: nn.Module, gen: torch.Generator) -> None:
             mod.adaLN_modulation[1].bias.zero_()
 
 
+# The FoundDiff fields the JAX factory does not pass on, so its UNet always
+# has their defaults (founddiff_tpu/factory.py:33-46, models/unet.py:227-241,
+# models/founddiff.py:28-63): the port builds the same model from one Config.
+JAX_FIXED = {"base_d_state": 4, "ssm_expand": 2.0, "resnet_block_groups": 8}
+
+
 def build_denoiser(config: Config, clip_overrides=()) -> Union[FoundDiffDenoiser, VanillaUnet]:
     m = config.model
     if m.original_ddim_ddpm:
         return VanillaUnet(dim=m.dim, dim_mults=tuple(m.dim_mults), channels=m.channels,
                            self_condition=m.self_condition,
                            resnet_block_groups=m.resnet_block_groups)
+    ignored = {k: getattr(m, k) for k, v in JAX_FIXED.items() if getattr(m, k) != v}
+    if ignored:
+        warnings.warn("build: the JAX package builds FoundDiff with "
+                      + ", ".join(f"{k}={JAX_FIXED[k]}" for k in ignored) + " whatever the "
+                      "Config says; ignoring " + ", ".join(f"{k}={v}" for k, v in ignored.items())
+                      + " (construct FoundDiffDenoiser directly for other values)",
+                      stacklevel=2)
     return FoundDiffDenoiser(
         dim=m.dim, dim_mults=tuple(m.dim_mults), channels=m.channels,
         num_unet=m.num_unet, condition=m.condition, input_condition=m.input_condition,
-        self_condition=m.self_condition, resnet_block_groups=m.resnet_block_groups,
-        objective=m.objective, test_res_or_noise=m.test_res_or_noise,
-        base_d_state=m.base_d_state, ssm_expand=m.ssm_expand,
-        clip_backbone=m.clip_backbone, clip_overrides=clip_overrides)
+        self_condition=m.self_condition, objective=m.objective,
+        test_res_or_noise=m.test_res_or_noise, clip_backbone=m.clip_backbone,
+        clip_overrides=clip_overrides, **JAX_FIXED)
 
 
 def build(config: Config, device="cuda", seed: Optional[int] = None, clip_overrides=(),

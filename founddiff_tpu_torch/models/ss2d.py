@@ -32,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from founddiff_tpu_torch.models.blocks import Dense, LNorm, TransposedAttention, conv_nhwc
+from founddiff_tpu_torch.ops import _cache
 from founddiff_tpu_torch.ops.attn_block import attn_block, attn_block_route
 from founddiff_tpu_torch.ops.experimental_unified import (
     mamba_block_ok,
@@ -73,13 +74,23 @@ class SS2D(nn.Module):
         self.out_proj = Dense(D, d_model, bias=False)
         self.attn = nn.Sequential(Dense(context_dim, D, bias=False), nn.SiLU())
 
+    def A(self) -> torch.Tensor:
+        """``-exp(A_logs)`` [4, D, N] in fp32; without autograd, derived once
+        per version of ``A_logs``, so that the kernels' weight caches see
+        one tensor."""
+        make = lambda: -torch.exp(self.A_logs.float()).reshape(K_DIRS, self.d_inner,
+                                                                 self.d_state)
+        if _cache.needs_grad(self.A_logs):
+            return make()
+        return _cache.derived("A", (self.A_logs,), make)
+
     def forward(self, x1, c, gate, residual):
         """x1 [B,H,W,C0] modulated input; c [B,1,context] content embedding;
         returns ``residual + gate * SS2D(x1)``."""
         B, H, W, _ = x1.shape
         D, N = self.d_inner, self.d_state
         local = self.attn(c)[:, 0] if c is not None else None
-        A = -torch.exp(self.A_logs.float()).reshape(K_DIRS, D, N)
+        A = self.A()
         Ds = self.Ds.reshape(K_DIRS, D)
         w_in = self.in_proj.weight
         xs = F.linear(x1, w_in[:D].to(x1.dtype))
@@ -104,7 +115,7 @@ class SS2D(nn.Module):
         return ss2d_mamba_block(
             x, norm1.weight, norm1.bias, mod_scale, mod_shift, self.in_proj.weight,
             self.conv2d.weight, self.conv2d.bias, self.x_proj_weight, self.dt_projs_weight,
-            -torch.exp(self.A_logs.float()).reshape(K_DIRS, D, N), self.Ds.reshape(K_DIRS, D),
+            self.A(), self.Ds.reshape(K_DIRS, D),
             self.dt_projs_bias, self.out_norm.weight, self.out_norm.bias,
             self.attn(c)[:, 0] if c is not None else None, self.out_proj.weight, gate,
             d_inner=D, dt_rank=self.dt_rank, d_state=N)

@@ -19,7 +19,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -99,22 +99,43 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+_DECLARED: Dict[tuple, tuple] = {}
+
+
 def declare(lib: ctypes.CDLL, fn: str, n_ptrs: int, tail: List) -> ctypes._CFuncPtr:
-    """Set the C signature ``int fn(void* x n_ptrs, *tail, void* stream)``."""
+    """The C function ``int fn(void* x n_ptrs, *tail, void* stream)`` of
+    ``lib``, typed once: later calls return the cached function (the cache
+    holds ``lib``, so its id is not reused)."""
+    hit = _DECLARED.get((id(lib), fn))
+    if hit is not None:
+        return hit[1]
     f = getattr(lib, fn)
     f.argtypes = [ctypes.c_void_p] * n_ptrs + list(tail) + [ctypes.c_void_p]
     f.restype = ctypes.c_int
+    _DECLARED[(id(lib), fn)] = (lib, f)
     return f
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+def kernel(name: str, fn: str, n_ptrs: int, tail: List) -> ctypes._CFuncPtr:
+    """:func:`declare` of ``fn`` in the library of ``csrc/<name>.cu``."""
+    return declare(load(name), fn, n_ptrs, tail)
 
 
-def stream() -> ctypes.c_void_p:
+def ptr(t) -> Optional[int]:
+    """A tensor's address for a ``c_void_p`` argument (``None``: NULL)."""
+    return None if t is None else t.data_ptr()
+
+
+def stream() -> int:
+    """The current CUDA stream of the current device, as an address: the
+    raw getter PyTorch's own kernel launchers use, without building a
+    ``torch.cuda.Stream`` object on every launch."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream().cuda_stream
+    return raw(torch.cuda.current_device())
 
 
 def expect(device, **named) -> None:
@@ -134,8 +155,14 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
+_CODES: Dict[object, int] = {}
+
+
 def dtype_code(t) -> int:
-    name = str(t.dtype).replace("torch.", "")
-    if name not in DTYPE_CODE:
-        raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
-    return DTYPE_CODE[name]
+    code = _CODES.get(t.dtype)
+    if code is None:
+        name = str(t.dtype).replace("torch.", "")
+        if name not in DTYPE_CODE:
+            raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
+        code = _CODES[t.dtype] = DTYPE_CODE[name]
+    return code

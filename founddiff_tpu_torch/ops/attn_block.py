@@ -113,8 +113,8 @@ def _attn_block_cuda(x, mod_scale, mod_shift, gate, qkv_w, dw_w, temperature,
     part = torch.empty(B * heads * splits * (_HEAD_DIM + 2) * _HEAD_DIM, device=dev)
     M = torch.empty(B * C * C, device=dev, dtype=io)
     out = torch.empty_like(x)
-    fn = _build.declare(_build.load("attn_block"), "attn_block_forward", 14,
-                        [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int])
+    fn = _build.kernel("attn_block", "attn_block_forward", 14,
+                       [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int])
     rc = fn(*map(_build.ptr, (x, ms, mt, gate_io, wqkv, taps, temp, pk, out, x2, u,
                               qkv, part, M)),
             B, H, W, C, splits, eps, _build.dtype_code(x), _build.stream())

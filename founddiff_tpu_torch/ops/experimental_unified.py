@@ -144,8 +144,8 @@ def _mamba_block_cuda(x, geff, beff, wx, wz, dwt, dwb, w_delta, w_b, w_c, A, Dsk
     ybuf = torch.empty(B * H * W * D, device=dev)
     stats = torch.empty(B * H * W * 2, device=dev)
     out = torch.empty_like(x)
-    fn = _build.declare(_build.load("mamba_block"), "mamba_block_forward", 26,
-                        [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float, ctypes.c_int])
+    fn = _build.kernel("mamba_block", "mamba_block_forward", 26,
+                       [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float, ctypes.c_int])
     rc = fn(*map(_build.ptr, (x, wxg, bx, wzg, bz, taps, dwb32, wproj, A32, Ds32, bias32, g32,
                               b32, loc32, pw, gate32, out, xc, u, xs, proj_buf, chunk_sum,
                               chunk_state, ybuf, stats, og)),

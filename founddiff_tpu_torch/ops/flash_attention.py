@@ -113,8 +113,8 @@ def _flash_fwd_cuda(q, k, v, scale: float):
     q, k, v = (t.contiguous() for t in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty(G, Lq, device=q.device)
-    fn = _build.declare(_build.load("flash_attention"), "flash_fwd", 5,
-                        [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int])
+    fn = _build.kernel("flash_attention", "flash_fwd", 5,
+                       [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int])
     rc = fn(*map(_build.ptr, (q, k, v, o, lse)), G, Lq, Lk, d, scale, _build.dtype_code(q),
             _build.stream())
     _build.check(rc, "flash_fwd")
@@ -132,8 +132,8 @@ def _bwd_operands(q, k, v, do, lse, dcap):
 def _flash_bwd_dq_cuda(q, k, v, do, lse, dcap, scale: float):
     ops, dims = _bwd_operands(q, k, v, do, lse, dcap)
     dq = torch.empty_like(ops[0])
-    fn = _build.declare(_build.load("flash_attention"), "flash_bwd_dq", 7,
-                        [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int])
+    fn = _build.kernel("flash_attention", "flash_bwd_dq", 7,
+                       [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int])
     rc = fn(*map(_build.ptr, ops + (dq,)), *dims, scale, _build.dtype_code(q), _build.stream())
     _build.check(rc, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
@@ -143,8 +143,8 @@ def _flash_bwd_dq_cuda(q, k, v, do, lse, dcap, scale: float):
 def _flash_bwd_dkv_cuda(q, k, v, do, lse, dcap, scale: float):
     ops, dims = _bwd_operands(q, k, v, do, lse, dcap)
     dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
-    fn = _build.declare(_build.load("flash_attention"), "flash_bwd_dkv", 8,
-                        [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int])
+    fn = _build.kernel("flash_attention", "flash_bwd_dkv", 8,
+                       [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int])
     rc = fn(*map(_build.ptr, ops + (dk, dv)), *dims, scale, _build.dtype_code(q),
             _build.stream())
     _build.check(rc, "flash_bwd_dkv")

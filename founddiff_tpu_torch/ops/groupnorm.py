@@ -108,7 +108,7 @@ def _gn_stats_cuda(x3):
     nck = _stats_chunks(B, R)
     out = torch.empty(B, 2, C, device=x3.device)
     partial = torch.empty(B * nck * 2 * C, device=x3.device)
-    fn = _build.declare(_build.load("groupnorm"), "gn_stats_forward", 3, [ctypes.c_int] * 5)
+    fn = _build.kernel("groupnorm", "gn_stats_forward", 3, [ctypes.c_int] * 5)
     rc = fn(_build.ptr(x3), _build.ptr(out), _build.ptr(partial), B, R, C, nck,
             _build.dtype_code(x3), _build.stream())
     _build.check(rc, "gn_stats_forward")
@@ -129,7 +129,7 @@ def _gn_apply_cuda(x3, mean, rstd, g, b, residual):
     _build.expect(x3.device, mean=(mean, (B, C)), rstd=(rstd, (B, C)), g=(g, (B, C)),
                   b=(b, (B, C)), residual=(residual, (B, R, C)))
     out = torch.empty_like(x3)
-    fn = _build.declare(_build.load("groupnorm"), "gn_apply_forward", 7, [ctypes.c_int] * 5)
+    fn = _build.kernel("groupnorm", "gn_apply_forward", 7, [ctypes.c_int] * 5)
     rc = fn(*map(_build.ptr, (x3, mean, rstd, g, b, residual, out)), B, R, C,
             int(residual is not None), _build.dtype_code(x3), _build.stream())
     _build.check(rc, "gn_apply_forward")

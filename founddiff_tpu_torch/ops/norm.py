@@ -10,6 +10,11 @@ CPU tensors to the plain versions :func:`_ln` and :func:`_ln_mod`.  The
 backwards are ``_fused_ln_bwd``'s (norm_pallas.py:87-96: autograd through
 the two-pass :func:`layer_norm_two_pass`) and ``_fused_ln_mod_bwd``'s
 (:196-204: autograd through :func:`_ln_mod`).
+
+Host path: when no input needs a gradient the wrappers launch directly,
+without an autograd Function; the fp32 copies of the affine are derived
+once per parameter version (:mod:`._cache`), and the modulation is read in
+place when it is an fp32 row-strided view (the adaLN chunks).
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from founddiff_tpu_torch.ops import _build
+from founddiff_tpu_torch.ops import _build, _cache
 from founddiff_tpu_torch.ops.remat import remat_grads
 
 
@@ -49,15 +54,17 @@ def _ln(x2, scale, bias, eps):
     return y.to(x2.dtype)
 
 
+_LN_TAIL = [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
+_LN_MOD_TAIL = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
+
+
 def _ln_cuda(x2, scale, bias, eps):
     R, C = x2.shape
     x2 = x2.contiguous()
-    f32 = lambda t: None if t is None else t.detach().float().contiguous()
-    g, b = f32(scale), f32(bias)
+    g, b = _cache.f32(scale), _cache.f32(bias)
     _build.expect(x2.device, scale=(g, (C,)), bias=(b, (C,)))
     out = torch.empty_like(x2)
-    fn = _build.declare(_build.load("ln_mod"), "ln_forward", 4,
-                        [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
+    fn = _build.kernel("ln_mod", "ln_forward", 4, _LN_TAIL)
     rc = fn(_build.ptr(x2), _build.ptr(g), _build.ptr(b), _build.ptr(out), R, C, eps,
             int(g is not None), _build.dtype_code(x2), _build.stream())
     _build.check(rc, "ln_forward")
@@ -88,7 +95,10 @@ def layer_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
     bias [C] or both None.  CUDA tensors launch the kernel; CPU tensors take
     the plain version.  Differentiable in every tensor argument."""
     shape = x.shape
-    return _LnFn.apply(eps, x.reshape(-1, shape[-1]), scale, bias).reshape(shape)
+    x2 = x.reshape(-1, shape[-1])
+    if _cache.needs_grad(x, scale, bias):
+        return _LnFn.apply(eps, x2, scale, bias).reshape(shape)
+    return (_ln_cuda if x.is_cuda else _ln)(x2, scale, bias, eps).reshape(shape)
 
 
 def layer_norm_plain(x, scale=None, bias=None, eps: float = 1e-5):
@@ -112,18 +122,29 @@ def _ln_mod(x3, scale, bias, mod_scale, mod_shift, eps):
     return y.to(x3.dtype)
 
 
+def _modulation(mod_scale, mod_shift):
+    """mod_scale and mod_shift [B, C] as fp32 rows with one row stride: read
+    in place when they are fp32 views with unit channel stride and a shared
+    row stride (the chunks of the adaLN output), else copied."""
+    ms, mt = mod_scale.detach(), mod_shift.detach()
+    if (ms.dtype == mt.dtype == torch.float32 and ms.dim() == mt.dim() == 2
+            and ms.stride(1) == mt.stride(1) == 1 and ms.stride(0) == mt.stride(0)):
+        return ms, mt, ms.stride(0)
+    ms, mt = ms.float().contiguous(), mt.float().contiguous()
+    return ms, mt, ms.shape[-1]
+
+
 def _ln_mod_cuda(x3, scale, bias, mod_scale, mod_shift, eps):
     B, R, C = x3.shape
     x3 = x3.contiguous()
-    f32 = lambda t: None if t is None else t.detach().float().contiguous()
-    g, b, ms, mt = f32(scale), f32(bias), f32(mod_scale), f32(mod_shift)
+    g, b = _cache.f32(scale), _cache.f32(bias)
+    ms, mt, ldm = _modulation(mod_scale, mod_shift)
     _build.expect(x3.device, scale=(g, (C,)), bias=(b, (C,)), mod_scale=(ms, (B, C)),
                   mod_shift=(mt, (B, C)))
     out = torch.empty_like(x3)
-    fn = _build.declare(_build.load("ln_mod"), "ln_mod_forward", 6,
-                        [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
+    fn = _build.kernel("ln_mod", "ln_mod_forward", 6, _LN_MOD_TAIL)
     rc = fn(_build.ptr(x3), _build.ptr(g), _build.ptr(b), _build.ptr(ms),
-            _build.ptr(mt), _build.ptr(out), B, R, C, eps, int(g is not None),
+            _build.ptr(mt), _build.ptr(out), B, R, C, ldm, eps, int(g is not None),
             _build.dtype_code(x3), _build.stream())
     _build.check(rc, "ln_mod_forward")
     layer_norm_modulated.launches += 1
@@ -156,7 +177,10 @@ def layer_norm_modulated(x: torch.Tensor, scale: Optional[torch.Tensor],
     Differentiable in every tensor argument."""
     shape = x.shape
     x3 = x.reshape(shape[0], -1, shape[-1])
-    return _LnModFn.apply(eps, x3, scale, bias, mod_scale, mod_shift).reshape(shape)
+    if _cache.needs_grad(x, scale, bias, mod_scale, mod_shift):
+        return _LnModFn.apply(eps, x3, scale, bias, mod_scale, mod_shift).reshape(shape)
+    fn = _ln_mod_cuda if x.is_cuda else _ln_mod
+    return fn(x3, scale, bias, mod_scale, mod_shift, eps).reshape(shape)
 
 
 def layer_norm_modulated_plain(x, scale, bias, mod_scale, mod_shift, eps: float = 1e-5):

@@ -46,7 +46,9 @@ from founddiff_tpu_torch.ops.selective_scan import (
     selective_scan_chunked,
 )
 
-_STATE_SIZES = (4, 8, 16, 32)
+# the state sizes the CUDA kernels are instantiated for (the UNet's levels
+# give base_d_state * 2^level: 4 to 64 for up to five levels); others raise
+_STATE_SIZES = (4, 8, 16, 32, 64)
 _IMAGE_CHUNK = 128  # scan chunk of the image kernel (as csrc/ss2d_block.cu)
 
 
@@ -54,7 +56,8 @@ def scan_chunk(d_state: int) -> int:
     """Steps per chunk of ``scan_forward``/``scan_backward``.  The backward
     keeps a chunk's replayed states in shared memory, chunk * N * 32 fp32 per
     warp, so chunk * N is held at 256 (32 KB): 64 steps at N = 4 down to 8
-    at N = 32."""
+    at N = 32; N = 64 keeps the 8-step floor (64 KB, which the kernel opts
+    into)."""
     return max(8, min(64, 256 // d_state))
 
 
@@ -162,8 +165,7 @@ def _scan_forward_cuda(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk: int):
     y = torch.empty_like(u)
     hb = torch.empty(G, NC, N, D, device=dev)
     dsum = torch.empty(G * NC * D, device=dev)
-    fn = _build.declare(_build.load("scan"), "scan_forward", 10,
-                        [ctypes.c_int] * 7)
+    fn = _build.kernel("scan", "scan_forward", 10, [ctypes.c_int] * 7)
     rc = fn(*map(_build.ptr, (u, delta, Bmat, Cmat, A32, Ds32, bias32, y, hb, dsum)),
             G, K, L, D, N, chunk, _build.dtype_code(u), _build.stream())
     _build.check(rc, "scan_forward")
@@ -194,7 +196,7 @@ def _scan_backward_cuda(u, delta, A, Bmat, Cmat, Dskip, delta_bias, h_bounds, dy
     zl, dsum = scratch(G * NC * N * D), scratch(G * NC * D)
     gBp, gCp = scratch(G * L * N * nd), scratch(G * L * N * nd)
     gAp, gDp, gbp = scratch(G * NC * N * D), scratch(G * NC * D), scratch(G * NC * D)
-    fn = _build.declare(_build.load("scan"), "scan_backward", 23, [ctypes.c_int] * 7)
+    fn = _build.kernel("scan", "scan_backward", 23, [ctypes.c_int] * 7)
     rc = fn(*map(_build.ptr, (u, delta, Bmat, Cmat, A32, Ds32, bias32, hb, dy, gu, gdl, gB,
                               gC, gA, gD, gbias, zl, dsum, gBp, gCp, gAp, gDp, gbp)),
             Bsz, K, L, D, N, chunk, _build.dtype_code(u), _build.stream())
@@ -305,7 +307,7 @@ def _scan_fused_cuda(xs, w_delta, w_b, w_c, A, Dskip, delta_bias, chunk: int):
     hb = torch.empty(G, NC, N, D, device=dev)
     proj = torch.empty(G * L * (D + 2 * N), device=dev)
     dsum = torch.empty(G * NC * D, device=dev)
-    fn = _build.declare(_build.load("scan"), "scan_fused_forward", 9, [ctypes.c_int] * 6)
+    fn = _build.kernel("scan", "scan_fused_forward", 9, [ctypes.c_int] * 6)
     rc = fn(*map(_build.ptr, (xs, wproj, A32, Ds32, bias32, y, hb, proj, dsum)),
             G, L, D, N, chunk, _build.dtype_code(xs), _build.stream())
     _build.check(rc, "scan_fused_forward")
@@ -456,8 +458,7 @@ def _scan_image_cuda(x, w_delta, w_b, w_c, A, Dskip, delta_bias):
     proj = torch.empty(B * 4 * L * (D + 2 * N), device=dev)
     csum = torch.empty(B * 4 * NC * D, device=dev)
     cstate = torch.empty(B * 4 * NC * D * N, device=dev)
-    fn = _build.declare(_build.load("scan_image"), "scan_image_forward", 9,
-                        [ctypes.c_int] * 7)
+    fn = _build.kernel("scan_image", "scan_image_forward", 9, [ctypes.c_int] * 7)
     rc = fn(*map(_build.ptr, (x, wproj, A32, Ds32, bias32, ys, proj, csum, cstate)),
             B, H, W, D, N, _IMAGE_CHUNK, _build.dtype_code(x), _build.stream())
     _build.check(rc, "scan_image_forward")

@@ -26,9 +26,10 @@ import ctypes
 
 import torch
 
-from founddiff_tpu_torch.ops import _build
+from founddiff_tpu_torch.ops import _build, _cache
 from founddiff_tpu_torch.ops.remat import remat_grads
 from founddiff_tpu_torch.ops.scan import (
+    _STATE_SIZES,
     ScanImageFn,
     _derive_weights,
     image_scan_vmem_ok,
@@ -41,7 +42,6 @@ from founddiff_tpu_torch.ops.selective_scan import (
 )
 from founddiff_tpu_torch.ops.ss2d_fused import _merge_ln_gate_xla
 
-_STATE_SIZES = (4, 8, 16, 32)
 _CHUNK = 128  # scan chunk of the CUDA kernel (positions per chunk)
 
 
@@ -87,11 +87,29 @@ def _ss2d_tail_plain(z, xs, x_raw, w_delta, w_b, w_c, A, Dskip, delta_bias, ln_g
     return (x_raw.float() + gate_f * fp).to(x_raw.dtype)
 
 
-def _ss2d_block_cuda(x1, xs, x_raw, w_z, w_delta, w_b, w_c, A, Dskip, delta_bias,
-                     ln_g, ln_b, local, proj_w, gate, eps):
+def _kernel_weights(w_z, w_delta, w_b, w_c, A, Dskip, delta_bias, ln_g, ln_b, proj_w, io):
+    """The kernel's weight operands: W_z, the folded projections [4, D, D+2N]
+    and out_proj at the io dtype; A, Dskip, delta_bias and the LN affine as
+    contiguous fp32."""
+    f32 = lambda t: t.detach().float().contiguous()
+    cast = lambda t: t.detach().to(io).contiguous()
+    return dict(wz=cast(w_z), wproj=cast(torch.cat([w_delta, w_b, w_c], dim=-1)),
+                pw=cast(proj_w), A=f32(A), Ds=f32(Dskip), bias=f32(delta_bias), g=f32(ln_g),
+                b=f32(ln_b))
+
+
+_BLOCK_TAIL = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
+# bf16 products on the tensor cores (False: on the CUDA cores of fd::gemm,
+# the earlier route, which the checks on the card hold the first against)
+TENSOR_CORES = True
+
+
+def _launch(x1, xs, x_raw, w, local, gate, eps):
+    """One ``ss2d_block_forward`` launch with the weight operands ``w`` of
+    :func:`_kernel_weights`."""
     B, H, W, D = xs.shape
     C0 = x_raw.shape[-1]
-    N = A.shape[-1]
+    N = w["A"].shape[-1]
     io = xs.dtype
     if x1.dtype != io or x_raw.dtype != io:
         raise TypeError("x1, xs and x_raw must share one dtype")
@@ -100,20 +118,14 @@ def _ss2d_block_cuda(x1, xs, x_raw, w_z, w_delta, w_b, w_c, A, Dskip, delta_bias
     if not block_scan_ok(H, W):
         raise ValueError(f"ss2d_image_block needs even H, W >= 4, got {H}x{W}")
     x1, xs, x_raw = x1.contiguous(), xs.contiguous(), x_raw.contiguous()
-    f32 = lambda t: t.detach().float().contiguous()
-    wproj = torch.cat([w_delta, w_b, w_c], dim=-1).to(io).contiguous()  # [4, D, D+2N]
-    wz = w_z.to(io).contiguous()
-    pw = proj_w.to(io).contiguous()
-    A32, Ds32, bias32 = f32(A), f32(Dskip), f32(delta_bias)
-    g32, b32 = f32(ln_g), f32(ln_b)
-    loc32 = None if local is None else f32(local)
-    gate32 = gate.to(io).float().contiguous()
+    loc32 = None if local is None else local.detach().float().contiguous()
+    gate32 = gate.detach().to(io).float().contiguous()
     dev = xs.device
     _build.expect(dev, x1=(x1, (B, H, W, C0)), x_raw=(x_raw, (B, H, W, C0)),
-                  wproj=(wproj, (4, D, D + 2 * N)), w_z=(wz, (C0, D)), proj_w=(pw, (D, C0)),
-                  A=(A32, (4, D, N)), Dskip=(Ds32, (4, D)), delta_bias=(bias32, (4, D)),
-                  ln_g=(g32, (D,)), ln_b=(b32, (D,)), local=(loc32, (B, D)),
-                  gate=(gate32, (B, C0)))
+                  wproj=(w["wproj"], (4, D, D + 2 * N)), w_z=(w["wz"], (C0, D)),
+                  proj_w=(w["pw"], (D, C0)), A=(w["A"], (4, D, N)), Dskip=(w["Ds"], (4, D)),
+                  delta_bias=(w["bias"], (4, D)), ln_g=(w["g"], (D,)), ln_b=(w["b"], (D,)),
+                  local=(loc32, (B, D)), gate=(gate32, (B, C0)))
     L = (H // 2) * (W // 2)
     NC = -(-L // _CHUNK)
     proj_buf = torch.empty(B * 4 * L * (D + 2 * N), device=dev)
@@ -123,16 +135,22 @@ def _ss2d_block_cuda(x1, xs, x_raw, w_z, w_delta, w_b, w_c, A, Dskip, delta_bias
     stats = torch.empty(B * H * W * 2, device=dev)
     og = torch.empty(B * H * W * D, device=dev, dtype=io)
     out = torch.empty_like(x_raw)
-    fn = _build.declare(_build.load("ss2d_block"), "ss2d_block_forward", 20,
-                        [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int])
-    rc = fn(*map(_build.ptr, (x1, xs, x_raw, wz, wproj, A32, Ds32, bias32, g32, b32,
-                              loc32, pw, gate32, out, proj_buf, chunk_sum,
+    fn = _build.kernel("ss2d_block", "ss2d_block_forward", 20, _BLOCK_TAIL)
+    rc = fn(*map(_build.ptr, (x1, xs, x_raw, w["wz"], w["wproj"], w["A"], w["Ds"], w["bias"],
+                              w["g"], w["b"], loc32, w["pw"], gate32, out, proj_buf, chunk_sum,
                               chunk_state, ybuf, stats, og)),
-            B, H, W, C0, D, N, _CHUNK, eps, _build.dtype_code(xs),
+            B, H, W, C0, D, N, _CHUNK, eps, int(TENSOR_CORES), _build.dtype_code(xs),
             _build.stream())
     _build.check(rc, "ss2d_block_forward")
     ss2d_image_block.launches += 1
     return out
+
+
+def _ss2d_block_cuda(x1, xs, x_raw, w_z, w_delta, w_b, w_c, A, Dskip, delta_bias,
+                     ln_g, ln_b, local, proj_w, gate, eps):
+    w = _kernel_weights(w_z, w_delta, w_b, w_c, A, Dskip, delta_bias, ln_g, ln_b, proj_w,
+                        xs.dtype)
+    return _launch(x1, xs, x_raw, w, local, gate, eps)
 
 
 def ss2d_compose(x1, xs_conv, x_raw, w_z, w_delta, w_b, w_c, A, Dskip, delta_bias,
@@ -175,14 +193,19 @@ class _SS2DBlockFn(torch.autograd.Function):
                                    ctx.needs_input_grad[1:], g))
 
 
+def _split_weights(w_z, x_proj_weight, dt_projs_weight, dt_rank, d_state, io):
+    """W_z and the folded projections at the io dtype, as the JAX op casts
+    them before its custom_vjp."""
+    w_delta, w_b, w_c = _derive_weights(x_proj_weight, dt_projs_weight, dt_rank, d_state)
+    return w_z.to(io), w_delta.to(io), w_b.to(io), w_c.to(io)
+
+
 def _split_args(x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A, Dskip,
                 delta_bias, ln_g, ln_b, local, proj_w, gate, dt_rank, d_state):
     """The kernel's operands: the folded projections, and the product weights
-    at the io dtype, as the JAX op casts them before its custom_vjp."""
-    io = xs_conv.dtype
-    w_delta, w_b, w_c = _derive_weights(x_proj_weight, dt_projs_weight, dt_rank, d_state)
-    return (x1, xs_conv, x_raw, w_z.to(io), w_delta.to(io), w_b.to(io), w_c.to(io), A,
-            Dskip, delta_bias, ln_g, ln_b, local, proj_w, gate)
+    at the io dtype."""
+    w = _split_weights(w_z, x_proj_weight, dt_projs_weight, dt_rank, d_state, xs_conv.dtype)
+    return (x1, xs_conv, x_raw, *w, A, Dskip, delta_bias, ln_g, ln_b, local, proj_w, gate)
 
 
 def ss2d_image_block(x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A,
@@ -195,11 +218,24 @@ def ss2d_image_block(x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A,
     dt_projs_weight [4,D,R]; A [4,D,N] (negative); Dskip, delta_bias [4,D];
     ln_g, ln_b [D]; local [B,D] or None; proj_w [D,C0]; gate [B,C0].
     CUDA tensors launch the kernel; CPU tensors take the plain version.
-    Differentiable in every tensor argument.
+    Differentiable in every tensor argument.  When no input needs a
+    gradient, the call skips autograd and the weight operands are derived
+    once per parameter version (:func:`._cache.derived`).
     """
-    return _SS2DBlockFn.apply(eps, *_split_args(
-        x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A, Dskip, delta_bias,
-        ln_g, ln_b, local, proj_w, gate, dt_rank, d_state))
+    weights = (w_z, x_proj_weight, dt_projs_weight, A, Dskip, delta_bias, ln_g, ln_b, proj_w)
+    if _cache.needs_grad(x1, xs_conv, x_raw, local, gate, *weights):
+        return _SS2DBlockFn.apply(eps, *_split_args(
+            x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A, Dskip, delta_bias,
+            ln_g, ln_b, local, proj_w, gate, dt_rank, d_state))
+    io = xs_conv.dtype
+    split = lambda: _split_weights(w_z, x_proj_weight, dt_projs_weight, dt_rank, d_state, io)
+    if xs_conv.is_cuda:
+        w = _cache.derived(("ss2d_block", io, dt_rank, d_state), weights, lambda: _kernel_weights(
+            *split(), A, Dskip, delta_bias, ln_g, ln_b, proj_w, io))
+        return _launch(x1, xs_conv, x_raw, w, local, gate, eps)
+    wz, wd, wb, wc = _cache.derived(("ss2d_block plain", io, dt_rank, d_state), weights, split)
+    return _ss2d_block_plain(x1, xs_conv, x_raw, wz, wd, wb, wc, A, Dskip, delta_bias, ln_g,
+                             ln_b, local, proj_w, gate, eps)
 
 
 def ss2d_image_block_plain(x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A,

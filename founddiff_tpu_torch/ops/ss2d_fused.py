@@ -89,9 +89,9 @@ def _epilogue_cuda(rows, cols, z, scale, bias, local, proj_w, gate, rx, H, W, ep
                   rx=(rx, (B, H, W, Co)))
     out = torch.empty(B, H, W, Co, device=dev, dtype=io)
     og = torch.empty(B, H, W, C, device=dev, dtype=io) if fold else None
-    fn = _build.declare(_build.load("ss2d_epilogue"), "ss2d_epilogue_forward", 13,
-                        [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5
-                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int])
+    fn = _build.kernel("ss2d_epilogue", "ss2d_epilogue_forward", 13,
+                       [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int])
     rc = fn(*map(_build.ptr, (rows[:, 0], cols[:, 0], rows[:, 1], cols[:, 1], z, g32, b32,
                               loc32, pw, gate32, rx, out, og)),
             rows.stride(0), cols.stride(0), B, H, W, C, Co, eps, int(gate_silu), int(fold),

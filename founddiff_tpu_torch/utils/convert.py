@@ -21,6 +21,7 @@ ChanLayerNorm ``g [C]`` -> ``[1, C, 1, 1]``.
 from __future__ import annotations
 
 import re
+import warnings
 from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
@@ -117,3 +118,42 @@ def from_jax_params(params: Mapping, vanilla: Optional[bool] = None) -> Dict[str
         vanilla = "mid_block1" in params
     renames = _VANILLA_RENAMES if vanilla else _RENAMES
     return {_torch_key(p, renames): _value(p, v) for p, v in _leaves(params)}
+
+
+def _uncalled_unet(model) -> Optional[str]:
+    """The state-dict prefix of the UNet that a two-UNet model never calls
+    (``test_res_or_noise`` "res" or "noise"), else None."""
+    if getattr(model, "num_unet", 1) != 2:
+        return None
+    return {"res": "unet1.", "noise": "unet0."}.get(getattr(model, "test_res_or_noise", None))
+
+
+def load_jax_params(model: torch.nn.Module, params: Mapping,
+                    vanilla: Optional[bool] = None) -> torch.nn.Module:
+    """Load a JAX param tree into ``model`` (``from_jax_params``), strictly.
+
+    One exception: flax creates a submodule's parameters at its first call,
+    so a JAX ``UnetRes`` with ``num_unet=2`` and ``test_res_or_noise`` "res"
+    or "noise" holds only the UNet it calls (``models/unet.py:263-270``).
+    The port builds both; when the tree lacks every parameter of the UNet
+    that is never called (the tower under ``unet0.dose_encoder`` aside), that
+    UNet keeps its init and a warning names its prefix.  Any other missing
+    or unexpected key raises.  Returns ``model``."""
+    sd = from_jax_params(params, vanilla)
+    own = model.state_dict()
+    missing = [k for k in own if k not in sd]
+    unexpected = [k for k in sd if k not in own]
+    prefix = _uncalled_unet(model)
+    if prefix is not None and missing:
+        tower = prefix + "dose_encoder."
+        under = [k for k in own if k.startswith(prefix) and not k.startswith(tower)]
+        if under and all(k not in sd for k in under):
+            warnings.warn(f"load_jax_params: the tree has no {prefix}* parameters (the UNet "
+                          f"test_res_or_noise={model.test_res_or_noise!r} never calls); "
+                          f"{prefix}* keeps its init", stacklevel=2)
+            missing = [k for k in missing if k not in set(under)]
+    if missing or unexpected:
+        raise RuntimeError(f"load_jax_params: missing keys {missing[:8]} ({len(missing)}), "
+                           f"unexpected keys {unexpected[:8]} ({len(unexpected)})")
+    model.load_state_dict(sd, strict=False)
+    return model

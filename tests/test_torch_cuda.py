@@ -499,3 +499,102 @@ def test_unfused_wrappers_refuse_what_the_kernels_do_not_take(dev):
     a, kw = _epilogue_args(_gen(15), 1, 4, 4, 32, 32, torch.float32, dev, False, False)
     with pytest.raises(ValueError):  # odd W
         fused_mod.merge_ln_gate(a["ys"], a["z"][:, :, :3], a["scale"], a["bias"], H=4, W=3)
+
+
+def _block_kwargs(g, B, H, W, C0, N, dtype, dev):
+    D, R = 2 * C0, -(-C0 // 16)
+    u = lambda *s, b: ((torch.rand(s, generator=g) * 2 - 1) * b).to(dev)
+    _, _, A, _, _, Ds, bias = _scan_inputs(g, 1, 1, D, N, torch.float32, dev)
+    return dict(
+        x1=_n(g, (B, H, W, C0), 1.0, dev).to(dtype),
+        xs_conv=torch.nn.functional.silu(_n(g, (B, H, W, D), 1.0, dev)).to(dtype),
+        x_raw=_n(g, (B, H, W, C0), 1.0, dev).to(dtype), w_z=u(C0, D, b=C0 ** -0.5),
+        x_proj_weight=u(4, R + 2 * N, D, b=D ** -0.5), dt_projs_weight=u(4, D, R, b=R ** -0.5),
+        A=A, Dskip=Ds, delta_bias=bias, ln_g=_n(g, (D,), 0.1, dev) + 1,
+        ln_b=_n(g, (D,), 0.1, dev), local=_n(g, (B, D), 0.2, dev), proj_w=u(D, C0, b=D ** -0.5),
+        gate=_n(g, (B, C0), 0.3, dev), dt_rank=R, d_state=N)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,W,C0,N", [(1, 6, 10, 40, 4), (2, 10, 14, 24, 8),
+                                        (2, 8, 6, 36, 16)])
+def test_tensor_core_gemm_ragged(dev, monkeypatch, B, H, W, C0, N):
+    """The fused block in bf16 with its three products on the tensor cores
+    (fd::gemm_tc) against the same block on fd::gemm and against the plain
+    version, at widths that leave ragged M, N and K edges in every tile (C0
+    36: the z and out_proj widths are no multiple of 8, so those two stay on
+    fd::gemm)."""
+    args = _block_kwargs(_gen(B * H * W + C0), B, H, W, C0, N, torch.bfloat16, dev)
+    tc = ss2d_mod.ss2d_image_block(**args)
+    monkeypatch.setattr(ss2d_mod, "TENSOR_CORES", False)
+    cuda_cores = ss2d_mod.ss2d_image_block(**args)
+    want = ss2d_mod.ss2d_image_block_plain(**args)
+    _close(tc, want, torch.bfloat16, base=args["x_raw"])
+    _close(cuda_cores, want, torch.bfloat16, base=args["x_raw"])
+    _close(tc, cuda_cores, torch.bfloat16, base=args["x_raw"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C", [64, 100, 1024, 2048])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_layer_norm_row_kernel(dev, dtype, C, aligned):
+    """The row kernel behind ``layer_norm`` and ``layer_norm_modulated``:
+    16-byte vectors with the row in registers (C 64, 1024), the scalar loop
+    (C 100, no multiple of 8; C 2048, past the registers; and a contiguous
+    view that starts one element into its storage)."""
+    g = _gen(C + aligned)
+    shape = (2, 7, 5, C)
+    n = math.prod(shape)
+    base = (_n(g, (n + 1,), 1.0, dev) + 0.3).to(dtype)
+    x = (base[:n] if aligned else base[1:]).view(shape)
+    assert (x.data_ptr() % 16 == 0) == aligned
+    scale, bias = _n(g, (C,), 0.1, dev) + 1, _n(g, (C,), 0.1, dev)
+    mod = _n(g, (2, 6 * C), 0.2, dev)
+    ms, mt = mod.chunk(6, dim=-1)[:2]
+    _close(norm_mod.layer_norm(x, scale, bias), norm_mod.layer_norm_plain(x, scale, bias), dtype)
+    _close(norm_mod.layer_norm(x, eps=1e-6), norm_mod.layer_norm_plain(x, eps=1e-6), dtype)
+    _close(norm_mod.layer_norm_modulated(x, scale, bias, ms, mt),
+           norm_mod.layer_norm_modulated_plain(x, scale, bias, ms, mt), dtype)
+    _close(norm_mod.layer_norm_modulated(x, None, None, ms, mt, eps=1e-6),
+           norm_mod.layer_norm_modulated_plain(x, None, None, ms, mt, eps=1e-6), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_scan_kernels_at_d_state_64(dev, dtype):
+    """Every scan kernel at N = 64 (the deepest level of a five-level UNet):
+    the forward, the backward (64 KB of shared memory, an opt-in size), the
+    fused-projection and image scans, the fused block and the unified op."""
+    N, L, D = 64, 40, 64
+    g = _gen(64)
+    args = _scan_inputs(g, 2, L, D, N, dtype, dev)
+    chunk = scan_mod.scan_chunk(N)
+    y, hb = scan_mod.scan_forward(*args)
+    y_p, hb_p = scan_mod.scan_forward_plain(*args, chunk)
+    _close(y, y_p, dtype)
+    _close(hb, hb_p, torch.float32)
+    dy = _n(g, (2, 4, L, D), 1.0, dev).to(dtype)
+    for a, b in zip(scan_mod.scan_backward(*args, hb_p, dy),
+                    scan_mod.scan_backward_plain(*args, hb_p, dy, chunk)):
+        _close(a, b, a.dtype)
+    fused = _fused_scan_inputs(g, 2, L, D, N, dtype, dev)
+    y, hb = scan_mod.scan_fused_forward(*fused)
+    y_p, hb_p = scan_mod.scan_fused_forward_plain(*fused, chunk)
+    _close(y, y_p, dtype)
+    _close(hb, hb_p, torch.float32)
+    x = torch.nn.functional.silu(_n(g, (2, 8, 6, D), 1.0, dev)).to(dtype)
+    _close(scan_mod.scan_image_forward(x, *fused[1:]),
+           scan_mod.scan_image_forward_plain(x, *fused[1:]), dtype)
+    blk = _block_kwargs(g, 2, 8, 6, 32, N, dtype, dev)
+    _close(ss2d_mod.ss2d_image_block(**blk), ss2d_mod.ss2d_image_block_plain(**blk), dtype,
+           base=blk["x_raw"])
+    mb = _mamba_args(g, 2, 8, 6, 32, N, dtype, dev)
+    _close(unified_mod.ss2d_mamba_block(**mb), unified_mod.ss2d_mamba_block_plain(**mb), dtype,
+           base=mb["x"])
+
+
+@pytest.mark.gpu
+def test_selective_scan_fn_grads_at_d_state_64(dev):
+    args = _scan_inputs(_gen(65), 2, 100, 64, 64, torch.float32, dev)
+    _grad_check(scan_mod.selective_scan, args, dev)
