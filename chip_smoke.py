@@ -9,7 +9,9 @@ Phases (any failure exits non-zero before the last line is printed):
    turns TF32 off (for every fp32 comparison, and for the fp32 serving and
    training of phases 7-14), builds the nine kernel libraries from
    ``founddiff_tpu_torch/csrc`` (one nvcc per source, all started together)
-   and prints the build seconds.  Phases 1-9 run with ``FOUNDDIFF_GN`` and
+   and prints the build seconds, each library's most registers and
+   spilling kernels, and the registers and spills of each runtime-N scan
+   kernel.  Phases 1-9 run with ``FOUNDDIFF_GN`` and
    ``FOUNDDIFF_UNIFIED`` unset (the default routes); 10 and 11 set them.
 2. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, at every distinct shape its path gives it: the serving kernels
@@ -43,7 +45,15 @@ Phases (any failure exits non-zero before the last line is printed):
    path: ``ss2d_image_block`` in bf16 on the tensor cores at C0 40, N 4
    (ragged GEMM tiles), ``layer_norm`` and ``layer_norm_modulated`` at C 100
    and on a misaligned view; and every scan kernel, the fused block and the
-   unified op at d_state 64, at the 32^2 blocks of phase 15.
+   unified op at d_state 64, at the 32^2 blocks of phase 15.  At d_state 12
+   and 128 (sizes no kernel template holds: the runtime-N scans take them
+   as they are, the register-resident kernels padded to 16 or in two groups
+   of 64): ``scan_forward`` (also bounds-only, its h_bounds against the
+   plain version's) and ``scan_backward`` at a ragged L (L 529, D 256) at
+   the training batch, and ``scan_image_forward``, ``scan_fused_forward``,
+   ``ss2d_image_block`` and ``ss2d_mamba_block`` at the 32^2 blocks of
+   phase 15 (C0 512).  Then ``scan_forward``'s bounds-only h_bounds against
+   its full mode's, bit for bit, at every scan_forward shape of phase 2.
 3. Main path at full width: ``build(Config())`` on the card (dim 64 x
    (1, 2, 4, 8), full RN50 CLIPIQA tower, seeded random weights with
    non-zero adaLN and prompt), ``make_hoisted_sampler(...,
@@ -73,8 +83,8 @@ Phases (any failure exits non-zero before the last line is printed):
    says (a copy at counter 0, untouched at counters 1-5), and the launches
    per step (18 ``ss2d_image_block``, 12 ``attn_block``, 24
    ``layer_norm_modulated``, 10 ``scan_image_forward``, 18 ``scan_forward``,
-   18 ``scan_backward``); prints the step time, slices/s, peak memory and
-   one profiled step.
+   10 of them bounds-only, 18 ``scan_backward``); prints the step time beside
+   the parent tree's, slices/s, peak memory and one profiled step.
 
 8. Vanilla serving at full width: ``build`` of the vanilla DDPM path
    (``original_ddim_ddpm``, dim 64 x (1, 2, 4, 8), 512^2, seeded weights),
@@ -128,7 +138,8 @@ Phases (any failure exits non-zero before the last line is printed):
    (1 warm-up, 3 timed fp32 steps, a profiled step and 2 bf16 steps), with
    12 / 36 / 6 / 6 / 12 / 18 launches per step of ``ss2d_image_block``,
    ``layer_norm_modulated``, ``scan_fused_forward``, ``layer_norm``,
-   ``scan_forward`` and ``scan_backward`` and no other.
+   ``scan_forward`` and ``scan_backward`` and no other; the step time
+   beside the parent tree's.
 15. d_state 64: ``Config()`` with ``dim_mults`` (1, 2, 4, 8, 16) (down_4, mid
    and up_0 on a 32^2 grid with d_state 64), one bs1 bf16 request of a
    512^2 slice with 11 ``ss2d_image_block``, 8 ``attn_block`` and 14
@@ -158,6 +169,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -239,6 +251,9 @@ SOURCES = {
                       "founddiff_tpu/ops/ss2d_fused.py:32"),
 }
 SERVING = ("ss2d_image_block", "attn_block", "layer_norm_modulated")
+# csrc/scan.cu's kernels that take d_state at run time (their mangled names)
+RUNTIME_N_KERNELS = ("fwd_kernel", "bwd_local_kernel", "bwd_main_kernel", "carry_scan_kernel",
+                     "reduce_params_kernel")
 FLASH_BWD = ("flash_bwd_dq", "flash_bwd_dkv")
 TRAIN_BATCH = 2  # slices per microbatch of Config().train
 # launches per train step (2 microbatches), every other kernel 0: the JAX
@@ -297,6 +312,34 @@ PER_STEP_360 = {"ss2d_image_block": 12, "layer_norm_modulated": 36, "scan_fused_
 FIVE_MULTS = (1, 2, 4, 8, 16)
 PER_FORWARD_5 = {"ss2d_image_block": 11, "attn_block": 8, "layer_norm_modulated": 14}
 N64 = ((512, 64), (1024, 64))  # (C0, d_state) of the 32^2 blocks
+# d_state sizes no kernel template holds (padded to 16; two groups of 64)
+ODD_STATES = (12, 128)
+# the fp32 train step of the parent tree, seconds, at 512^2 and 360^2:
+# scripts/port_ab.py, the parent's two turns of one call, NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md section 6)
+PARENT_STEP_S = {512: (0.8990, 0.9023), 360: (1.1152, 1.2053)}
+
+
+def runtime_n_ptxas(text):
+    """(kernel, registers, spill-store bytes) of csrc/scan.cu's runtime-N
+    kernels from nvcc's -Xptxas -v log; the kernel named with its template
+    arguments as mangled (If: float, I13__nv_bfloat16: bf16, Li8E: 8, Lb1E:
+    true)."""
+    out, name, spill = [], None, 0
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = next((k for k in RUNTIME_N_KERNELS if k in mangled), None)
+            if name and mangled.split(name, 1)[1].startswith("I"):  # a template
+                args = mangled.split(name, 1)[1].split("EEv")[0]
+                args = args.replace("I13__nv_bfloat16", "bf16,").replace("If", "float,")
+                name += "<" + re.sub(r"L[ib](\d+)E", r"\1,", args).strip("I,") + ">"
+        elif name and "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif name and "Used" in line:
+            out.append((name, int(line.split("Used")[1].split()[0]), spill))
+            name = None
+    return out
 
 
 def log(*a):
@@ -470,13 +513,18 @@ def _scan_operands(H, C, N, dtype, gen, dev):
             torch.ones(4, D, device=dev), _dt_bias(gen, 4, D, dev))
 
 
-def scan_fwd_case(H, C, N, dtype, gen, dev):
+def scan_fwd_case(H, C, N, dtype, gen, dev, bounds_only=False):
     from founddiff_tpu_torch.ops.scan import scan_chunk
 
     args = _scan_operands(H, C, N, dtype, gen, dev)
     u, _, _, Bm = args[:4]
     G, L, D = TRAIN_BATCH * 4, u.shape[2], u.shape[3]
     hb_bytes = 4 * G * -(-L // scan_chunk(N)) * N * D
+    if bounds_only:
+        # u, delta, B, A and bias in, h_bounds out; the recurrence alone,
+        # about 3N + 5 operations per step per channel
+        moved = nbytes(*args[:4], args[6]) + hb_bytes
+        return args, {}, None, moved, [(G * L * D * (3 * N + 5), FP32_FLOPS)]
     # u, delta, B, C in, y out at the io dtype; A, Dskip, bias in and
     # h_bounds out in fp32; per step per channel about 6N + 5 fp32 operations
     moved = nbytes(*args) + nbytes(u) + hb_bytes
@@ -675,6 +723,62 @@ def slice6_cases():
          lambda dt, g, d: mamba_case(1, 32, C0, N, dt, g, d)),
     ]
     return cases
+
+
+def slice7_cases():
+    """(batch, kernel, label, count, make) at the d_state sizes of
+    ODD_STATES, none on the main path (count 0): the runtime-N scans at a
+    ragged L (a 46^2 grid: L 529, D 256) at the training batch, scan_forward
+    in both modes; the register-resident kernels (padded or grouped) at the
+    32^2 blocks of phase 15's five-level UNet (C0 512)."""
+    H, C, C0 = 46, 128, N64[0][0]
+    L = (H // 2) ** 2
+    cases = []
+    for N in ODD_STATES:
+        label = f"B{TRAIN_BATCH}x4 L={L} D={2 * C} N={N}"
+        cases += [
+            (TRAIN_BATCH, "scan_forward", label, 0,
+             lambda dt, g, d, N=N: scan_fwd_case(H, C, N, dt, g, d)),
+            (TRAIN_BATCH, "scan_forward bounds-only", label, 0,
+             lambda dt, g, d, N=N: scan_fwd_case(H, C, N, dt, g, d, bounds_only=True)),
+            (TRAIN_BATCH, "scan_backward", label, 0,
+             lambda dt, g, d, N=N: scan_bwd_case(H, C, N, dt, g, d)),
+            (TRAIN_BATCH, "scan_image_forward", f"B{TRAIN_BATCH} 32^2 D={2 * C0} N={N}", 0,
+             lambda dt, g, d, N=N: scan_image_case(32, C0, N, dt, g, d)),
+            (1, "scan_fused_forward", f"bs1 L=256 D={2 * C0} N={N}", 0,
+             lambda dt, g, d, N=N: scan_fused_case(1, C0, N, dt, g, d, L=256)),
+            (1, "ss2d_image_block", f"bs1 32^2 C0={C0} D={2 * C0} N={N}", 0,
+             lambda dt, g, d, N=N: ss2d_case(1, 32, C0, N, dt, g, d)),
+            (1, "ss2d_mamba_block", f"bs1 32^2 C0={C0} D={2 * C0} N={N}", 0,
+             lambda dt, g, d, N=N: mamba_case(1, 32, C0, N, dt, g, d)),
+        ]
+    return cases
+
+
+def check_bounds_only(cases):
+    """``scan_forward``'s bounds-only h_bounds against its full mode's, bit
+    for bit, at every scan_forward case of phase 2, fp32 and bf16."""
+    from founddiff_tpu_torch.ops.scan import scan_forward
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(46)
+    result, failed = {}, []
+    for batch, kname, label, count, make in cases:
+        if kname != "scan_forward":
+            continue
+        for dtype in (torch.float32, torch.bfloat16):
+            args = make(dtype, gen, dev)[0]
+            y, hb = scan_forward(*args)
+            none, hb_only = scan_forward(*args, bounds_only=True)
+            same = none is None and y is not None and torch.equal(hb, hb_only)
+            key = f"{label} {str(dtype).replace('torch.', '')}"
+            result[key] = same
+            if not same:
+                failed.append(f"scan_forward bounds-only {key}")
+            del args, y, hb, hb_only
+    log(f"[kernel] scan_forward bounds-only h_bounds bit-identical to the full mode's: "
+        f"{sum(result.values())} of {len(result)}")
+    return result, failed
 
 
 def check_fused_h_bounds():
@@ -1527,6 +1631,13 @@ def five_level(wrappers, plain, x, card):
                 autograd=grads)
 
 
+def beside_parent(tag, train, card) -> None:
+    """The fp32 step of ``train_full_width`` beside the parent tree's."""
+    log(f"[{tag}] fp32 step {statistics.median(train['step_s']):.4f} s; the parent tree's "
+        f"{' / '.join(f'{t:.4f}' for t in PARENT_STEP_S[train['size']])} s "
+        f"(scripts/port_ab.py, two turns) [{card}]")
+
+
 def psnr(a, b) -> float:
     mse = float(((a.float() - b.float()) ** 2).mean())
     return float("inf") if mse == 0 else 10 * math.log10(1.0 / mse)
@@ -1576,6 +1687,8 @@ def main() -> int:
                      for line in text.splitlines() if "spill stores" in line)
         log(f"[ptxas {name}] {len(regs)} kernels, at most {max(regs, default=0)} registers, "
             f"{spills} with spills")
+    for kname, regs, spill in runtime_n_ptxas(built["logs"]["scan"]):
+        log(f"[ptxas scan] {kname}: {regs} registers, {spill} bytes spill stores")
 
     # gn_stats returns [B, 2, C]: held as its two halves, each against its own scale
     halves = lambda fn: lambda x: tuple(fn(x).unbind(1))
@@ -1586,6 +1699,9 @@ def main() -> int:
                                  norm_mod.layer_norm_modulated_plain),
         "scan_forward": (scan_mod.scan_forward, lambda *a: scan_mod.scan_forward_plain(
             *a, scan_mod.scan_chunk(a[2].shape[-1]))),
+        "scan_forward bounds-only": (
+            lambda *a: scan_mod.scan_forward(*a, bounds_only=True)[1],
+            lambda *a: scan_mod.scan_forward_plain(*a, scan_mod.scan_chunk(a[2].shape[-1]))[1]),
         "scan_backward": (scan_mod.scan_backward, lambda *a: scan_mod.scan_backward_plain(
             *a, scan_mod.scan_chunk(a[2].shape[-1]))),
         "scan_image_forward": (scan_mod.scan_image_forward,
@@ -1623,11 +1739,14 @@ def main() -> int:
     cases += [(b, *c) for b in (1, TRAIN_BATCH, 4) for c in route_cases(b)]
     cases += [(b, *c) for b in (1, TRAIN_BATCH, 4) for c in unfused_cases(b)]
     cases += slice6_cases()
+    cases += slice7_cases()
     rows, failed = check_kernels(ops, cases)
     bounds, bounds_failed = check_fused_h_bounds()
     failed += bounds_failed
+    bounds_only, bounds_only_failed = check_bounds_only(cases)
+    failed += bounds_only_failed
     record = dict(card=card, build_seconds=built["seconds"], ptxas=built["logs"],
-                  kernel_cases=rows, fused_h_bounds=bounds)
+                  kernel_cases=rows, fused_h_bounds=bounds, bounds_only=bounds_only)
     if failed:
         _write_record(record)
         raise AssertionError(f"kernels disagree with their plain versions: {failed}")
@@ -1678,6 +1797,7 @@ def main() -> int:
     record["autograd"] = check_autograd(plain_default, wrappers)
     # phase 7: training at full width
     record["train"] = train_full_width(wrappers, card, Config(), PER_STEP, "train")
+    beside_parent("train", record["train"], card)
     # phase 8: the vanilla DDPM path, serving
     record["vanilla"], vanilla_sample = vanilla_serving(wrappers, card, {"flash_fwd": 250})
     # phase 9: the vanilla DDPM path, training, and autograd through its Attention
@@ -1768,8 +1888,9 @@ def main() -> int:
     # phase 14: training at 360^2
     cfg_odd = Config()
     cfg_odd.diffusion.image_size = ODD_SIZE
-    record["train_odd"] = train_full_width(wrappers, card, cfg_odd, PER_STEP_360,
-                                           f"train {ODD_SIZE}")
+    record["train_odd"] = train_odd = train_full_width(wrappers, card, cfg_odd, PER_STEP_360,
+                                                       f"train {ODD_SIZE}")
+    beside_parent(f"train {ODD_SIZE}", train_odd, card)
     # phase 15: a five-level UNet, d_state 64 at its 32^2 level
     torch.cuda.empty_cache()
     record["five_level"] = five_level(wrappers, plain_default, x_all[:1], card)

@@ -68,7 +68,7 @@ int run(const void* x_, const void* wxg_, const float* bx, const void* wzg_, con
         const void* taps_, const float* dwb, const void* wproj_, const float* A,
         const float* Ds, const float* dbias, const float* lng, const float* lnb,
         const float* local, const void* pw_, const float* gate, void* out_, void* xc_,
-        void* U_, void* xs_, float* proj, float* csum, float* cstate, float* ybuf,
+        void* U_, void* xs_, float* proj, float* csum, float* cstate, float* ybuf, float* yacc,
         float* stats, void* og_, int B, int H, int W, int C0, int D, int NS, int TC,
         float eps_ln, float eps, cudaStream_t s) {
   const T* x = static_cast<const T*>(x_);
@@ -88,8 +88,8 @@ int run(const void* x_, const void* wxg_, const float* bx, const void* wzg_, con
   return fd::ss2d_tail<T, true>(xc, xs, x, static_cast<const T*>(wzg_), bz,
                                 static_cast<const T*>(wproj_), A, Ds, dbias, lng, lnb, local,
                                 static_cast<const T*>(pw_), gate, static_cast<T*>(out_), proj,
-                                csum, cstate, ybuf, stats, static_cast<T*>(og_), B, H, W, C0, D,
-                                NS, TC, eps, /*tc=*/true, s);
+                                csum, cstate, ybuf, yacc, stats, static_cast<T*>(og_), B, H,
+                                W, C0, D, NS, TC, eps, /*tc=*/true, s);
 }
 
 }  // namespace
@@ -99,16 +99,16 @@ extern "C" int mamba_block_forward(
     const void* taps, const float* dwb, const void* wproj, const float* A, const float* Ds,
     const float* dbias, const float* lng, const float* lnb, const float* local, const void* pw,
     const float* gate, void* out, void* xc, void* U, void* xs, float* proj, float* csum,
-    float* cstate, float* ybuf, float* stats, void* og, int B, int H, int W, int C0, int D,
-    int NS, int TC, float eps_ln, float eps, int dtype, void* stream) {
+    float* cstate, float* ybuf, float* yacc, float* stats, void* og, int B, int H, int W,
+    int C0, int D, int NS, int TC, float eps_ln, float eps, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return run<float>(x, wxg, bx, wzg, bz, taps, dwb, wproj, A, Ds, dbias, lng, lnb, local, pw,
-                      gate, out, xc, U, xs, proj, csum, cstate, ybuf, stats, og, B, H, W, C0,
-                      D, NS, TC, eps_ln, eps, s);
+                      gate, out, xc, U, xs, proj, csum, cstate, ybuf, yacc, stats, og, B, H, W,
+                      C0, D, NS, TC, eps_ln, eps, s);
   if (dtype == 1)
     return run<__nv_bfloat16>(x, wxg, bx, wzg, bz, taps, dwb, wproj, A, Ds, dbias, lng, lnb,
-                              local, pw, gate, out, xc, U, xs, proj, csum, cstate, ybuf, stats,
-                              og, B, H, W, C0, D, NS, TC, eps_ln, eps, s);
+                              local, pw, gate, out, xc, U, xs, proj, csum, cstate, ybuf, yacc,
+                              stats, og, B, H, W, C0, D, NS, TC, eps_ln, eps, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -12,38 +12,57 @@
 //   h_t = abar_t h_{t-1} + delta'_t B_t u_t,  y_t = C_t . h_t + Dskip u_t,
 // and the adjoint  gh_t = C_t dy_t + abar_{t+1} gh_{t+1}.
 //
-// Bound on the H100: the fp32 scan operations (about 6*N*D per step forward,
-// three times that backward) against the bytes of the [G, L, D] operands;
-// at N = 4 the bytes.  Design, as the serving scan of ss2d_block.cu: L is
-// cut into chunks of TC steps so that G * (L / TC) * D threads run at once
-// (only G * D = 8 * 128 channels at the 512^2 scale).
-//   forward: pass 1 per (g, chunk, d) from a zero state keeps the chunk's
-//     end state and sum of delta'; a carry pass per (g, n, d) turns them into
-//     entry states, written as h_bounds [G, NC, N, D] for the backward (the
-//     decay exp(A * sum) never has a positive exponent); pass 2 reruns each
-//     chunk from its entry state and writes y.
-//   backward: pass 1 per (g, chunk, d) runs the adjoint backwards from a zero
-//     carry and keeps abar_first * gh_first and the chunk's sum of delta'; a
-//     carry pass walks the chunks in reverse and turns them into the carry
-//     entering each chunk from the right; the main pass, one warp per
-//     (g, chunk, 32 channels), replays h from h_bounds into shared memory
-//     (TC * N * 32 floats), then walks the chunk backwards with the adjoint
-//     and writes gu, gdelta and per-chunk partials of gA, gD and gbias, and
-//     per-warp partials of gB and gC (sums over 32 channels by shuffles);
-//     reduce kernels add the partials in a fixed order.  No float atomics:
-//     every run gives the same bits.
+// Bound on the H100: the bytes of the [G, L, D] operands at small N (one
+// read of u, delta, dy, one write of each output), the fp32 scan operations
+// and exponentials (about 6N per step and channel forward, 3x that
+// backward) at N = 32 and above.  L is cut into chunks of TC steps
+// (scan_chunk in ops/scan.py), h_bounds [G, NC, N, D] holds the state
+// entering each chunk; the fused-projection forward below writes the same.
+//
+// Design (forward, scan_forward; backward, scan_backward):
+// - States at run time.  A thread holds NG = 4 or 8 states of one channel;
+//   ng = N / NG lanes (a power of two, at most 8) share a channel and sum
+//   y, and the block is a tile of DT channels (128 down to 32) times ng.
+//   N above 64 runs in launches of 64 states each: y (and the backward's
+//   sums over n) go through an fp32 buffer in a fixed order, Dskip u added
+//   once, rounded after the last.  No register array depends on N, so no
+//   size spills.
+// - Operands staged in shared memory.  Each block runs one chunk of one
+//   channel tile.  The chunk's B and C rows are copied once per block; u,
+//   delta and dy move in sub-tiles of TS steps by 16-byte cp.async (element
+//   copies where a row is not 16-byte aligned), double-buffered: the next
+//   sub-tile is in flight while the step loop reads the current one from
+//   shared memory, never from device memory.
+// - A parallel carry.  Chunk summaries compose associatively,
+//   (a1, b1) o (a2, b2) = (a1 a2, a2 b1 + b2), with a = exp(A * sum delta'),
+//   so a decay exponent is never positive.  carry_scan_kernel gives each of
+//   16 warps a segment of chunks (32 channels a warp), composes the
+//   segments in shared memory and rewalks each segment from its entry:
+//   2 NC / 16 + 16 dependent steps instead of NC, the loads of 8 chunks
+//   issued together ahead of their steps.
+// - Forward: pass 1 (chunk end states from zero, and sum delta'), the
+//   carry, pass 2 (rerun from the entry states, y).  The bounds-only mode
+//   (y == nullptr) stops after the carry: what a backward needs.
+// - Backward: the local pass (the adjoint from a zero carry, right to
+//   left, and sum delta'), the reverse carry, then the main pass: per
+//   chunk, a forward walk keeps the state at each sub-tile's start in
+//   shared memory; then, sub-tile by sub-tile from the right, the states
+//   of its TS = 4 steps are replayed into registers and the adjoint walks
+//   them back, writing gu and gdelta and the per-chunk partials of gA, gD
+//   and gbias.  abar = exp(delta' A) is computed again in the adjoint
+//   rather than kept beside the states: kept, it costs TS * NG more
+//   registers, and the pass ran slower (PERF.md section 6).  A thread holds
+//   at most 128 registers (two blocks of 256 threads an SM); at NG = 8 that
+//   spills a few values, which costs less than the lost blocks.  gB and gC
+//   are summed over the block's channels: a butterfly reduce-scatter within
+//   each warp (2NG values, about 2NG shuffles a step instead of 2NG * 5),
+//   then the warps' sums in order through shared memory, one partial per
+//   (step, state, channel tile).  Two reduce kernels add the partials in a
+//   fixed order (gA, gD, gbias: 16 rows of a block over the chunks, then
+//   the rows in order).  No float atomics: every run gives the same bits.
 // The TPU kernel's Hillis-Steele tile scans and 128-lane layout are Mosaic
-// constraints and are not ported; padding is not needed, since a chunk
-// simply ends at L (the TPU's padded steps have delta' = 0 and change
-// nothing).
-// State sizes: N in {4, 8, 16, 32, 64}, a template argument each, the
-// states in registers.  N = 64 (the deepest level of a five-level UNet,
-// base_d_state 4 * 2^4) costs what it must: the backward's main pass holds
-// five [64] arrays a thread, so it runs at 255 registers and spills about
-// 300 bytes a thread to local memory (-Xptxas -v on sm_90a; the forward
-// passes use 168 registers and do not spill), and its 8-step chunk of
-// replayed states is 64 KB of shared memory, above the 48 KB default, so it
-// opts in with cudaFuncSetAttribute.  Other sizes raise in the wrapper.
+// constraints and are not ported; a chunk simply ends at L (the TPU's
+// padded steps have delta' = 0 and change nothing).
 //
 // The fused-projection forward replaces the TPU kernel _scan_kernel_fused
 // (scan_pallas.py:630, pallas_call :738 in _pallas_fwd_fused, through
@@ -57,73 +76,757 @@
 // common.cuh's tiled GEMM (no tensor cores yet), then the bytes of the fp32
 // projections it passes through device memory.  Design: that GEMM with
 // delta' = softplus(acc + bias) in its epilogue (EpiProj of
-// scan_common.cuh, rows read straight from xs), then the forward's three
-// passes reading delta'/B/C from the projections unrounded, as the TPU
-// kernel keeps them in VMEM.  The TPU kernel's masked padding of the last
-// chunk is not needed: a chunk ends at L (L = 529 at a 45^2 grid).
+// scan_common.cuh, rows read straight from xs), then chunk passes with the
+// states in registers (N in {4, 8, 16, 32, 64}, a template argument; the
+// wrapper pads other sizes up with states whose B and C are zero, and runs
+// N above 64 as groups of 64 summed into an fp32 y) and the serial carry
+// carry_kernel, reading delta'/B/C from the projections unrounded, as the
+// TPU kernel keeps them in VMEM.  A chunk ends at L (L = 529 at 45^2).
 #include "scan_common.cuh"
 
 namespace {
 
 constexpr int FWD_THREADS = 128;
 constexpr int WARP = 32;
+constexpr int GROUP = 64;        // states of one launch of the runtime-N kernels
+constexpr int CARRY_WARPS = 16;  // chunk segments of carry_scan_kernel
+constexpr int CARRY_BATCH = 8;   // chunks whose loads carry_scan_kernel issues at once
+constexpr int RP_ROWS = 16;      // rows of reduce_params_kernel
 
 // ---------------------------------------------------------------------------
-// forward
+// runtime-N scan kernels (scan_forward, scan_backward)
 // ---------------------------------------------------------------------------
-template <typename T, int NS, bool FINAL>
-__global__ void __launch_bounds__(FWD_THREADS)
-fwd_chunk_kernel(const T* __restrict__ u, const T* __restrict__ dl, const T* __restrict__ Bm,
-                 const T* __restrict__ Cm, const float* __restrict__ A,
-                 const float* __restrict__ Ds, const float* __restrict__ bias,
-                 T* __restrict__ y, float* __restrict__ hb, float* __restrict__ dsum, int K,
-                 int L, int D, int TC, int NC) {
-  const int d = blockIdx.x * FWD_THREADS + threadIdx.x;
-  const int c = blockIdx.y, g = blockIdx.z;
-  if (d >= D) return;
-  const int k = g % K;
-  float a[NS], h[NS];
-  float* hbp = hb + ((long long)g * NC + c) * NS * D + d;  // [g, c, n, d]
-#pragma unroll
-  for (int n = 0; n < NS; ++n) {
-    a[n] = A[((long long)k * D + d) * NS + n];
-    h[n] = FINAL ? hbp[(long long)n * D] : 0.f;
-  }
-  const float bs = bias[k * D + d];
-  const float dsk = Ds[k * D + d];
-  float s = 0.f;
-  const int l1 = min(L, (c + 1) * TC);
-  for (int l = c * TC; l < l1; ++l) {
-    const long long row = (long long)g * L + l;
-    const float dlt = fd::softplus(fd::to_f<T>(dl[row * D + d]) + bs);
-    const float uu = fd::to_f<T>(u[row * D + d]);
-    const float du = dlt * uu;
-    const T* bp = Bm + row * NS;
-    const T* cp = Cm + row * NS;
-    float yv = 0.f;
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      h[n] = expf(dlt * a[n]) * h[n] + du * fd::to_f<T>(bp[n]);
-      if (FINAL) yv = fmaf(fd::to_f<T>(cp[n]), h[n], yv);
+template <typename T>
+struct ScanArgs {
+  const T* u;
+  const T* dl;
+  const T* Bm;
+  const T* Cm;
+  const T* dy;
+  const float* A;
+  const float* Ds;
+  const float* bias;
+  int K, L, D, N, TC, NC;  // N: all states (the stride of B, C, A and h_bounds)
+  int n0, nloc;            // this launch's states [n0, n0 + nloc)
+  int ng, DT;              // lanes per channel, channels per block
+};
+
+// Launch geometry of nloc states: NG states a thread, ng lanes a channel
+// (a power of two), DT channels a block of NT = DT * ng threads; NLP: nloc
+// rounded up to 8 (the rows of B and C in shared memory).  Sub-tiles (a
+// template argument TS): 8 steps at NG = 4, 4 at NG = 8, and 4 in the
+// backward's main pass, whose registers hold TS * NG replayed states.
+struct Geometry {
+  int NG, ng, DT, NT, NLP;
+};
+
+Geometry geometry(int nloc) {
+  Geometry g;
+  g.NG = nloc <= 4 ? 4 : 8;
+  g.ng = 1;
+  while (g.ng * g.NG < nloc) g.ng *= 2;
+  g.DT = g.ng == 1 ? 128 : 256 / g.ng > 128 ? 128 : 256 / g.ng;
+  g.NT = g.DT * g.ng;
+  g.NLP = (nloc + 7) & ~7;
+  return g;
+}
+
+// rows x [0, cols) of src (row stride ld elements) into dst [rows][ldd]:
+// 16-byte cp.async where src rows are 16-byte aligned (a ragged end copies
+// fewer bytes), element copies elsewhere.  The caller commits and waits.
+template <typename T>
+__device__ __forceinline__ void stage_tile(T* dst, const T* src, long long ld, int rows,
+                                           int cols, int ldd, int tid, int nthr) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = ((reinterpret_cast<uintptr_t>(src) | (uintptr_t)(ld * sizeof(T))) & 15) == 0;
+  if (vec) {
+    const int per = (cols + V - 1) / V;
+    for (int i = tid; i < rows * per; i += nthr) {
+      const int r = i / per, c = (i - r * per) * V;
+      fd::cp_async16(dst + (long long)r * ldd + c, src + r * ld + c,
+                     min(V, cols - c) * (int)sizeof(T));
     }
-    if (FINAL) {
-      y[row * D + d] = fd::from_f<T>(yv + dsk * uu);
-    } else {
-      s += dlt;
+  } else {
+    for (int i = tid; i < rows * cols; i += nthr) {
+      const int r = i / cols, c = i - r * cols;
+      dst[(long long)r * ldd + c] = src[r * ld + c];
     }
-  }
-  if (!FINAL) {
-#pragma unroll
-    for (int n = 0; n < NS; ++n) hbp[(long long)n * D] = h[n];
-    dsum[((long long)g * NC + c) * D + d] = s;
   }
 }
 
-// Chunk summaries -> chunk carries, one thread per (g, n, d); st [G, NC, N, D].
+// v[i] summed with the other lanes of v[i]'s channel group: lanes that
+// differ in a bit at or above ng (the channels of a warp).  Reduce-scatter
+// halves the values at each level while two or more remain, so a lane ends
+// with max(1, V * ng / 32) sums; returns the index of its first one.
+template <int V>
+__device__ __forceinline__ int channel_reduce(float (&v)[V], int lane, int ng) {
+  int idx = 0;
+#pragma unroll
+  for (int lv = 0; lv < 5; ++lv) {
+    const int o = 16 >> lv;
+    if (o >= ng) {
+      constexpr int one = 1;
+      const int cnt = (V >> lv) > one ? (V >> lv) : one;
+      if (cnt > 1) {
+        const bool up = lane & o;
+#pragma unroll
+        for (int i = 0; i < (V >> (lv + 1)); ++i) {
+          const float send = up ? v[i] : v[i + (V >> (lv + 1))];
+          const float keep = up ? v[i + (V >> (lv + 1))] : v[i];
+          v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+        }
+        if (up) idx += V >> (lv + 1);
+      } else {
+        v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+      }
+    }
+  }
+  return idx;
+}
+
+// sum over the ng lanes of one channel
+__device__ __forceinline__ float group_sum(float v, int ng) {
+  for (int o = 1; o < ng; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Forward chunk pass, one block per (channel tile, chunk, sequence).  Pass 1
+// (!FINAL): the chunk from a zero state; writes its end state into hb and
+// sum delta' into dsum.  Pass 2: the chunk from its entry state in hb; y by
+// mode: 0 y = io(C.h + Ds u); 1 yacc = C.h + Ds u; 2 yacc += C.h; 3 y =
+// io(yacc + C.h) (N above 64: one launch per group of 64 states).
+// Shared memory: B (and C) [TC][NLP], then two sub-tiles of u and delta.
+template <typename T, int NG, int TS, bool FINAL>
+__global__ void __launch_bounds__(256)
+fwd_kernel(ScanArgs<T> p, T* __restrict__ y, float* __restrict__ yacc, int mode,
+           float* __restrict__ hb, float* __restrict__ dsum) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x, nthr = blockDim.x, ng = p.ng, DT = p.DT;
+  const int grp = tid & (ng - 1), cl = tid / ng;
+  const int d0 = blockIdx.x * DT, d = d0 + cl;
+  const int c = blockIdx.y, g = blockIdx.z, k = g % p.K;
+  const int cols = min(DT, p.D - d0);
+  const bool on = cl < cols;
+  const int dd = on ? d : d0 + cols - 1;  // lanes past D run a valid channel, store nothing
+  const int cs = dd - d0;
+  const int l0 = c * p.TC, nt = min(p.L, l0 + p.TC) - l0, NLP = (p.nloc + 7) & ~7;
+  const long long row0 = (long long)g * p.L + l0;
+  T* sB = reinterpret_cast<T*>(smem_raw);
+  T* sC = sB + p.TC * NLP;
+  T* ring = sC + (FINAL ? p.TC * NLP : 0);  // [2][u, delta][TS][DT]
+  stage_tile(sB, p.Bm + row0 * p.N + p.n0, p.N, nt, p.nloc, NLP, tid, nthr);
+  if (FINAL) stage_tile(sC, p.Cm + row0 * p.N + p.n0, p.N, nt, p.nloc, NLP, tid, nthr);
+  auto issue = [&](int s) {
+    T* dst = ring + (s & 1) * 2 * TS * DT;
+    const long long r = row0 + s * TS;
+    const int rows = min(TS, nt - s * TS);
+    stage_tile(dst, p.u + r * p.D + d0, p.D, rows, cols, DT, tid, nthr);
+    stage_tile(dst + TS * DT, p.dl + r * p.D + d0, p.D, rows, cols, DT, tid, nthr);
+  };
+  const int nsub = (nt + TS - 1) / TS;
+  issue(0);
+  fd::cp_async_commit();
+
+  float a[NG], h[NG];
+  const long long hbase = ((long long)g * p.NC + c) * p.N + p.n0;  // [g, c, n, d]
+#pragma unroll
+  for (int j = 0; j < NG; ++j) {
+    const int n = grp * NG + j;
+    const bool sv = n < p.nloc;
+    a[j] = sv ? p.A[((long long)k * p.D + dd) * p.N + p.n0 + n] : 0.f;
+    h[j] = FINAL && sv ? hb[(hbase + n) * p.D + dd] : 0.f;
+  }
+  const float bs = p.bias[k * p.D + dd];
+  const float dsk = p.Ds[k * p.D + dd];
+  float s = 0.f;
+  for (int sb = 0; sb < nsub; ++sb) {
+    if (sb + 1 < nsub) issue(sb + 1);
+    fd::cp_async_commit();
+    fd::cp_async_wait<1>();
+    __syncthreads();
+    const T* su = ring + (sb & 1) * 2 * TS * DT;
+    const T* sd = su + TS * DT;
+    const int rows = min(TS, nt - sb * TS);
+    for (int r = 0; r < rows; ++r) {
+      const int t = sb * TS + r;
+      const float dlt = fd::softplus(fd::to_f<T>(sd[r * DT + cs]) + bs);
+      const float uu = fd::to_f<T>(su[r * DT + cs]);
+      const float du = dlt * uu;
+      float yv = 0.f;
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+        const int n = grp * NG + j;
+        const bool sv = n < p.nloc;
+        const float bn = sv ? fd::to_f<T>(sB[t * NLP + n]) : 0.f;
+        h[j] = expf(dlt * a[j]) * h[j] + du * bn;
+        if (FINAL) yv = fmaf(sv ? fd::to_f<T>(sC[t * NLP + n]) : 0.f, h[j], yv);
+      }
+      if (FINAL) {
+        yv = group_sum(yv, ng);
+        if (grp == 0 && on) {
+          const long long i = (row0 + t) * p.D + d;
+          if (mode == 0) y[i] = fd::from_f<T>(yv + dsk * uu);
+          else if (mode == 1) yacc[i] = yv + dsk * uu;
+          else if (mode == 2) yacc[i] = yacc[i] + yv;
+          else y[i] = fd::from_f<T>(yacc[i] + yv);
+        }
+      } else {
+        s += dlt;
+      }
+    }
+    __syncthreads();  // sub-tile sb's buffer is refilled by the next issue
+  }
+  if (!FINAL && on) {
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+      if (grp * NG + j < p.nloc) hb[(hbase + grp * NG + j) * p.D + d] = h[j];
+    if (grp == 0 && p.n0 == 0) dsum[((long long)g * p.NC + c) * p.D + d] = s;
+  }
+}
+
+// Chunk summaries -> chunk carries, per (g, n, d); st [G, NC, N, D].
 // Forward: st holds end states and becomes entry states (left to right).
 // Backward: st holds abar_first * gh_first from a zero carry and becomes the
-// carry entering each chunk at its last step (right to left).
+// carry entering each chunk at its last step (right to left).  Block: 32
+// channels x CARRY_WARPS segments of chunks.
 template <bool REVERSE>
+__global__ void __launch_bounds__(WARP * CARRY_WARPS)
+carry_scan_kernel(const float* __restrict__ A, const float* __restrict__ dsum,
+                  float* __restrict__ st, int K, int D, int N, int NC) {
+  __shared__ float seg_b[CARRY_WARPS][WARP], seg_s[CARRY_WARPS][WARP];
+  const int lane = threadIdx.x & (WARP - 1), w = threadIdx.x / WARP;
+  const int d = blockIdx.x * WARP + lane, n = blockIdx.y;
+  const long long g = blockIdx.z;
+  const bool on = d < D;
+  const int dd = on ? d : D - 1;
+  const float a = A[((g % K) * D + dd) * N + n];
+  const int S = (NC + CARRY_WARPS - 1) / CARRY_WARPS;
+  const int i0 = min(NC, w * S), i1 = min(NC, i0 + S);
+  auto sidx = [&](int i) {
+    const int c = REVERSE ? NC - 1 - i : i;
+    return ((g * NC + c) * N + n) * D + dd;
+  };
+  auto didx = [&](int i) { return (g * NC + (REVERSE ? NC - 1 - i : i)) * D + dd; };
+  // CARRY_BATCH chunks' loads issued before their dependent steps
+  float v[CARRY_BATCH], ds[CARRY_BATCH];
+  auto load = [&](int i) {
+#pragma unroll
+    for (int k = 0; k < CARRY_BATCH; ++k) {
+      v[k] = i + k < i1 ? st[sidx(i + k)] : 0.f;
+      ds[k] = i + k < i1 ? dsum[didx(i + k)] : 0.f;
+    }
+  };
+  float b = 0.f, s = 0.f;
+  for (int i = i0; i < i1; i += CARRY_BATCH) {
+    load(i);
+#pragma unroll
+    for (int k = 0; k < CARRY_BATCH; ++k) {
+      if (i + k < i1) {
+        b = expf(a * ds[k]) * b + v[k];
+        s += ds[k];
+      }
+    }
+  }
+  seg_b[w][lane] = b;
+  seg_s[w][lane] = s;
+  __syncthreads();
+  if (w == 0) {  // the segments' entries, in order
+    float carry = 0.f;
+    for (int j = 0; j < CARRY_WARPS; ++j) {
+      const float bj = seg_b[j][lane], sj = seg_s[j][lane];
+      seg_b[j][lane] = carry;
+      carry = expf(a * sj) * carry + bj;
+    }
+  }
+  __syncthreads();
+  float carry = seg_b[w][lane];
+  for (int i = i0; i < i1; i += CARRY_BATCH) {
+    load(i);
+#pragma unroll
+    for (int k = 0; k < CARRY_BATCH; ++k) {
+      if (i + k < i1) {
+        if (on) st[sidx(i + k)] = carry;
+        carry = expf(a * ds[k]) * carry + v[k];
+      }
+    }
+  }
+}
+
+// Backward local pass: per (channel tile, chunk, sequence) the adjoint from
+// a zero carry, right to left: zl [G, NC, N, D] = abar_first * gh_first, and
+// sum delta' into dsum.  Shared memory: C [TC][NLP], two sub-tiles of
+// delta and dy.
+template <typename T, int NG, int TS>
+__global__ void __launch_bounds__(256)
+bwd_local_kernel(ScanArgs<T> p, float* __restrict__ zl, float* __restrict__ dsum) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x, nthr = blockDim.x, ng = p.ng, DT = p.DT;
+  const int grp = tid & (ng - 1), cl = tid / ng;
+  const int d0 = blockIdx.x * DT, d = d0 + cl;
+  const int c = blockIdx.y, g = blockIdx.z, k = g % p.K;
+  const int cols = min(DT, p.D - d0);
+  const bool on = cl < cols;
+  const int dd = on ? d : d0 + cols - 1;
+  const int cs = dd - d0;
+  const int l0 = c * p.TC, nt = min(p.L, l0 + p.TC) - l0, NLP = (p.nloc + 7) & ~7;
+  const long long row0 = (long long)g * p.L + l0;
+  T* sC = reinterpret_cast<T*>(smem_raw);
+  T* ring = sC + p.TC * NLP;  // [2][delta, dy][TS][DT]
+  stage_tile(sC, p.Cm + row0 * p.N + p.n0, p.N, nt, p.nloc, NLP, tid, nthr);
+  const int nsub = (nt + TS - 1) / TS;
+  auto issue = [&](int i) {  // item i: sub-tile nsub - 1 - i
+    const int sb = nsub - 1 - i;
+    T* dst = ring + (i & 1) * 2 * TS * DT;
+    const long long r = row0 + sb * TS;
+    const int rows = min(TS, nt - sb * TS);
+    stage_tile(dst, p.dl + r * p.D + d0, p.D, rows, cols, DT, tid, nthr);
+    stage_tile(dst + TS * DT, p.dy + r * p.D + d0, p.D, rows, cols, DT, tid, nthr);
+  };
+  issue(0);
+  fd::cp_async_commit();
+  float a[NG], z[NG];
+#pragma unroll
+  for (int j = 0; j < NG; ++j) {
+    const int n = grp * NG + j;
+    a[j] = n < p.nloc ? p.A[((long long)k * p.D + dd) * p.N + p.n0 + n] : 0.f;
+    z[j] = 0.f;
+  }
+  const float bs = p.bias[k * p.D + dd];
+  float s = 0.f;
+  for (int i = 0; i < nsub; ++i) {
+    if (i + 1 < nsub) issue(i + 1);
+    fd::cp_async_commit();
+    fd::cp_async_wait<1>();
+    __syncthreads();
+    const T* sd = ring + (i & 1) * 2 * TS * DT;
+    const T* sy = sd + TS * DT;
+    const int sb = nsub - 1 - i, rows = min(TS, nt - sb * TS);
+    for (int r = rows - 1; r >= 0; --r) {
+      const int t = sb * TS + r;
+      const float dlt = fd::softplus(fd::to_f<T>(sd[r * DT + cs]) + bs);
+      const float dyv = fd::to_f<T>(sy[r * DT + cs]);
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+        const int n = grp * NG + j;
+        const float cn = n < p.nloc ? fd::to_f<T>(sC[t * NLP + n]) : 0.f;
+        z[j] = expf(dlt * a[j]) * fmaf(cn, dyv, z[j]);
+      }
+      s += dlt;
+    }
+    __syncthreads();
+  }
+  if (on) {
+    const long long zb = ((long long)g * p.NC + c) * p.N + p.n0;
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+      if (grp * NG + j < p.nloc) zl[(zb + grp * NG + j) * p.D + d] = z[j];
+    if (grp == 0 && p.n0 == 0) dsum[((long long)g * p.NC + c) * p.D + d] = s;
+  }
+}
+
+// Backward main pass, one block per (channel tile, chunk, sequence); cin
+// [G, NC, N, D] the carry entering the chunk at its last step.  Writes gu,
+// gdelta (by mode: 0 from this launch's states; 1 sacc/hacc = its sums over
+// n; 2 add to them; 3 from sacc/hacc plus its sums), gB/gC partials [G, L,
+// N, nb] (nb channel tiles), and gA [G, NC, N, D], gD and gbias [G, NC, D]
+// chunk partials.  Shared memory: B, C [TC][NLP]; two sub-tiles of u,
+// delta, dy; the state at the start of each sub-tile but the first,
+// [nsub - 1][NG][NT] fp32; the warps' gB/gC sums [warps][TS][2][NLP] fp32.
+template <typename T, int NG, int TS>
+__global__ void __launch_bounds__(256, 2)
+bwd_main_kernel(ScanArgs<T> p, const float* __restrict__ hb, const float* __restrict__ cin,
+                T* __restrict__ gu, T* __restrict__ gdl, float* __restrict__ gBp,
+                float* __restrict__ gCp, float* __restrict__ gAp, float* __restrict__ gDp,
+                float* __restrict__ gbp, float* __restrict__ sacc, float* __restrict__ hacc,
+                int mode) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x, nthr = blockDim.x, ng = p.ng, DT = p.DT;
+  const int lane = tid & (WARP - 1), warp = tid / WARP, nwarps = nthr / WARP;
+  const int grp = tid & (ng - 1), cl = tid / ng;
+  const int d0 = blockIdx.x * DT, d = d0 + cl, nb = gridDim.x;
+  const int c = blockIdx.y, g = blockIdx.z, k = g % p.K;
+  const int cols = min(DT, p.D - d0);
+  const bool on = cl < cols;
+  const float live = on ? 1.f : 0.f;
+  const int dd = on ? d : d0 + cols - 1;
+  const int cs = dd - d0;
+  const int l0 = c * p.TC, nt = min(p.L, l0 + p.TC) - l0, NLP = (p.nloc + 7) & ~7;
+  const int nsub = (nt + TS - 1) / TS, nsub_max = (p.TC + TS - 1) / TS;
+  const long long row0 = (long long)g * p.L + l0;
+  T* sB = reinterpret_cast<T*>(smem_raw);
+  T* sC = sB + p.TC * NLP;
+  T* ring = sC + p.TC * NLP;  // [2][u, delta, dy][TS][DT]
+  float* ck = reinterpret_cast<float*>(ring + 2 * 3 * TS * DT);  // [nsub_max - 1][NG][NT]
+  float* wred = ck + (nsub_max - 1) * NG * nthr;                 // [warps][TS][2][NLP]
+  stage_tile(sB, p.Bm + row0 * p.N + p.n0, p.N, nt, p.nloc, NLP, tid, nthr);
+  stage_tile(sC, p.Cm + row0 * p.N + p.n0, p.N, nt, p.nloc, NLP, tid, nthr);
+  // items: sub-tiles 0 .. nsub-2 forward (checkpoints), then nsub-1 .. 0 (adjoint)
+  const int nf = nsub - 1, items = nf + nsub;
+  auto sub_of = [&](int i) { return i < nf ? i : nsub - 1 - (i - nf); };
+  auto issue = [&](int i) {
+    const int sb = sub_of(i);
+    T* dst = ring + (i & 1) * 3 * TS * DT;
+    const long long r = row0 + sb * TS;
+    const int rows = min(TS, nt - sb * TS);
+    stage_tile(dst, p.u + r * p.D + d0, p.D, rows, cols, DT, tid, nthr);
+    stage_tile(dst + TS * DT, p.dl + r * p.D + d0, p.D, rows, cols, DT, tid, nthr);
+    if (i >= nf) stage_tile(dst + 2 * TS * DT, p.dy + r * p.D + d0, p.D, rows, cols, DT, tid, nthr);
+  };
+  issue(0);
+  fd::cp_async_commit();
+
+  float a[NG], h0[NG], h[NG], z[NG], ga[NG];
+  const long long sbase = ((long long)g * p.NC + c) * p.N + p.n0;
+#pragma unroll
+  for (int j = 0; j < NG; ++j) {
+    const int n = grp * NG + j;
+    const bool sv = n < p.nloc;
+    a[j] = sv ? p.A[((long long)k * p.D + dd) * p.N + p.n0 + n] : 0.f;
+    h0[j] = sv ? hb[(sbase + n) * p.D + dd] : 0.f;
+    h[j] = h0[j];
+    z[j] = sv ? live * cin[(sbase + n) * p.D + dd] : 0.f;
+    ga[j] = 0.f;
+  }
+  const float bs = p.bias[k * p.D + dd];
+  const float dsk = p.Ds[k * p.D + dd];
+  float gds = 0.f, gbs = 0.f;
+  for (int i = 0; i < items; ++i) {
+    if (i + 1 < items) issue(i + 1);
+    fd::cp_async_commit();
+    fd::cp_async_wait<1>();
+    __syncthreads();
+    const T* su = ring + (i & 1) * 3 * TS * DT;
+    const T* sd = su + TS * DT;
+    const T* sy = sd + TS * DT;
+    const int sb = sub_of(i), rows = min(TS, nt - sb * TS);
+    if (i < nf) {  // the forward walk: the state at the start of sub-tile sb + 1
+      for (int r = 0; r < rows; ++r) {
+        const int t = sb * TS + r;
+        const float dlt = fd::softplus(fd::to_f<T>(sd[r * DT + cs]) + bs);
+        const float du = dlt * fd::to_f<T>(su[r * DT + cs]);
+#pragma unroll
+        for (int j = 0; j < NG; ++j) {
+          const int n = grp * NG + j;
+          const float bn = n < p.nloc ? fd::to_f<T>(sB[t * NLP + n]) : 0.f;
+          h[j] = expf(dlt * a[j]) * h[j] + du * bn;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NG; ++j) ck[(sb * NG + j) * nthr + tid] = h[j];
+    } else {
+      float hs[NG], tr[TS][NG], dls[TS];
+#pragma unroll
+      for (int j = 0; j < NG; ++j) hs[j] = sb == 0 ? h0[j] : ck[((sb - 1) * NG + j) * nthr + tid];
+      // replay the sub-tile's states into registers
+#pragma unroll
+      for (int r = 0; r < TS; ++r) {
+        if (r < rows) {
+          const int t = sb * TS + r;
+          dls[r] = fd::softplus(fd::to_f<T>(sd[r * DT + cs]) + bs);
+          const float du = dls[r] * fd::to_f<T>(su[r * DT + cs]);
+#pragma unroll
+          for (int j = 0; j < NG; ++j) {
+            const int n = grp * NG + j;
+            const float bn = n < p.nloc ? fd::to_f<T>(sB[t * NLP + n]) : 0.f;
+            tr[r][j] = expf(dls[r] * a[j]) * (r > 0 ? tr[r - 1][j] : hs[j]) + du * bn;
+          }
+        }
+      }
+      // the adjoint, right to left
+#pragma unroll
+      for (int r = TS - 1; r >= 0; --r) {
+        if (r < rows) {
+          const int t = sb * TS + r;
+          const float raw = fd::to_f<T>(sd[r * DT + cs]) + bs;
+          const float dlt = dls[r];
+          const float uu = fd::to_f<T>(su[r * DT + cs]);
+          const float dyv = live * fd::to_f<T>(sy[r * DT + cs]);
+          float sbv = 0.f, sh = 0.f, v[2 * NG];
+#pragma unroll
+          for (int j = 0; j < NG; ++j) {
+            const int n = grp * NG + j;
+            const bool sv = n < p.nloc;
+            const float bn = sv ? fd::to_f<T>(sB[t * NLP + n]) : 0.f;
+            const float cn = sv ? fd::to_f<T>(sC[t * NLP + n]) : 0.f;
+            const float gh = fmaf(cn, dyv, z[j]);
+            const float hp = r > 0 ? tr[r - 1][j] : hs[j];
+            sbv = fmaf(gh, bn, sbv);
+            const float ab = expf(dlt * a[j]);  // the replay's, recomputed
+            const float gha = gh * hp * ab;
+            sh = fmaf(gha, a[j], sh);
+            ga[j] = fmaf(gha, dlt, ga[j]);
+            z[j] = ab * gh;
+            v[j] = gh * dlt * uu;      // this channel's share of gB[t, n]
+            v[NG + j] = tr[r][j] * dyv;  // and of gC[t, n]
+          }
+          sbv = group_sum(sbv, ng);
+          sh = group_sum(sh, ng);
+          const long long ix = (row0 + t) * p.D + dd;
+          const bool store = grp == 0 && on;
+          if (mode == 1 && store) {
+            sacc[ix] = sbv;
+            hacc[ix] = sh;
+          } else if (mode == 2 && store) {
+            sacc[ix] = sacc[ix] + sbv;
+            hacc[ix] = hacc[ix] + sh;
+          } else if (mode == 3) {
+            sbv = sacc[ix] + sbv;
+            sh = hacc[ix] + sh;
+          }
+          if (mode == 0 || mode == 3) {
+            const float gd = fmaf(uu, sbv, sh) / (1.f + expf(-raw));
+            if (store) {
+              gu[ix] = fd::from_f<T>(fmaf(dsk, dyv, dlt * sbv));
+              gdl[ix] = fd::from_f<T>(gd);
+            }
+            gds = fmaf(dyv, uu, gds);
+            gbs += gd;
+          }
+          const int first = channel_reduce(v, lane, ng);
+          constexpr int HELD = (2 * NG * 8 / WARP) > 1 ? (2 * NG * 8 / WARP) : 1;
+          const int held = max(1, 2 * NG * ng / WARP);
+#pragma unroll
+          for (int q = 0; q < HELD; ++q) {
+            if (q < held) {
+              const int vi = first + q, which = vi / NG, n = grp * NG + vi % NG;
+              if (n < p.nloc) wred[((warp * TS + r) * 2 + which) * NLP + n] = v[q];
+            }
+          }
+        }
+      }
+      __syncthreads();
+      // the block's gB/gC partial: the warps' sums in order
+      for (int e = tid; e < rows * 2 * p.nloc; e += nthr) {
+        const int r = e / (2 * p.nloc), rem = e - r * 2 * p.nloc;
+        const int which = rem / p.nloc, n = rem - which * p.nloc;
+        float acc = 0.f;
+        for (int w = 0; w < nwarps; ++w) acc += wred[((w * TS + r) * 2 + which) * NLP + n];
+        float* out = which ? gCp : gBp;
+        out[((row0 + sb * TS + r) * p.N + p.n0 + n) * nb + blockIdx.x] = acc;
+      }
+    }
+    __syncthreads();
+  }
+  if (on) {
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+      if (grp * NG + j < p.nloc) gAp[(sbase + grp * NG + j) * p.D + d] = ga[j];
+    if (grp == 0 && (mode == 0 || mode == 3)) {
+      gDp[((long long)g * p.NC + c) * p.D + d] = gds;
+      gbp[((long long)g * p.NC + c) * p.D + d] = gbs;
+    }
+  }
+}
+
+// gB, gC [G, L, N] at the io dtype from [G, L, N, nb] partials
+template <typename T>
+__global__ void reduce_bc_kernel(const float* __restrict__ gBp, const float* __restrict__ gCp,
+                                 T* __restrict__ gB, T* __restrict__ gC, int nb,
+                                 long long total) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  float sb = 0.f, sc = 0.f;
+  for (int j = 0; j < nb; ++j) {
+    sb += gBp[i * nb + j];
+    sc += gCp[i * nb + j];
+  }
+  gB[i] = fd::from_f<T>(sb);
+  gC[i] = fd::from_f<T>(sc);
+}
+
+// gA [K, D, N] from [G, NC, N, D] partials; gD, gbias [K, D] from [G, NC, D]
+// partials.  Block (32 channels, n, k): row ry sums the (b, chunk) pairs
+// ry, ry + RP_ROWS, ... in order, then the rows are added in order.
+__global__ void __launch_bounds__(WARP * RP_ROWS)
+reduce_params_kernel(const float* __restrict__ gAp, const float* __restrict__ gDp,
+                     const float* __restrict__ gbp, float* __restrict__ gA,
+                     float* __restrict__ gD, float* __restrict__ gbias, int Bsz, int K, int D,
+                     int N, int NC) {
+  __shared__ float part[3][RP_ROWS][WARP];
+  const int lane = threadIdx.x & (WARP - 1), ry = threadIdx.x / WARP;
+  const int d = blockIdx.x * WARP + lane, n = blockIdx.y, k = blockIdx.z;
+  const bool on = d < D;
+  const int dd = on ? d : D - 1;
+  float sa = 0.f, sd = 0.f, sbias = 0.f;
+  for (int j = ry; j < Bsz * NC; j += RP_ROWS) {
+    const long long g = (long long)(j / NC) * K + k;
+    const int c = j % NC;
+    sa += gAp[((g * NC + c) * N + n) * D + dd];
+    if (n == 0) {
+      sd += gDp[(g * NC + c) * D + dd];
+      sbias += gbp[(g * NC + c) * D + dd];
+    }
+  }
+  part[0][ry][lane] = sa;
+  part[1][ry][lane] = sd;
+  part[2][ry][lane] = sbias;
+  __syncthreads();
+  if (ry == 0 && on) {
+    sa = sd = sbias = 0.f;
+    for (int r = 0; r < RP_ROWS; ++r) {
+      sa += part[0][r][lane];
+      sd += part[1][r][lane];
+      sbias += part[2][r][lane];
+    }
+    gA[((long long)k * D + d) * N + n] = sa;
+    if (n == 0) {
+      gD[(long long)k * D + d] = sd;
+      gbias[(long long)k * D + d] = sbias;
+    }
+  }
+}
+
+// Launch one runtime-N kernel with its dynamic shared memory, opting in
+// above the 48 KB default.
+template <typename Kernel, typename... Args>
+int launch(Kernel kern, dim3 grid, int threads, size_t smem, cudaStream_t s, Args... args) {
+  if (smem > 48 * 1024)
+    FD_TRY(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  kern<<<grid, threads, smem, s>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// the mode of group i of ngroups (see fwd_kernel and bwd_main_kernel)
+int group_mode(int i, int ngroups) {
+  return ngroups == 1 ? 0 : i == 0 ? 1 : i == ngroups - 1 ? 3 : 2;
+}
+
+template <typename T, int NG, int TS>
+int forward_pass(ScanArgs<T> p, const Geometry& q, bool final_pass, T* y, float* yacc,
+                 int mode, float* hb, float* dsum, int G, cudaStream_t s) {
+  const size_t es = sizeof(T);
+  const size_t smem = (final_pass ? 2 : 1) * (size_t)p.TC * q.NLP * es + 2 * 2 * TS * q.DT * es;
+  const dim3 grid((p.D + q.DT - 1) / q.DT, p.NC, G);
+  if (final_pass)
+    return launch(fwd_kernel<T, NG, TS, true>, grid, q.NT, smem, s, p, y, yacc, mode, hb, dsum);
+  return launch(fwd_kernel<T, NG, TS, false>, grid, q.NT, smem, s, p, y, yacc, mode, hb, dsum);
+}
+
+// One geometry for every group: that of the first (the last may have fewer
+// states, whose lanes then hold none).
+template <typename T>
+int forward(ScanArgs<T> p, T* y, float* yacc, float* hb, float* dsum, int G, cudaStream_t s) {
+  const int ngroups = (p.N + GROUP - 1) / GROUP;
+  const Geometry q = geometry(min(p.N, GROUP));
+  p.ng = q.ng;
+  p.DT = q.DT;
+  for (int pass = 0; pass < 2; ++pass) {
+    if (pass == 1) {
+      const dim3 cg((p.D + WARP - 1) / WARP, p.N, G);
+      carry_scan_kernel<false><<<cg, WARP * CARRY_WARPS, 0, s>>>(p.A, dsum, hb, p.K, p.D, p.N,
+                                                                 p.NC);
+      FD_TRY(cudaGetLastError());
+      if (y == nullptr) return 0;  // bounds only
+    }
+    for (int i = 0; i < ngroups; ++i) {
+      p.n0 = i * GROUP;
+      p.nloc = min(GROUP, p.N - p.n0);
+      const int mode = group_mode(i, ngroups);
+      const int rc = q.NG == 4 ? forward_pass<T, 4, 8>(p, q, pass, y, yacc, mode, hb, dsum, G, s)
+                               : forward_pass<T, 8, 4>(p, q, pass, y, yacc, mode, hb, dsum, G, s);
+      if (rc) return rc;
+    }
+  }
+  return 0;
+}
+
+template <typename T, int NG, int TS>
+int backward_local(ScanArgs<T> p, const Geometry& q, float* zl, float* dsum, int G,
+                   cudaStream_t s) {
+  const size_t es = sizeof(T);
+  const size_t smem = (size_t)p.TC * q.NLP * es + 2 * 2 * TS * q.DT * es;
+  const dim3 grid((p.D + q.DT - 1) / q.DT, p.NC, G);
+  return launch(bwd_local_kernel<T, NG, TS>, grid, q.NT, smem, s, p, zl, dsum);
+}
+
+template <typename T, int NG, int TS>
+int backward_main(ScanArgs<T> p, const Geometry& q, const float* hb, const float* cin, T* gu,
+                  T* gdl, float* gBp, float* gCp, float* gAp, float* gDp, float* gbp,
+                  float* sacc, float* hacc, int mode, int G, cudaStream_t s) {
+  const size_t es = sizeof(T);
+  const int nsub_max = (p.TC + TS - 1) / TS;
+  const size_t smem = 2 * (size_t)p.TC * q.NLP * es + 2 * 3 * TS * q.DT * es +
+                      ((size_t)(nsub_max - 1) * NG * q.NT + (q.NT / WARP) * TS * 2 * q.NLP) * 4;
+  const dim3 grid((p.D + q.DT - 1) / q.DT, p.NC, G);
+  return launch(bwd_main_kernel<T, NG, TS>, grid, q.NT, smem, s, p, hb, cin, gu, gdl, gBp, gCp,
+                gAp, gDp, gbp, sacc, hacc, mode);
+}
+
+template <typename T>
+int backward(ScanArgs<T> p, const float* hb, T* gu, T* gdl, T* gB, T* gC, float* gA,
+             float* gD, float* gbias, float* zl, float* dsum, float* gBp, float* gCp,
+             float* gAp, float* gDp, float* gbp, float* sacc, float* hacc, int Bsz,
+             cudaStream_t s) {
+  const int G = Bsz * p.K, ngroups = (p.N + GROUP - 1) / GROUP;
+  const Geometry q = geometry(min(p.N, GROUP));
+  p.ng = q.ng;
+  p.DT = q.DT;
+  const int nb = (p.D + q.DT - 1) / q.DT;
+  for (int pass = 0; pass < 2; ++pass) {
+    if (pass == 1) {
+      const dim3 cg((p.D + WARP - 1) / WARP, p.N, G);
+      carry_scan_kernel<true><<<cg, WARP * CARRY_WARPS, 0, s>>>(p.A, dsum, zl, p.K, p.D, p.N,
+                                                                p.NC);
+      FD_TRY(cudaGetLastError());
+    }
+    for (int i = 0; i < ngroups; ++i) {
+      p.n0 = i * GROUP;
+      p.nloc = min(GROUP, p.N - p.n0);
+      const int mode = group_mode(i, ngroups);
+      int rc;
+      if (pass == 0)
+        rc = q.NG == 4 ? backward_local<T, 4, 8>(p, q, zl, dsum, G, s)
+                       : backward_local<T, 8, 4>(p, q, zl, dsum, G, s);
+      else
+        rc = q.NG == 4 ? backward_main<T, 4, 4>(p, q, hb, zl, gu, gdl, gBp, gCp, gAp, gDp, gbp,
+                                                sacc, hacc, mode, G, s)
+                       : backward_main<T, 8, 4>(p, q, hb, zl, gu, gdl, gBp, gCp, gAp, gDp, gbp,
+                                                sacc, hacc, mode, G, s);
+      if (rc) return rc;
+    }
+  }
+  const long long nbc = (long long)G * p.L * p.N;
+  reduce_bc_kernel<T><<<(unsigned)((nbc + 255) / 256), 256, 0, s>>>(gBp, gCp, gB, gC, nb, nbc);
+  FD_TRY(cudaGetLastError());
+  const dim3 rg((p.D + WARP - 1) / WARP, p.N, p.K);
+  reduce_params_kernel<<<rg, WARP * RP_ROWS, 0, s>>>(gAp, gDp, gbp, gA, gD, gbias, Bsz, p.K,
+                                                     p.D, p.N, p.NC);
+  FD_TRY(cudaGetLastError());
+  return 0;
+}
+
+template <typename T>
+ScanArgs<T> scan_args(const void* u, const void* dl, const void* Bm, const void* Cm,
+                      const void* dy, const float* A, const float* Ds, const float* bias, int K,
+                      int L, int D, int NS, int TC) {
+  ScanArgs<T> p;
+  p.u = static_cast<const T*>(u);
+  p.dl = static_cast<const T*>(dl);
+  p.Bm = static_cast<const T*>(Bm);
+  p.Cm = static_cast<const T*>(Cm);
+  p.dy = static_cast<const T*>(dy);
+  p.A = A;
+  p.Ds = Ds;
+  p.bias = bias;
+  p.K = K;
+  p.L = L;
+  p.D = D;
+  p.N = NS;
+  p.TC = TC;
+  p.NC = (L + TC - 1) / TC;
+  p.n0 = 0;
+  p.nloc = NS;
+  p.ng = 1;
+  p.DT = 128;
+  return p;
+}
+
+// ---------------------------------------------------------------------------
+// fused-projection forward
+// ---------------------------------------------------------------------------
+// chunk-entry states -> chunk carries for the fused forward, one thread per
+// (g, n, d), serially over the chunks; st [G, NC, N, D] holds end states and
+// becomes entry states.
 __global__ void carry_kernel(const float* __restrict__ A, const float* __restrict__ dsum,
                              float* __restrict__ st, int K, int D, int NS, int NC,
                              long long total) {
@@ -135,305 +838,33 @@ __global__ void carry_kernel(const float* __restrict__ A, const float* __restric
   const float a = A[((g % K) * D + d) * NS + n];
   float carry = 0.f;
   for (int i = 0; i < NC; ++i) {
-    const int c = REVERSE ? NC - 1 - i : i;
-    const long long si = ((g * NC + c) * NS + n) * D + d;
+    const long long si = ((g * NC + i) * NS + n) * D + d;
     const float v = st[si];
     st[si] = carry;
-    carry = expf(a * dsum[(g * NC + c) * D + d]) * carry + v;
+    carry = expf(a * dsum[(g * NC + i) * D + d]) * carry + v;
   }
 }
 
-template <typename T, int NS>
-int forward(const T* u, const T* dl, const T* Bm, const T* Cm, const float* A, const float* Ds,
-            const float* bias, T* y, float* hb, float* dsum, int G, int K, int L, int D,
-            int TC, cudaStream_t s) {
-  const int NC = (L + TC - 1) / TC;
-  dim3 grid((D + FWD_THREADS - 1) / FWD_THREADS, NC, G);
-  fwd_chunk_kernel<T, NS, false><<<grid, FWD_THREADS, 0, s>>>(u, dl, Bm, Cm, A, Ds, bias, y,
-                                                              hb, dsum, K, L, D, TC, NC);
-  FD_TRY(cudaGetLastError());
-  const long long total = (long long)G * NS * D;
-  carry_kernel<false><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(A, dsum, hb, K, D, NS,
-                                                                      NC, total);
-  FD_TRY(cudaGetLastError());
-  fwd_chunk_kernel<T, NS, true><<<grid, FWD_THREADS, 0, s>>>(u, dl, Bm, Cm, A, Ds, bias, y,
-                                                             hb, dsum, K, L, D, TC, NC);
-  FD_TRY(cudaGetLastError());
-  return 0;
-}
-
-// ---------------------------------------------------------------------------
-// backward
-// ---------------------------------------------------------------------------
-template <typename T, int NS>
-__global__ void __launch_bounds__(FWD_THREADS)
-bwd_local_kernel(const T* __restrict__ dl, const T* __restrict__ Cm, const T* __restrict__ dy,
-                 const float* __restrict__ A, const float* __restrict__ bias,
-                 float* __restrict__ zl, float* __restrict__ dsum, int K, int L, int D, int TC,
-                 int NC) {
-  const int d = blockIdx.x * FWD_THREADS + threadIdx.x;
-  const int c = blockIdx.y, g = blockIdx.z;
-  if (d >= D) return;
-  const int k = g % K;
-  float a[NS], z[NS];
-#pragma unroll
-  for (int n = 0; n < NS; ++n) {
-    a[n] = A[((long long)k * D + d) * NS + n];
-    z[n] = 0.f;
-  }
-  const float bs = bias[k * D + d];
-  float s = 0.f;
-  const int l0 = c * TC, l1 = min(L, (c + 1) * TC);
-  for (int l = l1 - 1; l >= l0; --l) {
-    const long long row = (long long)g * L + l;
-    const float dlt = fd::softplus(fd::to_f<T>(dl[row * D + d]) + bs);
-    const float dyv = fd::to_f<T>(dy[row * D + d]);
-    const T* cp = Cm + row * NS;
-#pragma unroll
-    for (int n = 0; n < NS; ++n) z[n] = expf(dlt * a[n]) * fmaf(fd::to_f<T>(cp[n]), dyv, z[n]);
-    s += dlt;
-  }
-  float* zp = zl + ((long long)g * NC + c) * NS * D + d;
-#pragma unroll
-  for (int n = 0; n < NS; ++n) zp[(long long)n * D] = z[n];
-  dsum[((long long)g * NC + c) * D + d] = s;
-}
-
-// One warp per (g, chunk, 32 channels); dynamic shared memory: the chunk's
-// replayed states [TC][NS][32] fp32.
-template <typename T, int NS>
-__global__ void __launch_bounds__(WARP)
-bwd_main_kernel(const T* __restrict__ u, const T* __restrict__ dl, const T* __restrict__ Bm,
-                const T* __restrict__ Cm, const T* __restrict__ dy, const float* __restrict__ A,
-                const float* __restrict__ Ds, const float* __restrict__ bias,
-                const float* __restrict__ hb, const float* __restrict__ cin,
-                T* __restrict__ gu, T* __restrict__ gdl, float* __restrict__ gBp,
-                float* __restrict__ gCp, float* __restrict__ gAp, float* __restrict__ gDp,
-                float* __restrict__ gbp, int K, int L, int D, int TC, int NC) {
-  extern __shared__ float traj[];
-  const int lane = threadIdx.x;
-  const int nd = gridDim.x, db = blockIdx.x;
-  const int d = db * WARP + lane;
-  const int c = blockIdx.y, g = blockIdx.z;
-  const bool on = d < D;
-  const int dd = on ? d : D - 1;  // lanes past D read a valid channel and add nothing
-  const float live = on ? 1.f : 0.f;
-  const int k = g % K;
-  float a[NS], h0[NS], h[NS], z[NS], ga[NS];
-  const long long sbase = ((long long)g * NC + c) * NS * D + dd;
-#pragma unroll
-  for (int n = 0; n < NS; ++n) {
-    a[n] = A[((long long)k * D + dd) * NS + n];
-    h0[n] = hb[sbase + (long long)n * D];
-    h[n] = h0[n];
-    z[n] = live * cin[sbase + (long long)n * D];
-    ga[n] = 0.f;
-  }
-  const float bs = bias[k * D + dd];
-  const float dsk = Ds[k * D + dd];
-  const int l0 = c * TC, nt = min(L, l0 + TC) - l0;
-  // replay the chunk's states from its entry state
-  for (int t = 0; t < nt; ++t) {
-    const long long row = (long long)g * L + l0 + t;
-    const float dlt = fd::softplus(fd::to_f<T>(dl[row * D + dd]) + bs);
-    const float du = dlt * fd::to_f<T>(u[row * D + dd]);
-    const T* bp = Bm + row * NS;
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      h[n] = expf(dlt * a[n]) * h[n] + du * fd::to_f<T>(bp[n]);
-      traj[(t * NS + n) * WARP + lane] = h[n];
-    }
-  }
-  __syncwarp();
-  // the adjoint, right to left
-  float gds = 0.f, gbs = 0.f;
-  for (int t = nt - 1; t >= 0; --t) {
-    const long long row = (long long)g * L + l0 + t;
-    const float raw = fd::to_f<T>(dl[row * D + dd]) + bs;
-    const float dlt = fd::softplus(raw);
-    const float uu = fd::to_f<T>(u[row * D + dd]);
-    const float dyv = live * fd::to_f<T>(dy[row * D + dd]);
-    const T* bp = Bm + row * NS;
-    const T* cp = Cm + row * NS;
-    float sb = 0.f, sh = 0.f;
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      const float ab = expf(dlt * a[n]);
-      const float gh = fmaf(fd::to_f<T>(cp[n]), dyv, z[n]);
-      const float hp = t > 0 ? traj[((t - 1) * NS + n) * WARP + lane] : h0[n];
-      const float ht = traj[(t * NS + n) * WARP + lane];
-      const float bn = fd::to_f<T>(bp[n]);
-      sb = fmaf(gh, bn, sb);
-      const float gha = gh * hp * ab;
-      sh = fmaf(gha, a[n], sh);
-      ga[n] = fmaf(gha, dlt, ga[n]);
-      z[n] = ab * gh;
-      const float pb = fd::warp_sum(gh * dlt * uu);
-      const float pc = fd::warp_sum(ht * dyv);
-      if (lane == 0) {
-        const long long pi = (row * NS + n) * nd + db;  // [G, L, N, nd]
-        gBp[pi] = pb;
-        gCp[pi] = pc;
-      }
-    }
-    const float gdlp = fmaf(uu, sb, sh);
-    const float gd = gdlp / (1.f + expf(-raw));
-    if (on) {
-      gu[row * D + d] = fd::from_f<T>(fmaf(dsk, dyv, dlt * sb));
-      gdl[row * D + d] = fd::from_f<T>(gd);
-    }
-    gds = fmaf(dyv, uu, gds);
-    gbs += gd;
-  }
-  if (on) {
-    const long long pbase = ((long long)g * NC + c) * NS * D + d;
-#pragma unroll
-    for (int n = 0; n < NS; ++n) gAp[pbase + (long long)n * D] = ga[n];
-    gDp[((long long)g * NC + c) * D + d] = gds;
-    gbp[((long long)g * NC + c) * D + d] = gbs;
-  }
-}
-
-// gB, gC [G, L, N] at the io dtype from [G, L, N, nd] warp partials
-template <typename T>
-__global__ void reduce_bc_kernel(const float* __restrict__ gBp, const float* __restrict__ gCp,
-                                 T* __restrict__ gB, T* __restrict__ gC, int nd,
-                                 long long total) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float sb = 0.f, sc = 0.f;
-  for (int j = 0; j < nd; ++j) {
-    sb += gBp[i * nd + j];
-    sc += gCp[i * nd + j];
-  }
-  gB[i] = fd::from_f<T>(sb);
-  gC[i] = fd::from_f<T>(sc);
-}
-
-// gA [K, D, N] from [G, NC, N, D] partials; gD, gbias [K, D] from [G, NC, D]
-// partials; one thread per (k, n, d), summed over (b, chunk) in order.
-__global__ void reduce_params_kernel(const float* __restrict__ gAp,
-                                     const float* __restrict__ gDp,
-                                     const float* __restrict__ gbp, float* __restrict__ gA,
-                                     float* __restrict__ gD, float* __restrict__ gbias, int Bsz,
-                                     int K, int D, int NS, int NC) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)K * NS * D) return;
-  const int d = idx % D;
-  const int n = (idx / D) % NS;
-  const int k = idx / ((long long)NS * D);
-  float sa = 0.f, sd = 0.f, sbias = 0.f;
-  for (int b = 0; b < Bsz; ++b) {
-    const long long g = (long long)b * K + k;
-    for (int c = 0; c < NC; ++c) {
-      sa += gAp[((g * NC + c) * NS + n) * D + d];
-      if (n == 0) {
-        sd += gDp[(g * NC + c) * D + d];
-        sbias += gbp[(g * NC + c) * D + d];
-      }
-    }
-  }
-  gA[((long long)k * D + d) * NS + n] = sa;
-  if (n == 0) {
-    gD[(long long)k * D + d] = sd;
-    gbias[(long long)k * D + d] = sbias;
-  }
-}
-
-template <typename T, int NS>
-int backward(const T* u, const T* dl, const T* Bm, const T* Cm, const float* A,
-             const float* Ds, const float* bias, const float* hb, const T* dy, T* gu, T* gdl,
-             T* gB, T* gC, float* gA, float* gD, float* gbias, float* zl, float* dsum,
-             float* gBp, float* gCp, float* gAp, float* gDp, float* gbp, int Bsz, int K, int L,
-             int D, int TC, cudaStream_t s) {
-  const int G = Bsz * K;
-  const int NC = (L + TC - 1) / TC;
-  const int nd = (D + WARP - 1) / WARP;
-  dim3 grid1((D + FWD_THREADS - 1) / FWD_THREADS, NC, G);
-  bwd_local_kernel<T, NS><<<grid1, FWD_THREADS, 0, s>>>(dl, Cm, dy, A, bias, zl, dsum, K, L, D,
-                                                        TC, NC);
-  FD_TRY(cudaGetLastError());
-  const long long total = (long long)G * NS * D;
-  carry_kernel<true><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(A, dsum, zl, K, D, NS, NC,
-                                                                     total);
-  FD_TRY(cudaGetLastError());
-  const size_t smem = (size_t)TC * NS * WARP * sizeof(float);
-  if (smem > 48 * 1024)  // N = 64 at the 8-step chunk: 64 KB, an opt-in size
-    FD_TRY(cudaFuncSetAttribute(bwd_main_kernel<T, NS>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-  dim3 grid2(nd, NC, G);
-  bwd_main_kernel<T, NS><<<grid2, WARP, smem, s>>>(u, dl, Bm, Cm, dy, A, Ds, bias, hb, zl, gu,
-                                                   gdl, gBp, gCp, gAp, gDp, gbp, K, L, D, TC,
-                                                   NC);
-  FD_TRY(cudaGetLastError());
-  const long long nbc = (long long)G * L * NS;
-  reduce_bc_kernel<T><<<(unsigned)((nbc + 255) / 256), 256, 0, s>>>(gBp, gCp, gB, gC, nd, nbc);
-  FD_TRY(cudaGetLastError());
-  const long long np = (long long)K * NS * D;
-  reduce_params_kernel<<<(unsigned)((np + 255) / 256), 256, 0, s>>>(gAp, gDp, gbp, gA, gD,
-                                                                    gbias, Bsz, K, D, NS, NC);
-  FD_TRY(cudaGetLastError());
-  return 0;
-}
-
-template <typename T>
-int forward_n(const void* u, const void* dl, const void* Bm, const void* Cm, const float* A,
-              const float* Ds, const float* bias, void* y, float* hb, float* dsum, int G, int K,
-              int L, int D, int NS, int TC, cudaStream_t s) {
-  auto c = [](const void* p) { return static_cast<const T*>(p); };
-  T* yt = static_cast<T*>(y);
-  switch (NS) {
-    case 4: return forward<T, 4>(c(u), c(dl), c(Bm), c(Cm), A, Ds, bias, yt, hb, dsum, G, K, L, D, TC, s);
-    case 8: return forward<T, 8>(c(u), c(dl), c(Bm), c(Cm), A, Ds, bias, yt, hb, dsum, G, K, L, D, TC, s);
-    case 16: return forward<T, 16>(c(u), c(dl), c(Bm), c(Cm), A, Ds, bias, yt, hb, dsum, G, K, L, D, TC, s);
-    case 32: return forward<T, 32>(c(u), c(dl), c(Bm), c(Cm), A, Ds, bias, yt, hb, dsum, G, K, L, D, TC, s);
-    case 64: return forward<T, 64>(c(u), c(dl), c(Bm), c(Cm), A, Ds, bias, yt, hb, dsum, G, K, L, D, TC, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-int backward_n(const void* u, const void* dl, const void* Bm, const void* Cm, const float* A,
-               const float* Ds, const float* bias, const float* hb, const void* dy, void* gu,
-               void* gdl, void* gB, void* gC, float* gA, float* gD, float* gbias, float* zl,
-               float* dsum, float* gBp, float* gCp, float* gAp, float* gDp, float* gbp,
-               int Bsz, int K, int L, int D, int NS, int TC, cudaStream_t s) {
-  auto c = [](const void* p) { return static_cast<const T*>(p); };
-  auto m = [](void* p) { return static_cast<T*>(p); };
-#define FD_BWD(NSV)                                                                        \
-  backward<T, NSV>(c(u), c(dl), c(Bm), c(Cm), A, Ds, bias, hb, c(dy), m(gu), m(gdl), m(gB), \
-                   m(gC), gA, gD, gbias, zl, dsum, gBp, gCp, gAp, gDp, gbp, Bsz, K, L, D, TC, s)
-  switch (NS) {
-    case 4: return FD_BWD(4);
-    case 8: return FD_BWD(8);
-    case 16: return FD_BWD(16);
-    case 32: return FD_BWD(32);
-    case 64: return FD_BWD(64);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef FD_BWD
-}
-
-// ---------------------------------------------------------------------------
-// fused-projection forward
-// ---------------------------------------------------------------------------
-// As fwd_chunk_kernel, with delta' (softplus applied), B and C read from the
-// projection rows proj [G, L, D+2N] fp32; K = 4 directions.
-template <typename T, int NS, bool FINAL>
+// The chunk passes with delta' (softplus applied), B and C read from the
+// projection rows proj [G, L, D+2N] fp32; K = 4 directions.  GROUPED: NS
+// states [n0, n0 + NS) of NST, y by mode as fwd_kernel's; otherwise NST =
+// NS, one group, its strides known at compile time.
+template <typename T, int NS, bool FINAL, bool GROUPED>
 __global__ void __launch_bounds__(FWD_THREADS)
 fused_chunk_kernel(const T* __restrict__ u, const float* __restrict__ proj,
                    const float* __restrict__ A, const float* __restrict__ Ds,
-                   T* __restrict__ y, float* __restrict__ hb, float* __restrict__ dsum, int L,
-                   int D, int TC, int NC) {
+                   T* __restrict__ y, float* __restrict__ yacc, int mode, float* __restrict__ hb,
+                   float* __restrict__ dsum, int L, int D, int NST, int n0, int TC, int NC) {
+  if (!GROUPED) NST = NS, n0 = 0, mode = 0;
   const int d = blockIdx.x * FWD_THREADS + threadIdx.x;
   const int c = blockIdx.y, g = blockIdx.z;
   if (d >= D) return;
-  const int k = g & 3, NP = D + 2 * NS;
+  const int k = g & 3, NP = D + 2 * NST;
   float a[NS], h[NS];
-  float* hbp = hb + ((long long)g * NC + c) * NS * D + d;  // [g, c, n, d]
+  float* hbp = hb + (((long long)g * NC + c) * NST + n0) * D + d;  // [g, c, n, d]
 #pragma unroll
   for (int n = 0; n < NS; ++n) {
-    a[n] = A[((long long)k * D + d) * NS + n];
+    a[n] = A[((long long)k * D + d) * NST + n0 + n];
     h[n] = FINAL ? hbp[(long long)n * D] : 0.f;
   }
   const float dsk = FINAL ? Ds[k * D + d] : 0.f;
@@ -448,11 +879,15 @@ fused_chunk_kernel(const T* __restrict__ u, const float* __restrict__ proj,
     float yv = 0.f;
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
-      h[n] = expf(dlt * a[n]) * h[n] + du * pr[D + n];
-      if (FINAL) yv = fmaf(pr[D + NS + n], h[n], yv);
+      h[n] = expf(dlt * a[n]) * h[n] + du * pr[D + n0 + n];
+      if (FINAL) yv = fmaf(pr[D + NST + n0 + n], h[n], yv);
     }
     if (FINAL) {
-      y[row * D + d] = fd::from_f<T>(yv + dsk * uu);
+      const long long i = row * D + d;
+      if (mode == 0) y[i] = fd::from_f<T>(yv + dsk * uu);
+      else if (mode == 1) yacc[i] = yv + dsk * uu;
+      else if (mode == 2) yacc[i] = yacc[i] + yv;
+      else y[i] = fd::from_f<T>(yacc[i] + yv);
     } else {
       s += dlt;
     }
@@ -464,99 +899,128 @@ fused_chunk_kernel(const T* __restrict__ u, const float* __restrict__ proj,
   }
 }
 
+// The two chunk passes of NS states per group, ngroups groups of NST.
 template <typename T, int NS>
-int fused_forward(const T* u, const T* wproj, const float* A, const float* Ds,
-                  const float* bias, T* y, float* hb, float* proj, float* dsum, int G, int L,
-                  int D, int TC, cudaStream_t s) {
-  const int NP = D + 2 * NS, NC = (L + TC - 1) / TC;
-  FD_TRY((fd::gemm<T>(G, L, NP, D, fd::RowStrided<T>{u, (long long)L * D, D}, wproj,
-                      (long long)D * NP, 4, NP, fd::EpiProj{proj, bias, L, D, NP}, s)));
+int fused_passes(const T* u, const float* proj, const float* A, const float* Ds, T* y,
+                 float* yacc, float* hb, float* dsum, int G, int L, int D, int NST, int TC,
+                 cudaStream_t s) {
+  const int NC = (L + TC - 1) / TC, ngroups = NST / NS;
   dim3 grid((D + FWD_THREADS - 1) / FWD_THREADS, NC, G);
-  fused_chunk_kernel<T, NS, false><<<grid, FWD_THREADS, 0, s>>>(u, proj, A, Ds, y, hb, dsum,
-                                                                L, D, TC, NC);
+  auto pass = [&](auto final_pass, int i, int mode) {
+    constexpr bool FINAL = decltype(final_pass)::value;
+    if constexpr (NS == 64) {
+      if (ngroups > 1) {
+        fused_chunk_kernel<T, NS, FINAL, true><<<grid, FWD_THREADS, 0, s>>>(
+            u, proj, A, Ds, y, yacc, mode, hb, dsum, L, D, NST, i * NS, TC, NC);
+        return cudaGetLastError();
+      }
+    }
+    fused_chunk_kernel<T, NS, FINAL, false><<<grid, FWD_THREADS, 0, s>>>(
+        u, proj, A, Ds, y, yacc, mode, hb, dsum, L, D, NST, i * NS, TC, NC);
+    return cudaGetLastError();
+  };
+  for (int i = 0; i < ngroups; ++i) FD_TRY(pass(std::false_type{}, i, 0));
+  const long long total = (long long)G * NST * D;
+  carry_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(A, dsum, hb, 4, D, NST, NC,
+                                                               total);
   FD_TRY(cudaGetLastError());
-  const long long total = (long long)G * NS * D;
-  carry_kernel<false><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(A, dsum, hb, 4, D, NS,
-                                                                      NC, total);
-  FD_TRY(cudaGetLastError());
-  fused_chunk_kernel<T, NS, true><<<grid, FWD_THREADS, 0, s>>>(u, proj, A, Ds, y, hb, dsum, L,
-                                                               D, TC, NC);
-  FD_TRY(cudaGetLastError());
+  for (int i = 0; i < ngroups; ++i) FD_TRY(pass(std::true_type{}, i, group_mode(i, ngroups)));
   return 0;
 }
 
 template <typename T>
-int fused_forward_n(const void* u, const void* wproj, const float* A, const float* Ds,
-                    const float* bias, void* y, float* hb, float* proj, float* dsum, int G,
-                    int L, int D, int NS, int TC, cudaStream_t s) {
-  const T* ut = static_cast<const T*>(u);
-  const T* wt = static_cast<const T*>(wproj);
-  T* yt = static_cast<T*>(y);
+int fused_forward(const T* u, const T* wproj, const float* A, const float* Ds,
+                  const float* bias, T* y, float* yacc, float* hb, float* proj, float* dsum,
+                  int G, int L, int D, int NS, int TC, cudaStream_t s) {
+  const int NP = D + 2 * NS;
+  FD_TRY((fd::gemm<T>(G, L, NP, D, fd::RowStrided<T>{u, (long long)L * D, D}, wproj,
+                      (long long)D * NP, 4, NP, fd::EpiProj{proj, bias, L, D, NP}, s)));
   switch (NS) {
-    case 4: return fused_forward<T, 4>(ut, wt, A, Ds, bias, yt, hb, proj, dsum, G, L, D, TC, s);
-    case 8: return fused_forward<T, 8>(ut, wt, A, Ds, bias, yt, hb, proj, dsum, G, L, D, TC, s);
-    case 16: return fused_forward<T, 16>(ut, wt, A, Ds, bias, yt, hb, proj, dsum, G, L, D, TC, s);
-    case 32: return fused_forward<T, 32>(ut, wt, A, Ds, bias, yt, hb, proj, dsum, G, L, D, TC, s);
-    case 64: return fused_forward<T, 64>(ut, wt, A, Ds, bias, yt, hb, proj, dsum, G, L, D, TC, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 4: return fused_passes<T, 4>(u, proj, A, Ds, y, yacc, hb, dsum, G, L, D, NS, TC, s);
+    case 8: return fused_passes<T, 8>(u, proj, A, Ds, y, yacc, hb, dsum, G, L, D, NS, TC, s);
+    case 16: return fused_passes<T, 16>(u, proj, A, Ds, y, yacc, hb, dsum, G, L, D, NS, TC, s);
+    case 32: return fused_passes<T, 32>(u, proj, A, Ds, y, yacc, hb, dsum, G, L, D, NS, TC, s);
+    default:  // 64, and multiples of 64 in groups of 64 (the wrapper pads)
+      if (NS % 64 || (NS > 64 && yacc == nullptr)) return (int)cudaErrorInvalidValue;
+      return fused_passes<T, 64>(u, proj, A, Ds, y, yacc, hb, dsum, G, L, D, NS, TC, s);
   }
 }
 
 }  // namespace
 
 // u, dl [G, L, D], Bm, Cm [G, L, N] at the io dtype (G = Bsz * K, direction
-// g % K); A [K, D, N], Ds and bias [K, D] fp32.  Writes y [G, L, D] (io) and
-// hb [G, NC, N, D] fp32, the state entering each chunk of TC steps.
-// Scratch: dsum [G, NC, D] fp32.
+// g % K); A [K, D, N], Ds and bias [K, D] fp32; any N >= 1.  Writes hb
+// [G, NC, N, D] fp32, the state entering each chunk of TC steps, and, unless
+// y is null (the bounds-only mode), y [G, L, D] (io).  Scratch: dsum
+// [G, NC, D] fp32, and for N > 64 yacc [G, L, D] fp32 (else unused).
 extern "C" int scan_forward(const void* u, const void* dl, const void* Bm, const void* Cm,
                             const float* A, const float* Ds, const float* bias, void* y,
-                            float* hb, float* dsum, int G, int K, int L, int D, int NS, int TC,
-                            int dtype, void* stream) {
+                            float* hb, float* dsum, float* yacc, int G, int K, int L, int D,
+                            int NS, int TC, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (NS < 1 || (NS > GROUP && y != nullptr && yacc == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return forward_n<float>(u, dl, Bm, Cm, A, Ds, bias, y, hb, dsum, G, K, L, D, NS, TC, s);
+    return forward<float>(scan_args<float>(u, dl, Bm, Cm, nullptr, A, Ds, bias, K, L, D, NS, TC),
+                          static_cast<float*>(y), yacc, hb, dsum, G, s);
   if (dtype == 1)
-    return forward_n<__nv_bfloat16>(u, dl, Bm, Cm, A, Ds, bias, y, hb, dsum, G, K, L, D, NS,
-                                    TC, s);
+    return forward<__nv_bfloat16>(
+        scan_args<__nv_bfloat16>(u, dl, Bm, Cm, nullptr, A, Ds, bias, K, L, D, NS, TC),
+        static_cast<__nv_bfloat16*>(y), yacc, hb, dsum, G, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The forward's inputs, its hb and dy [G, L, D] (io).  Writes gu, gdl
-// [G, L, D] and gB, gC [G, L, N] at the io dtype; gA [K, D, N], gD and gbias
-// [K, D] fp32.  Scratch (fp32): zl [G, NC, N, D], dsum [G, NC, D],
-// gBp and gCp [G, L, N, ceil(D / 32)], gAp [G, NC, N, D], gDp and gbp [G, NC, D].
+// The forward's inputs, its hb and dy [G, L, D] (io); any N >= 1.  Writes
+// gu, gdl [G, L, D] and gB, gC [G, L, N] at the io dtype; gA [K, D, N], gD
+// and gbias [K, D] fp32.  Scratch (fp32): zl [G, NC, N, D], dsum [G, NC, D],
+// gBp and gCp of G * L * N * nb floats, room for ceil(D / DT) channel tiles
+// of DT (geometry above; ceil(D / 32) always is), gAp [G, NC, N, D], gDp and
+// gbp [G, NC, D]; for N > 64 sacc and hacc [G, L, D] (else unused).
 extern "C" int scan_backward(const void* u, const void* dl, const void* Bm, const void* Cm,
                              const float* A, const float* Ds, const float* bias,
                              const float* hb, const void* dy, void* gu, void* gdl, void* gB,
                              void* gC, float* gA, float* gD, float* gbias, float* zl,
                              float* dsum, float* gBp, float* gCp, float* gAp, float* gDp,
-                             float* gbp, int Bsz, int K, int L, int D, int NS, int TC, int dtype,
-                             void* stream) {
+                             float* gbp, float* sacc, float* hacc, int Bsz, int K, int L, int D,
+                             int NS, int TC, int nb, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (NS < 1 || (NS > GROUP && (sacc == nullptr || hacc == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int DT = geometry(min(NS, GROUP)).DT;
+  if (nb < (D + DT - 1) / DT) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return backward_n<float>(u, dl, Bm, Cm, A, Ds, bias, hb, dy, gu, gdl, gB, gC, gA, gD,
-                             gbias, zl, dsum, gBp, gCp, gAp, gDp, gbp, Bsz, K, L, D, NS, TC, s);
-  if (dtype == 1)
-    return backward_n<__nv_bfloat16>(u, dl, Bm, Cm, A, Ds, bias, hb, dy, gu, gdl, gB, gC, gA,
-                                     gD, gbias, zl, dsum, gBp, gCp, gAp, gDp, gbp, Bsz, K, L,
-                                     D, NS, TC, s);
+    return backward<float>(scan_args<float>(u, dl, Bm, Cm, dy, A, Ds, bias, K, L, D, NS, TC),
+                           hb, static_cast<float*>(gu), static_cast<float*>(gdl),
+                           static_cast<float*>(gB), static_cast<float*>(gC), gA, gD, gbias, zl,
+                           dsum, gBp, gCp, gAp, gDp, gbp, sacc, hacc, Bsz, s);
+  if (dtype == 1) {
+    using B16 = __nv_bfloat16;
+    return backward<B16>(scan_args<B16>(u, dl, Bm, Cm, dy, A, Ds, bias, K, L, D, NS, TC), hb,
+                         static_cast<B16*>(gu), static_cast<B16*>(gdl), static_cast<B16*>(gB),
+                         static_cast<B16*>(gC), gA, gD, gbias, zl, dsum, gBp, gCp, gAp, gDp,
+                         gbp, sacc, hacc, Bsz, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 // xs [G, L, D] (G = Bsz * 4, direction g % 4) and wproj [4, D, D+2N]
-// (delta | B | C) at the io dtype; A [4, D, N], Ds and bias [4, D] fp32.
-// Writes y [G, L, D] (io) and hb [G, NC, N, D] fp32 as scan_forward does.
-// Scratch (fp32): proj [G, L, D+2N], dsum [G, NC, D].
+// (delta | B | C) at the io dtype; A [4, D, N], Ds and bias [4, D] fp32;
+// N in {4, 8, 16, 32} or a multiple of 64.  Writes y [G, L, D] (io) and hb
+// [G, NC, N, D] fp32 as scan_forward does.  Scratch (fp32): proj
+// [G, L, D+2N], dsum [G, NC, D], for N > 64 yacc [G, L, D] (else unused).
 extern "C" int scan_fused_forward(const void* xs, const void* wproj, const float* A,
                                   const float* Ds, const float* bias, void* y, float* hb,
-                                  float* proj, float* dsum, int G, int L, int D, int NS, int TC,
-                                  int dtype, void* stream) {
+                                  float* proj, float* dsum, float* yacc, int G, int L, int D,
+                                  int NS, int TC, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return fused_forward_n<float>(xs, wproj, A, Ds, bias, y, hb, proj, dsum, G, L, D, NS, TC,
-                                  s);
+    return fused_forward<float>(static_cast<const float*>(xs), static_cast<const float*>(wproj),
+                                A, Ds, bias, static_cast<float*>(y), yacc, hb, proj, dsum, G, L,
+                                D, NS, TC, s);
   if (dtype == 1)
-    return fused_forward_n<__nv_bfloat16>(xs, wproj, A, Ds, bias, y, hb, proj, dsum, G, L, D,
-                                          NS, TC, s);
+    return fused_forward<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(xs),
+                                        static_cast<const __nv_bfloat16*>(wproj), A, Ds, bias,
+                                        static_cast<__nv_bfloat16*>(y), yacc, hb, proj, dsum, G,
+                                        L, D, NS, TC, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -11,6 +11,11 @@
 //      and turns end states into entry states;
 //   3. pass 2: each chunk reruns from its entry state and hands
 //      y = C.h + D*u to an output functor.
+// N is a template argument, 4, 8, 16, 32 or 64 (the wrappers pad other
+// sizes up with states whose B and C are zero); N above 64, a multiple of
+// 64, runs the chunk passes in groups of 64 states with one carry over all:
+// the groups' y add up in an fp32 buffer in order (D*u with the first), and
+// the last hands the sum to the output functor.
 #pragma once
 
 #include "common.cuh"
@@ -72,22 +77,27 @@ struct StoreSeq {
   }
 };
 
-template <typename T, int NS, bool FINAL, class Out>
+// GROUPED: states [n0, n0 + NS) of NST, y by mode: 0 out(y); 1 yacc = y;
+// 2 yacc += C.h; 3 out(yacc + C.h) (y = C.h + D*u).  Otherwise NST = NS, one
+// group, its strides known at compile time.
+template <typename T, int NS, bool FINAL, class Out, bool GROUPED>
 __global__ void __launch_bounds__(SCAN_THREADS)
 image_scan_chunk_kernel(const T* __restrict__ xs, const float* __restrict__ proj,
                         const float* __restrict__ A, const float* __restrict__ Dskip,
                         float* __restrict__ chunk_sum, float* __restrict__ chunk_state,
-                        Out out, int H, int W, int D, int L, int TC, int NC) {
+                        Out out, float* __restrict__ yacc, int mode, int H, int W, int D,
+                        int L, int NST, int n0, int TC, int NC) {
+  if (!GROUPED) NST = NS, n0 = 0, mode = 0;
   const int d = blockIdx.x * SCAN_THREADS + threadIdx.x;
   const int c = blockIdx.y, z = blockIdx.z;
   if (d >= D) return;
   const int b = z >> 2, k = z & 3;
-  const int H2 = H / 2, W2 = W / 2, NP = D + 2 * NS;
+  const int H2 = H / 2, W2 = W / 2, NP = D + 2 * NST;
   float a[NS], h[NS];
-  float* st = chunk_state + (((long long)z * NC + c) * D + d) * NS;
+  float* st = chunk_state + (((long long)z * NC + c) * D + d) * NST + n0;
 #pragma unroll
   for (int n = 0; n < NS; ++n) {
-    a[n] = A[((long long)k * D + d) * NS + n];
+    a[n] = A[((long long)k * D + d) * NST + n0 + n];
     h[n] = FINAL ? st[n] : 0.f;
   }
   const float dsk = FINAL ? Dskip[k * D + d] : 0.f;
@@ -104,11 +114,15 @@ image_scan_chunk_kernel(const T* __restrict__ xs, const float* __restrict__ proj
     float y = 0.f;
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
-      h[n] = expf(dl * a[n]) * h[n] + du * pr[D + n];
-      if (FINAL) y = fmaf(pr[D + NS + n], h[n], y);
+      h[n] = expf(dl * a[n]) * h[n] + du * pr[D + n0 + n];
+      if (FINAL) y = fmaf(pr[D + NST + n0 + n], h[n], y);
     }
     if (FINAL) {
-      out(z, l, pix, d, D, y + dsk * u);
+      const long long i = ((long long)z * L + l) * D + d;
+      if (mode == 0) out(z, l, pix, d, D, y + dsk * u);
+      else if (mode == 1) yacc[i] = y + dsk * u;
+      else if (mode == 2) yacc[i] = yacc[i] + y;
+      else out(z, l, pix, d, D, yacc[i] + y);
     } else {
       dsum += dl;
     }
@@ -140,39 +154,56 @@ __global__ void image_scan_carry_kernel(const float* __restrict__ A,
   }
 }
 
-// The three passes on the caller's stream; proj is [B*4, L, D+2N] from the
-// RowGather/EpiProj GEMM, csum [B*4, NC, D], cstate [B*4, NC, D, N].
+// The three passes on the caller's stream for NST states in groups of NS;
+// proj is [B*4, L, D+2N] from the RowGather/EpiProj GEMM, csum [B*4, NC, D],
+// cstate [B*4, NC, D, N], yacc [B*4, L, D] fp32 (several groups only).
 template <typename T, int NS, class Out>
 int image_scan(const T* xs, const float* proj, const float* A, const float* Ds, float* csum,
-               float* cstate, Out out, int B, int H, int W, int D, int L, int TC, int NC,
-               cudaStream_t s) {
+               float* cstate, Out out, float* yacc, int B, int H, int W, int D, int NST, int L,
+               int TC, int NC, cudaStream_t s) {
   dim3 grid((D + SCAN_THREADS - 1) / SCAN_THREADS, NC, B * 4);
-  image_scan_chunk_kernel<T, NS, false, Out><<<grid, SCAN_THREADS, 0, s>>>(
-      xs, proj, A, Ds, csum, cstate, out, H, W, D, L, TC, NC);
-  FD_TRY(cudaGetLastError());
-  const long long total = (long long)B * 4 * D * NS;
+  const int ngroups = NST / NS;
+  auto pass = [&](auto final_pass, int i, int mode) {
+    constexpr bool FINAL = decltype(final_pass)::value;
+    if constexpr (NS == 64) {
+      if (ngroups > 1) {
+        image_scan_chunk_kernel<T, NS, FINAL, Out, true><<<grid, SCAN_THREADS, 0, s>>>(
+            xs, proj, A, Ds, csum, cstate, out, yacc, mode, H, W, D, L, NST, i * NS, TC, NC);
+        return cudaGetLastError();
+      }
+    }
+    image_scan_chunk_kernel<T, NS, FINAL, Out, false><<<grid, SCAN_THREADS, 0, s>>>(
+        xs, proj, A, Ds, csum, cstate, out, yacc, mode, H, W, D, L, NST, i * NS, TC, NC);
+    return cudaGetLastError();
+  };
+  for (int i = 0; i < ngroups; ++i) FD_TRY(pass(std::false_type{}, i, 0));
+  const long long total = (long long)B * 4 * D * NST;
   image_scan_carry_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(A, csum, cstate, D,
-                                                                         NS, NC, total);
+                                                                         NST, NC, total);
   FD_TRY(cudaGetLastError());
-  image_scan_chunk_kernel<T, NS, true, Out><<<grid, SCAN_THREADS, 0, s>>>(
-      xs, proj, A, Ds, csum, cstate, out, H, W, D, L, TC, NC);
-  FD_TRY(cudaGetLastError());
+  for (int i = 0; i < ngroups; ++i)
+    FD_TRY(pass(std::true_type{}, i, ngroups == 1 ? 0 : i == 0 ? 1 : i == ngroups - 1 ? 3 : 2));
   return 0;
 }
 
-// image_scan for a runtime state size in {4, 8, 16, 32, 64}
+// image_scan for a runtime state size: 4, 8, 16, 32, 64, or a multiple of
+// 64 with yacc
 template <typename T, class Out>
 int image_scan_n(const T* xs, const float* proj, const float* A, const float* Ds, float* csum,
-                 float* cstate, Out out, int B, int H, int W, int D, int NS, int L, int TC,
-                 int NC, cudaStream_t s) {
+                 float* cstate, Out out, float* yacc, int B, int H, int W, int D, int NS, int L,
+                 int TC, int NC, cudaStream_t s) {
+#define FD_IMAGE_SCAN(NSV) \
+  image_scan<T, NSV>(xs, proj, A, Ds, csum, cstate, out, yacc, B, H, W, D, NS, L, TC, NC, s)
   switch (NS) {
-    case 4: return image_scan<T, 4>(xs, proj, A, Ds, csum, cstate, out, B, H, W, D, L, TC, NC, s);
-    case 8: return image_scan<T, 8>(xs, proj, A, Ds, csum, cstate, out, B, H, W, D, L, TC, NC, s);
-    case 16: return image_scan<T, 16>(xs, proj, A, Ds, csum, cstate, out, B, H, W, D, L, TC, NC, s);
-    case 32: return image_scan<T, 32>(xs, proj, A, Ds, csum, cstate, out, B, H, W, D, L, TC, NC, s);
-    case 64: return image_scan<T, 64>(xs, proj, A, Ds, csum, cstate, out, B, H, W, D, L, TC, NC, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 4: return FD_IMAGE_SCAN(4);
+    case 8: return FD_IMAGE_SCAN(8);
+    case 16: return FD_IMAGE_SCAN(16);
+    case 32: return FD_IMAGE_SCAN(32);
+    default:
+      if (NS % 64 || (NS > 64 && yacc == nullptr)) return (int)cudaErrorInvalidValue;
+      return FD_IMAGE_SCAN(64);
   }
+#undef FD_IMAGE_SCAN
 }
 
 }  // namespace fd

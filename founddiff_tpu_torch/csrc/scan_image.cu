@@ -24,8 +24,8 @@ namespace {
 
 template <typename T>
 int run(const void* xs_, const void* wproj_, const float* A, const float* Ds,
-        const float* dbias, void* ys_, float* proj, float* csum, float* cstate, int B, int H,
-        int W, int D, int NS, int TC, cudaStream_t s) {
+        const float* dbias, void* ys_, float* proj, float* csum, float* cstate, float* yacc,
+        int B, int H, int W, int D, int NS, int TC, cudaStream_t s) {
   const T* xs = static_cast<const T*>(xs_);
   const T* wproj = static_cast<const T*>(wproj_);
   const int H2 = H / 2, W2 = W / 2, L = H2 * W2, NP = D + 2 * NS;
@@ -33,24 +33,27 @@ int run(const void* xs_, const void* wproj_, const float* A, const float* Ds,
   FD_TRY((fd::gemm<T>(B * 4, L, NP, D, fd::RowGather<T>{xs, H, W, H2, W2, D}, wproj,
                       (long long)D * NP, 4, NP, fd::EpiProj{proj, dbias, L, D, NP}, s)));
   return fd::image_scan_n<T>(xs, proj, A, Ds, csum, cstate,
-                             fd::StoreSeq<T>{static_cast<T*>(ys_), L}, B, H, W, D, NS, L, TC,
-                             NC, s);
+                             fd::StoreSeq<T>{static_cast<T*>(ys_), L}, yacc, B, H, W, D, NS, L,
+                             TC, NC, s);
 }
 
 }  // namespace
 
 // xs [B, H, W, D] and wproj [4, D, D+2N] (delta | B | C) at the io dtype;
-// A [4, D, N], Ds and dbias [4, D] fp32; ys [B, 4, L, D] at the io dtype.
-// Scratch: proj [B*4*L*(D+2N)], csum [B*4*NC*D], cstate [B*4*NC*D*N] fp32.
+// A [4, D, N], Ds and dbias [4, D] fp32; ys [B, 4, L, D] at the io dtype;
+// N in {4, 8, 16, 32} or a multiple of 64 (the wrapper pads other sizes).
+// Scratch: proj [B*4*L*(D+2N)], csum [B*4*NC*D], cstate [B*4*NC*D*N] fp32,
+// and for N > 64 yacc [B*4*L*D] fp32 (else unused).
 extern "C" int scan_image_forward(const void* xs, const void* wproj, const float* A,
                                   const float* Ds, const float* dbias, void* ys, float* proj,
-                                  float* csum, float* cstate, int B, int H, int W, int D,
-                                  int NS, int TC, int dtype, void* stream) {
+                                  float* csum, float* cstate, float* yacc, int B, int H, int W,
+                                  int D, int NS, int TC, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return run<float>(xs, wproj, A, Ds, dbias, ys, proj, csum, cstate, B, H, W, D, NS, TC, s);
+    return run<float>(xs, wproj, A, Ds, dbias, ys, proj, csum, cstate, yacc, B, H, W, D, NS,
+                      TC, s);
   if (dtype == 1)
-    return run<__nv_bfloat16>(xs, wproj, A, Ds, dbias, ys, proj, csum, cstate, B, H, W, D,
-                              NS, TC, s);
+    return run<__nv_bfloat16>(xs, wproj, A, Ds, dbias, ys, proj, csum, cstate, yacc, B, H, W,
+                              D, NS, TC, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -32,13 +32,13 @@ int run(const void* x1_, const void* xs_, const void* xr_, const void* wz_,
         const void* wproj_, const float* A, const float* Ds, const float* dbias,
         const float* lng, const float* lnb, const float* local, const void* pw_,
         const float* gate, void* out_, float* proj, float* csum, float* cstate, float* ybuf,
-        float* stats, void* og_, int B, int H, int W, int C0, int D, int NS, int TC,
+        float* yacc, float* stats, void* og_, int B, int H, int W, int C0, int D, int NS, int TC,
         float eps, bool tc, cudaStream_t s) {
   return fd::ss2d_tail<T, false>(static_cast<const T*>(x1_), static_cast<const T*>(xs_),
                                  static_cast<const T*>(xr_), static_cast<const T*>(wz_),
                                  nullptr, static_cast<const T*>(wproj_), A, Ds, dbias, lng,
                                  lnb, local, static_cast<const T*>(pw_), gate,
-                                 static_cast<T*>(out_), proj, csum, cstate, ybuf, stats,
+                                 static_cast<T*>(out_), proj, csum, cstate, ybuf, yacc, stats,
                                  static_cast<T*>(og_), B, H, W, C0, D, NS, TC, eps, tc, s);
 }
 
@@ -48,17 +48,17 @@ extern "C" int ss2d_block_forward(
     const void* x1, const void* xs, const void* xr, const void* wz, const void* wproj,
     const float* A, const float* Ds, const float* dbias, const float* lng,
     const float* lnb, const float* local, const void* pw, const float* gate, void* out,
-    float* proj, float* csum, float* cstate, float* ybuf, float* stats, void* og, int B,
-    int H, int W, int C0, int D, int NS, int TC, float eps, int tc, int dtype,
+    float* proj, float* csum, float* cstate, float* ybuf, float* yacc, float* stats, void* og,
+    int B, int H, int W, int C0, int D, int NS, int TC, float eps, int tc, int dtype,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return run<float>(x1, xs, xr, wz, wproj, A, Ds, dbias, lng, lnb, local, pw, gate, out,
-                      proj, csum, cstate, ybuf, stats, og, B, H, W, C0, D, NS, TC, eps, tc != 0,
-                      s);
+                      proj, csum, cstate, ybuf, yacc, stats, og, B, H, W, C0, D, NS, TC, eps,
+                      tc != 0, s);
   if (dtype == 1)
     return run<__nv_bfloat16>(x1, xs, xr, wz, wproj, A, Ds, dbias, lng, lnb, local, pw,
-                              gate, out, proj, csum, cstate, ybuf, stats, og, B, H, W, C0,
+                              gate, out, proj, csum, cstate, ybuf, yacc, stats, og, B, H, W, C0,
                               D, NS, TC, eps, tc != 0, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -11,7 +11,8 @@
 //   2. the three-pass chunked scan, writing y = C.h + D*u straight into its
 //      pixel of the merged [B, H, W, D] map (EfficientMerge: out[2i,2j]=dir0,
 //      [2i+1,2j]=dir1, [2i,2j+1]=dir2, [2i+1,2j+1]=dir3; dirs 1 and 3 run
-//      column-major);
+//      column-major); N above 64 in groups of 64 whose y add up in yacc
+//      before the merged map, the statistics or the z epilogue read it;
 //   3. per-pixel LayerNorm statistics of y (fd::ln_rows_vec, the row read
 //      once in 16-byte vectors);
 //   4. z as a GEMM whose epilogue applies LN, silu(z), +local and rounds to
@@ -74,7 +75,7 @@ int ss2d_tail(const T* x1, const T* xs, const T* xr, const T* wz, const float* z
               const T* wproj, const float* A, const float* Ds, const float* dbias,
               const float* lng, const float* lnb, const float* local, const T* pw,
               const float* gate, T* out, float* proj, float* csum, float* cstate, float* ybuf,
-              float* stats, T* og, int B, int H, int W, int C0, int D, int NS, int TC,
+              float* yacc, float* stats, T* og, int B, int H, int W, int C0, int D, int NS, int TC,
               float eps, bool tc, cudaStream_t s) {
   const int H2 = H / 2, W2 = W / 2, L = H2 * W2, NP = D + 2 * NS;
   const int NC = (L + TC - 1) / TC;
@@ -86,8 +87,8 @@ int ss2d_tail(const T* x1, const T* xs, const T* xr, const T* wz, const float* z
 
   FD_TRY((gemm_io<T>(tc_proj, B * 4, L, NP, D, RowGather<T>{xs, H, W, H2, W2, D}, wproj,
                      (long long)D * NP, 4, NP, EpiProj{proj, dbias, L, D, NP}, s)));
-  const int rc = image_scan_n<T>(xs, proj, A, Ds, csum, cstate, StoreMerged{ybuf}, B, H, W, D,
-                                 NS, L, TC, NC, s);
+  const int rc = image_scan_n<T>(xs, proj, A, Ds, csum, cstate, StoreMerged{ybuf}, yacc, B, H,
+                                 W, D, NS, L, TC, NC, s);
   if (rc) return rc;
   FD_TRY((ln_rows_vec<T, float>(ybuf, nullptr, nullptr, nullptr, nullptr, 0, nullptr, stats, P,
                                 1, D, eps, s)));

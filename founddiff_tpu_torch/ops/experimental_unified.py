@@ -40,9 +40,9 @@ import torch.nn.functional as F
 
 from founddiff_tpu_torch.ops import _build
 from founddiff_tpu_torch.ops.remat import remat_grads
+from founddiff_tpu_torch.ops.scan import _GROUP, pad_states
 from founddiff_tpu_torch.ops.ss2d_block import (
     _CHUNK,
-    _STATE_SIZES,
     _derive_weights,
     _ss2d_tail_plain,
     block_scan_ok,
@@ -109,10 +109,9 @@ def _mamba_block_plain(x, geff, beff, wx, wz, dwt, dwb, w_delta, w_b, w_c, A, Ds
 def _mamba_block_cuda(x, geff, beff, wx, wz, dwt, dwb, w_delta, w_b, w_c, A, Dskip,
                       delta_bias, ln_g, ln_b, local, proj_w, gate, eps_ln, eps):
     B, H, W, C0 = x.shape
+    A, w_b, w_c = pad_states(A, w_b, w_c)
     D, N = wx.shape[-1], A.shape[-1]
     io = x.dtype
-    if N not in _STATE_SIZES:
-        raise ValueError(f"d_state {N} not in {_STATE_SIZES}")
     if not mamba_block_ok(H, W):
         raise ValueError(f"ss2d_mamba_block needs even H, W >= 4, got {H}x{W}")
     _build.dtype_code(x)
@@ -142,13 +141,14 @@ def _mamba_block_cuda(x, geff, beff, wx, wz, dwt, dwb, w_delta, w_b, w_c, A, Dsk
     chunk_sum = torch.empty(B * 4 * NC * D, device=dev)
     chunk_state = torch.empty(B * 4 * NC * D * N, device=dev)
     ybuf = torch.empty(B * H * W * D, device=dev)
+    yacc = torch.empty(B * 4 * L * D, device=dev) if N > _GROUP else None
     stats = torch.empty(B * H * W * 2, device=dev)
     out = torch.empty_like(x)
-    fn = _build.kernel("mamba_block", "mamba_block_forward", 26,
+    fn = _build.kernel("mamba_block", "mamba_block_forward", 27,
                        [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float, ctypes.c_int])
     rc = fn(*map(_build.ptr, (x, wxg, bx, wzg, bz, taps, dwb32, wproj, A32, Ds32, bias32, g32,
                               b32, loc32, pw, gate32, out, xc, u, xs, proj_buf, chunk_sum,
-                              chunk_state, ybuf, stats, og)),
+                              chunk_state, ybuf, yacc, stats, og)),
             B, H, W, C0, D, N, _CHUNK, eps_ln, eps, _build.dtype_code(x), _build.stream())
     _build.check(rc, "mamba_block_forward")
     ss2d_mamba_block.launches += 1

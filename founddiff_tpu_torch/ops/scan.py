@@ -46,18 +46,39 @@ from founddiff_tpu_torch.ops.selective_scan import (
     selective_scan_chunked,
 )
 
-# the state sizes the CUDA kernels are instantiated for (the UNet's levels
-# give base_d_state * 2^level: 4 to 64 for up to five levels); others raise
+# The state sizes the kernels that hold the states in registers as a
+# template argument are built for (the fused-projection and image scans,
+# the fused block, the unified op).  Another N <= 64 is padded up to the next
+# (:func:`pad_states`), a larger one to a multiple of 64 that runs in groups
+# of 64.  scan_forward and scan_backward take any N as it is.
 _STATE_SIZES = (4, 8, 16, 32, 64)
+_GROUP = 64
 _IMAGE_CHUNK = 128  # scan chunk of the image kernel (as csrc/ss2d_block.cu)
 
 
+def kernel_states(N: int) -> int:
+    """The state count the register-resident kernels run N at."""
+    return next((s for s in _STATE_SIZES if N <= s), -(-N // _GROUP) * _GROUP)
+
+
+def pad_states(A, *cols):
+    """A [..., N] and each of cols [..., N] (B or C, or the weights that
+    project them) padded to :func:`kernel_states` (N) states: A with -1, cols
+    with zeros.  A padded state starts at 0, receives delta' * 0 * u and
+    stays 0, and C = 0 adds nothing to y: the same scan."""
+    N = A.shape[-1]
+    Np = kernel_states(N)
+    if Np == N:
+        return (A, *cols)
+    return (F.pad(A, (0, Np - N), value=-1.0), *(F.pad(c, (0, Np - N)) for c in cols))
+
+
 def scan_chunk(d_state: int) -> int:
-    """Steps per chunk of ``scan_forward``/``scan_backward``.  The backward
-    keeps a chunk's replayed states in shared memory, chunk * N * 32 fp32 per
-    warp, so chunk * N is held at 256 (32 KB): 64 steps at N = 4 down to 8
-    at N = 32; N = 64 keeps the 8-step floor (64 KB, which the kernel opts
-    into)."""
+    """Steps per chunk of ``scan_forward``/``scan_backward`` and of the
+    ``h_bounds`` they share with ``scan_fused_forward``: chunk * N is held
+    at 256, 64 steps at N = 4 down to an 8-step floor from N = 32 (the
+    backward's per-chunk work holds a chunk's sub-tile states in registers
+    and the state at each sub-tile's start in shared memory)."""
     return max(8, min(64, 256 // d_state))
 
 
@@ -144,15 +165,10 @@ def scan_backward_plain(u, delta, A, Bmat, Cmat, Dskip, delta_bias, h_bounds, dy
 # --- kernels -----------------------------------------------------------------
 
 
-def _check_state(N: int) -> None:
-    if N not in _STATE_SIZES:
-        raise ValueError(f"d_state {N} not in {_STATE_SIZES}")
-
-
-def _scan_forward_cuda(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk: int):
+def _scan_forward_cuda(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk: int,
+                       bounds_only: bool = False):
     Bsz, K, L, D = u.shape
     N = A.shape[-1]
-    _check_state(N)
     io = u.dtype
     u, delta, Bmat, Cmat = (t.to(io).contiguous() for t in (u, delta, Bmat, Cmat))
     f32 = lambda t: t.detach().float().contiguous()
@@ -162,11 +178,12 @@ def _scan_forward_cuda(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk: int):
                   Cmat=(Cmat, (Bsz, K, L, N)), A=(A32, (K, D, N)), Dskip=(Ds32, (K, D)),
                   delta_bias=(bias32, (K, D)))
     G, NC = Bsz * K, -(-L // chunk)
-    y = torch.empty_like(u)
+    y = None if bounds_only else torch.empty_like(u)
     hb = torch.empty(G, NC, N, D, device=dev)
     dsum = torch.empty(G * NC * D, device=dev)
-    fn = _build.kernel("scan", "scan_forward", 10, [ctypes.c_int] * 7)
-    rc = fn(*map(_build.ptr, (u, delta, Bmat, Cmat, A32, Ds32, bias32, y, hb, dsum)),
+    yacc = torch.empty(G * L * D, device=dev) if N > _GROUP and not bounds_only else None
+    fn = _build.kernel("scan", "scan_forward", 11, [ctypes.c_int] * 7)
+    rc = fn(*map(_build.ptr, (u, delta, Bmat, Cmat, A32, Ds32, bias32, y, hb, dsum, yacc)),
             G, K, L, D, N, chunk, _build.dtype_code(u), _build.stream())
     _build.check(rc, "scan_forward")
     scan_forward.launches += 1
@@ -177,12 +194,12 @@ def _scan_backward_cuda(u, delta, A, Bmat, Cmat, Dskip, delta_bias, h_bounds, dy
                         chunk: int):
     Bsz, K, L, D = u.shape
     N = A.shape[-1]
-    _check_state(N)
     io = u.dtype
     u, delta, Bmat, Cmat, dy = (t.to(io).contiguous() for t in (u, delta, Bmat, Cmat, dy))
     f32 = lambda t: t.detach().float().contiguous()
     A32, Ds32, bias32, hb = f32(A), f32(Dskip), f32(delta_bias), f32(h_bounds)
-    G, NC, nd = Bsz * K, -(-L // chunk), -(-D // 32)
+    # gB/gC partials, one per channel tile: room for the smallest tile (32)
+    G, NC, nb = Bsz * K, -(-L // chunk), -(-D // 32)
     dev = u.device
     _build.expect(dev, delta=(delta, (Bsz, K, L, D)), Bmat=(Bmat, (Bsz, K, L, N)),
                   Cmat=(Cmat, (Bsz, K, L, N)), A=(A32, (K, D, N)), Dskip=(Ds32, (K, D)),
@@ -194,24 +211,30 @@ def _scan_backward_cuda(u, delta, A, Bmat, Cmat, Dskip, delta_bias, h_bounds, dy
     gD, gbias = torch.empty(K, D, device=dev), torch.empty(K, D, device=dev)
     scratch = lambda n: torch.empty(n, device=dev)
     zl, dsum = scratch(G * NC * N * D), scratch(G * NC * D)
-    gBp, gCp = scratch(G * L * N * nd), scratch(G * L * N * nd)
+    gBp, gCp = scratch(G * L * N * nb), scratch(G * L * N * nb)
     gAp, gDp, gbp = scratch(G * NC * N * D), scratch(G * NC * D), scratch(G * NC * D)
-    fn = _build.kernel("scan", "scan_backward", 23, [ctypes.c_int] * 7)
+    sacc, hacc = (scratch(G * L * D), scratch(G * L * D)) if N > _GROUP else (None, None)
+    fn = _build.kernel("scan", "scan_backward", 25, [ctypes.c_int] * 8)
     rc = fn(*map(_build.ptr, (u, delta, Bmat, Cmat, A32, Ds32, bias32, hb, dy, gu, gdl, gB,
-                              gC, gA, gD, gbias, zl, dsum, gBp, gCp, gAp, gDp, gbp)),
-            Bsz, K, L, D, N, chunk, _build.dtype_code(u), _build.stream())
+                              gC, gA, gD, gbias, zl, dsum, gBp, gCp, gAp, gDp, gbp, sacc, hacc)),
+            Bsz, K, L, D, N, chunk, nb, _build.dtype_code(u), _build.stream())
     _build.check(rc, "scan_backward")
     scan_backward.launches += 1
     return (gu, gdl.to(delta.dtype), gA.to(A.dtype), gB, gC, gD.to(Dskip.dtype),
             gbias.to(delta_bias.dtype))
 
 
-def scan_forward(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk: Optional[int] = None):
-    """``(y [B,K,L,D] at u's dtype, h_bounds [B*K, NC, N, D] fp32)``.
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+def scan_forward(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk: Optional[int] = None,
+                 bounds_only: bool = False):
+    """``(y [B,K,L,D] at u's dtype, h_bounds [B*K, NC, N, D] fp32)``; with
+    ``bounds_only`` y is None and the kernel writes h_bounds alone (the same
+    bits).  CUDA tensors launch the kernel; CPU tensors take the plain
+    version."""
     chunk = chunk or scan_chunk(A.shape[-1])
-    fn = _scan_forward_cuda if u.is_cuda else scan_forward_plain
-    return fn(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk)
+    if u.is_cuda:
+        return _scan_forward_cuda(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk, bounds_only)
+    y, hb = scan_forward_plain(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk)
+    return (None if bounds_only else y), hb
 
 
 def scan_backward(u, delta, A, Bmat, Cmat, Dskip, delta_bias, h_bounds, dy,
@@ -261,8 +284,9 @@ def _projected_scan_bwd(xs, w_delta, w_b, w_c, A, Dskip, delta_bias, h_bounds, g
     io = xs.dtype
     wd, wb, wc = (w.to(io) for w in (w_delta, w_b, w_c))
     delta, Bmat, Cmat = xs @ wd[None], xs @ wb[None], xs @ wc[None]
-    if h_bounds is None:
-        _, h_bounds = scan_forward(xs, delta, A, Bmat, Cmat, Dskip, delta_bias)
+    if h_bounds is None:  # JAX computes y here and discards it
+        _, h_bounds = scan_forward(xs, delta, A, Bmat, Cmat, Dskip, delta_bias,
+                                   bounds_only=True)
     gu, gdl, ga, gb, gc, gd, gbias = scan_backward(
         xs, delta, A, Bmat, Cmat, Dskip, delta_bias, h_bounds, g.to(io).contiguous())
     gxs = (gu + gdl @ wd.transpose(1, 2)[None] + gb @ wb.transpose(1, 2)[None]
@@ -290,12 +314,13 @@ def scan_fused_forward_plain(xs, w_delta, w_b, w_c, A, Dskip, delta_bias, chunk:
 
 def _scan_fused_cuda(xs, w_delta, w_b, w_c, A, Dskip, delta_bias, chunk: int):
     Bsz, K, L, D = xs.shape
-    N = A.shape[-1]
-    _check_state(N)
+    N0 = A.shape[-1]
     if K != 4:
         raise ValueError(f"scan_fused_forward takes the 4 SS2D directions, got K = {K}")
     io = xs.dtype
     xs = xs.contiguous()
+    A, w_b, w_c = pad_states(A, w_b, w_c)
+    N = A.shape[-1]
     wproj = torch.cat([w_delta, w_b, w_c], dim=-1).to(io).contiguous()  # [4, D, D+2N]
     f32 = lambda t: t.detach().float().contiguous()
     A32, Ds32, bias32 = f32(A), f32(Dskip), f32(delta_bias)
@@ -307,12 +332,13 @@ def _scan_fused_cuda(xs, w_delta, w_b, w_c, A, Dskip, delta_bias, chunk: int):
     hb = torch.empty(G, NC, N, D, device=dev)
     proj = torch.empty(G * L * (D + 2 * N), device=dev)
     dsum = torch.empty(G * NC * D, device=dev)
-    fn = _build.kernel("scan", "scan_fused_forward", 9, [ctypes.c_int] * 6)
-    rc = fn(*map(_build.ptr, (xs, wproj, A32, Ds32, bias32, y, hb, proj, dsum)),
+    yacc = torch.empty(G * L * D, device=dev) if N > _GROUP else None
+    fn = _build.kernel("scan", "scan_fused_forward", 10, [ctypes.c_int] * 6)
+    rc = fn(*map(_build.ptr, (xs, wproj, A32, Ds32, bias32, y, hb, proj, dsum, yacc)),
             G, L, D, N, chunk, _build.dtype_code(xs), _build.stream())
     _build.check(rc, "scan_fused_forward")
     scan_fused_forward.launches += 1
-    return y, hb
+    return y, (hb if N == N0 else hb[:, :, :N0])
 
 
 def scan_fused_forward(xs, w_delta, w_b, w_c, A, Dskip, delta_bias,
@@ -440,12 +466,12 @@ def scan_image_forward_plain(x, w_delta, w_b, w_c, A, Dskip, delta_bias):
 
 def _scan_image_cuda(x, w_delta, w_b, w_c, A, Dskip, delta_bias):
     B, H, W, D = x.shape
-    N = A.shape[-1]
-    _check_state(N)
     if H % 2 or W % 2:
         raise ValueError(f"scan_image_forward needs even H, W, got {H}x{W}")
     io = x.dtype
     x = x.contiguous()
+    A, w_b, w_c = pad_states(A, w_b, w_c)
+    N = A.shape[-1]
     wproj = torch.cat([w_delta, w_b, w_c], dim=-1).to(io).contiguous()  # [4, D, D+2N]
     f32 = lambda t: t.detach().float().contiguous()
     A32, Ds32, bias32 = f32(A), f32(Dskip), f32(delta_bias)
@@ -458,8 +484,9 @@ def _scan_image_cuda(x, w_delta, w_b, w_c, A, Dskip, delta_bias):
     proj = torch.empty(B * 4 * L * (D + 2 * N), device=dev)
     csum = torch.empty(B * 4 * NC * D, device=dev)
     cstate = torch.empty(B * 4 * NC * D * N, device=dev)
-    fn = _build.kernel("scan_image", "scan_image_forward", 9, [ctypes.c_int] * 7)
-    rc = fn(*map(_build.ptr, (x, wproj, A32, Ds32, bias32, ys, proj, csum, cstate)),
+    yacc = torch.empty(B * 4 * L * D, device=dev) if N > _GROUP else None
+    fn = _build.kernel("scan_image", "scan_image_forward", 10, [ctypes.c_int] * 7)
+    rc = fn(*map(_build.ptr, (x, wproj, A32, Ds32, bias32, ys, proj, csum, cstate, yacc)),
             B, H, W, D, N, _IMAGE_CHUNK, _build.dtype_code(x), _build.stream())
     _build.check(rc, "scan_image_forward")
     scan_image_forward.launches += 1
@@ -510,7 +537,8 @@ def scan_image(x, w_delta, w_b, w_c, A, Dskip, delta_bias):
 
 
 __all__ = ["SelectiveScanFn", "SelectiveScanFusedFn", "ScanImageFn", "image_scan_vmem_ok",
-           "scan_backward", "scan_backward_plain", "scan_chunk", "scan_forward",
-           "scan_forward_plain", "scan_fused_forward", "scan_fused_forward_plain",
+           "kernel_states", "pad_states", "scan_backward", "scan_backward_plain",
+           "scan_chunk", "scan_forward", "scan_forward_plain", "scan_fused_forward",
+           "scan_fused_forward_plain",
            "scan_image", "scan_image_forward", "scan_image_forward_plain", "selective_scan",
            "selective_scan_fused", "selective_scan_fused_plain"]

@@ -29,10 +29,11 @@ import torch
 from founddiff_tpu_torch.ops import _build, _cache
 from founddiff_tpu_torch.ops.remat import remat_grads
 from founddiff_tpu_torch.ops.scan import (
-    _STATE_SIZES,
+    _GROUP,
     ScanImageFn,
     _derive_weights,
     image_scan_vmem_ok,
+    pad_states,
     selective_scan,
 )
 from founddiff_tpu_torch.ops.selective_scan import (
@@ -90,9 +91,10 @@ def _ss2d_tail_plain(z, xs, x_raw, w_delta, w_b, w_c, A, Dskip, delta_bias, ln_g
 def _kernel_weights(w_z, w_delta, w_b, w_c, A, Dskip, delta_bias, ln_g, ln_b, proj_w, io):
     """The kernel's weight operands: W_z, the folded projections [4, D, D+2N]
     and out_proj at the io dtype; A, Dskip, delta_bias and the LN affine as
-    contiguous fp32."""
+    contiguous fp32; the states padded (:func:`pad_states`)."""
     f32 = lambda t: t.detach().float().contiguous()
     cast = lambda t: t.detach().to(io).contiguous()
+    A, w_b, w_c = pad_states(A, w_b, w_c)
     return dict(wz=cast(w_z), wproj=cast(torch.cat([w_delta, w_b, w_c], dim=-1)),
                 pw=cast(proj_w), A=f32(A), Ds=f32(Dskip), bias=f32(delta_bias), g=f32(ln_g),
                 b=f32(ln_b))
@@ -113,8 +115,6 @@ def _launch(x1, xs, x_raw, w, local, gate, eps):
     io = xs.dtype
     if x1.dtype != io or x_raw.dtype != io:
         raise TypeError("x1, xs and x_raw must share one dtype")
-    if N not in _STATE_SIZES:
-        raise ValueError(f"d_state {N} not in {_STATE_SIZES}")
     if not block_scan_ok(H, W):
         raise ValueError(f"ss2d_image_block needs even H, W >= 4, got {H}x{W}")
     x1, xs, x_raw = x1.contiguous(), xs.contiguous(), x_raw.contiguous()
@@ -132,13 +132,14 @@ def _launch(x1, xs, x_raw, w, local, gate, eps):
     chunk_sum = torch.empty(B * 4 * NC * D, device=dev)
     chunk_state = torch.empty(B * 4 * NC * D * N, device=dev)
     ybuf = torch.empty(B * H * W * D, device=dev)
+    yacc = torch.empty(B * 4 * L * D, device=dev) if N > _GROUP else None
     stats = torch.empty(B * H * W * 2, device=dev)
     og = torch.empty(B * H * W * D, device=dev, dtype=io)
     out = torch.empty_like(x_raw)
-    fn = _build.kernel("ss2d_block", "ss2d_block_forward", 20, _BLOCK_TAIL)
+    fn = _build.kernel("ss2d_block", "ss2d_block_forward", 21, _BLOCK_TAIL)
     rc = fn(*map(_build.ptr, (x1, xs, x_raw, w["wz"], w["wproj"], w["A"], w["Ds"], w["bias"],
                               w["g"], w["b"], loc32, w["pw"], gate32, out, proj_buf, chunk_sum,
-                              chunk_state, ybuf, stats, og)),
+                              chunk_state, ybuf, yacc, stats, og)),
             B, H, W, C0, D, N, _CHUNK, eps, int(TENSOR_CORES), _build.dtype_code(xs),
             _build.stream())
     _build.check(rc, "ss2d_block_forward")

@@ -11,20 +11,21 @@ change, parent (``--turns 2``), each turn a worker process started from its
 tree, so that each imports its own ``founddiff_tpu_torch`` and
 ``chip_smoke.py`` and builds its own kernels.  A worker measures, with
 CUDA events (median of 7 after 2 warm-ups) on inputs made from a seed by
-its tree's ``chip_smoke.py`` case functions, in bf16:
+its tree's ``chip_smoke.py`` case functions:
 
-- the redesigned kernels per UNet forward at bs1 and bs4, summed over their
-  calls: ``ss2d_image_block`` and ``layer_norm_modulated`` at 512^2,
-  ``ss2d_mamba_block`` at 512^2 (the unified route's shapes), and
-  ``layer_norm`` at the 360^2 slice's 45^2 blocks beside ``F.layer_norm``;
-  each also as device time alone (``torch.profiler``), the rest of its
-  time being the host's;
-- the device time of ``ss2d_image_block``'s launches over one bs4 512^2
-  forward's calls, by kernel (``torch.profiler``): the projection GEMM, the
-  scan's chunk passes and carry, the LN statistics, the z GEMM, out_proj;
+- the redesigned kernels, ``scan_forward`` and ``scan_backward``, at each
+  shape of the 512^2 fp32 train step (``train_cases``: 2 slices a
+  microbatch, so 8 direction sequences), event and device time
+  (``torch.profiler``) of one call and the device time of each of its
+  launches by kernel, and their sums over one step's calls (18 of each; a
+  tree whose ``scan_forward`` has the bounds-only mode runs it where the
+  step does, at the image-route blocks' remat backward);
+- the fp32 train step of ``Config()`` at 512^2 and 360^2 (chip_smoke's
+  ``train_full_width`` without its bf16 steps: a warm-up step, then the
+  median of 3, host clock around work that ends in
+  ``torch.cuda.synchronize()``), with its launch counts checked;
 - DDIM-2 serving of ``Config()`` in bf16 at 512^2 and 360^2: slices/s at bs1
-  (median of 4 requests) and bs4 (median of 2 batches), host clock around
-  work that ends in ``torch.cuda.synchronize()``.
+  (median of 4 requests) and bs4 (median of 2 batches).
 
 In its first turn each tree also hashes (sha256) the outputs of every
 phase-2 case of the kernels listed in ``UNTOUCHED``, fp32 and bf16, at
@@ -46,10 +47,19 @@ import time
 import zlib
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REDESIGNED = ("ss2d_image_block", "layer_norm_modulated", "layer_norm", "ss2d_mamba_block")
-UNTOUCHED = ("attn_block", "scan_forward", "scan_backward", "scan_image_forward",
-             "scan_fused_forward", "merge_ln_gate", "gn_stats", "gn_apply", "flash_fwd",
-             "flash_bwd_dq", "flash_bwd_dkv")
+REDESIGNED = ("scan_forward", "scan_backward")
+UNTOUCHED = ("ss2d_image_block", "attn_block", "layer_norm_modulated", "scan_image_forward",
+             "scan_fused_forward", "layer_norm", "merge_ln_gate", "gn_stats", "gn_apply",
+             "ss2d_mamba_block", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the modules of the kernels whose launches a train step counts
+WRAPPED = (("ss2d_image_block", "ss2d_block"), ("attn_block", "attn_block"),
+           ("layer_norm_modulated", "norm"), ("scan_forward", "scan"),
+           ("scan_backward", "scan"), ("scan_image_forward", "scan"),
+           ("flash_fwd", "flash_attention"), ("flash_bwd_dq", "flash_attention"),
+           ("flash_bwd_dkv", "flash_attention"),
+           ("gn_stats", "groupnorm"), ("gn_apply", "groupnorm"),
+           ("ss2d_mamba_block", "experimental_unified"), ("scan_fused_forward", "scan"),
+           ("layer_norm", "norm"), ("merge_ln_gate", "ss2d_fused"))
 
 
 def _ops():
@@ -132,10 +142,16 @@ def _serve(cs, size: int, card: str):
                 bs4_slices_per_s=4 / statistics.median(bs4), bs1_request_s=bs1, bs4_batch_s=bs4)
 
 
-def _device_ms(fn, n: int = 20) -> float:
-    """Device time of one call (every kernel it launches), from
-    ``torch.profiler`` over n calls: the rest of its event-timed time is the
-    host's."""
+def _kernel_name(key: str) -> str:
+    """A profiler kernel name without namespace, template arguments or
+    parameters: ``bwd_main_kernel``."""
+    key = key.replace("void ", "").replace("(anonymous namespace)::", "")
+    return key.split("<")[0].split("(")[0].split("::")[-1]
+
+
+def _device_split(fn, n: int = 10) -> dict:
+    """Device ms of one call by kernel, from ``torch.profiler`` over n calls
+    (the rest of its event-timed time is the host's)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -145,41 +161,64 @@ def _device_ms(fn, n: int = 20) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA") / 1e3 / n
-
-
-SPLIT = (("projection GEMM", "EpiProj"), ("z GEMM", "EpiGate"), ("out_proj", "EpiResidual"),
-         ("scan chunk passes", "image_scan_chunk"), ("scan carry", "image_scan_carry"),
-         ("LN statistics", "ln_rows"))
-
-
-def _split(cs, ops):
-    """Device time of ss2d_image_block's launches over one bs4 bf16 512^2
-    UNet forward's calls, by kernel."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    calls = []
-    for kname, label, count, make in cs.kernel_cases(4):
-        if kname == "ss2d_image_block":
-            args, kw = make(torch.bfloat16, _gen(label), torch.device("cuda"))[:2]
-            calls += [(args, kw)] * count
-    for args, kw in calls:  # warm-up
-        ops["ss2d_image_block"](*args, **kw)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for args, kw in calls:
-            ops["ss2d_image_block"](*args, **kw)
-        torch.cuda.synchronize()
-    out = {name: 0.0 for name, _ in SPLIT}
-    out["other"] = 0.0
+    out = {}
     for e in prof.key_averages():
-        if e.device_type.name != "CUDA":
+        if e.device_type.name == "CUDA":
+            k = _kernel_name(e.key)
+            out[k] = out.get(k, 0.0) + e.self_device_time_total / 1e3 / n
+    return out
+
+
+def _scan_rows(cs) -> dict:
+    """scan_forward and scan_backward at each shape of the 512^2 fp32 train
+    step: one call's event ms, device ms and device split, and its calls
+    per step.  The image-route blocks' forward is bounds-only where the tree
+    has the mode (their backward needs h_bounds alone)."""
+    import inspect
+
+    import torch
+    from founddiff_tpu_torch.ops import scan as sm
+
+    bounds_mode = "bounds_only" in inspect.signature(sm.scan_forward).parameters
+    rows = {}
+    for kname, label, count, make in cs.train_cases():
+        if kname not in REDESIGNED:
             continue
-        name = next((n for n, key in SPLIT if key in e.key), "other")
-        out[name] += e.self_device_time_total / 1e3
-    out["calls"] = len(calls)
+        f = dict(w.split("=") for w in label.split() if "=" in w)
+        L, D, N = int(f["L"]), int(f["D"]), int(f["N"])
+        H = 2 * int(round(L ** 0.5))
+        args = make(torch.float32, _gen(f"{kname} | {label}"), torch.device("cuda"))[0]
+        bounds = kname == "scan_forward" and bounds_mode and sm.image_scan_vmem_ok(H, H, D, N)
+        if bounds:
+            fn = lambda: sm.scan_forward(*args, bounds_only=True)
+        else:
+            fn = lambda w=getattr(sm, kname): w(*args)
+        split = _device_split(fn)
+        rows[f"{kname} | {label}"] = dict(kernel=kname, per_step=count, bounds_only=bounds,
+                                          ms=cs.cuda_ms(fn), device_ms=sum(split.values()),
+                                          split=split)
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _train(cs, card: str) -> dict:
+    """The fp32 train step of Config() at 512^2 and 360^2 (seconds, the
+    median of 3 after a warm-up), launch counts checked as chip_smoke does."""
+    import importlib
+
+    import torch
+    from founddiff_tpu_torch.config import Config
+
+    wrappers = {k: getattr(importlib.import_module(f"founddiff_tpu_torch.ops.{m}"), k)
+                for k, m in WRAPPED}
+    out = {}
+    for size, per_step in ((512, cs.PER_STEP), (cs.ODD_SIZE, cs.PER_STEP_360)):
+        cfg = Config()
+        cfg.diffusion.image_size = size
+        r = cs.train_full_width(wrappers, card, cfg, per_step, f"ab train {size}", full=False)
+        out[str(size)] = statistics.median(r["step_s"])
+        torch.cuda.empty_cache()
     return out
 
 
@@ -199,34 +238,35 @@ def worker(tree: str, out_path: str, do_hash: bool) -> None:
     built = _build.build_all()
     ops = _ops()
     dev = torch.device("cuda")
-    rec = dict(tree=tree, card=card, build_s=built["seconds"], rows={}, hashes={})
-    for batch, kname, label, count, make in _cases(cs):
-        if kname in REDESIGNED and count:
-            args, kw, _, _, _, *library = make(torch.bfloat16, _gen(label), dev)
-            fn = ops[kname]
-            row = dict(kernel=kname, batch=batch, per_forward=count,
-                       ms=cs.cuda_ms(lambda: fn(*args, **kw)),
-                       device_ms=_device_ms(lambda: fn(*args, **kw)),
-                       library_ms=cs.cuda_ms(library[0]) if library else None)
-            rec["rows"][f"{kname} | {label}"] = row
-        if do_hash and kname in UNTOUCHED:
+    rec = dict(tree=tree, card=card, build_s=built["seconds"], hashes={})
+    if do_hash:
+        for batch, kname, label, count, make in _cases(cs):
+            if kname not in UNTOUCHED:
+                continue
             for dtype in (torch.float32, torch.bfloat16):
                 key = f"{kname} | {label} | {batch} | {dtype}"
                 args, kw = make(dtype, _gen(key), dev)[:2]
                 rec["hashes"][key] = _digest(ops[kname](*args, **kw))
                 del args, kw
-        torch.cuda.empty_cache()
-    rec["split_bs4_512"] = _split(cs, ops)
+            torch.cuda.empty_cache()
+    rec["rows"] = _scan_rows(cs)
+    rec["train"] = _train(cs, card)
     rec["serving"] = {str(size): _serve(cs, size, card) for size in (512, cs.ODD_SIZE)}
     with open(out_path, "w") as f:
         json.dump(rec, f, indent=1)
 
 
-def _per_forward(rows, kname, batch, key="ms"):
-    sel = [r for r in rows.values() if r["kernel"] == kname and r["batch"] == batch]
-    if not sel or sel[0][key] is None:
-        return None
-    return sum(r[key] * r["per_forward"] for r in sel)
+def _per_step(rows, kname, key="ms"):
+    return sum(r[key] * r["per_step"] for r in rows.values() if r["kernel"] == kname)
+
+
+def _split_per_step(rows, kname):
+    out = {}
+    for r in rows.values():
+        if r["kernel"] == kname:
+            for k, v in r["split"].items():
+                out[k] = out.get(k, 0.0) + v * r["per_step"]
+    return out
 
 
 def main() -> int:
@@ -259,16 +299,16 @@ def main() -> int:
             runs[name].append(json.load(f))
         print(f"[turn {i}] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
     card = runs["change"][0]["card"]
-    summary = dict(card=card, order=order, kernels={}, split={}, serving={}, bits={})
+    summary = dict(card=card, order=order, kernels={}, split={}, train={}, serving={},
+                   bits={})
     for kname in REDESIGNED:
-        for batch in (1, 4):
-            for key in ("ms", "device_ms", "library_ms"):
-                vals = {n: [_per_forward(r["rows"], kname, batch, key) for r in runs[n]]
-                        for n in runs}
-                if all(v is not None for vs in vals.values() for v in vs):
-                    summary["kernels"][f"{kname} bs{batch} {key}"] = vals
+        for key in ("ms", "device_ms"):
+            summary["kernels"][f"{kname} per fp32 step {key}"] = {
+                n: [_per_step(r["rows"], kname, key) for r in runs[n]] for n in runs}
     for n in runs:
-        summary["split"][n] = [r["split_bs4_512"] for r in runs[n]]
+        summary["split"][n] = {k: [_split_per_step(r["rows"], k) for r in runs[n]]
+                               for k in REDESIGNED}
+        summary["train"][n] = [r["train"] for r in runs[n]]
         summary["serving"][n] = [{s: {k: v for k, v in d.items() if k.endswith("per_s")}
                                   for s, d in r["serving"].items()} for r in runs[n]]
     hp, hc = runs["parent"][0]["hashes"], runs["change"][0]["hashes"]
@@ -283,9 +323,13 @@ def main() -> int:
         print(f"[ab] {k:40s} parent {[round(v, 4) for v in vals['parent']]}  "
               f"change {[round(v, 4) for v in vals['change']]}")
     for n in runs:
-        for r in summary["split"][n]:
-            print(f"[ab split bs4 512^2] {n}: " + ", ".join(
-                f"{k} {v:.3f}" for k, v in r.items() if k != "calls") + f" ms ({r['calls']} calls)")
+        for kname, turns in summary["split"][n].items():
+            for r in turns:
+                print(f"[ab split per fp32 step] {n} {kname}: " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in sorted(r.items(), key=lambda x: -x[1])) + " ms")
+        for r in summary["train"][n]:
+            print(f"[ab train fp32 step] {n}: " + ", ".join(
+                f"{s}^2 {t:.4f} s" for s, t in r.items()))
         for r in summary["serving"][n]:
             print(f"[ab serving] {n}: " + ", ".join(
                 f"{s}^2 bs1 {d['bs1_slices_per_s']:.3f} bs4 {d['bs4_slices_per_s']:.3f}"

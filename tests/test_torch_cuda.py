@@ -598,3 +598,64 @@ def test_scan_kernels_at_d_state_64(dev, dtype):
 def test_selective_scan_fn_grads_at_d_state_64(dev):
     args = _scan_inputs(_gen(65), 2, 100, 64, 64, torch.float32, dev)
     _grad_check(scan_mod.selective_scan, args, dev)
+
+
+# the six MambaBlock shapes of the 512^2 train step, cut in L (ragged against
+# the chunk), then sizes no kernel template holds at ragged L and D
+TRAIN_SCAN_SHAPES = [(700, 128, 4), (300, 128, 8), (200, 256, 16), (200, 512, 16),
+                     (100, 512, 32), (100, 1024, 32), (77, 100, 12), (45, 36, 6),
+                     (45, 72, 128), (40, 40, 100)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("L,D,N", TRAIN_SCAN_SHAPES)
+def test_scan_kernels_any_d_state(dev, dtype, L, D, N):
+    """The runtime-N scan_forward (both modes) and scan_backward against
+    their plain versions; the bounds-only h_bounds bit for bit."""
+    g = _gen(L + D + N)
+    args = _scan_inputs(g, 2, L, D, N, dtype, dev)
+    chunk = scan_mod.scan_chunk(N)
+    y, hb = scan_mod.scan_forward(*args)
+    y_p, hb_p = scan_mod.scan_forward_plain(*args, chunk)
+    _close(y, y_p, dtype)
+    _close(hb, hb_p, torch.float32)
+    none, hb_only = scan_mod.scan_forward(*args, bounds_only=True)
+    assert none is None and torch.equal(hb_only, hb)
+    dy = _n(g, (2, 4, L, D), 1.0, dev).to(dtype)
+    for a, b in zip(scan_mod.scan_backward(*args, hb_p, dy),
+                    scan_mod.scan_backward_plain(*args, hb_p, dy, chunk)):
+        _close(a, b, a.dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("N", [12, 128])
+def test_register_kernels_at_padded_and_grouped_d_state(dev, dtype, N):
+    """The kernels that hold the states as a template argument at N = 12
+    (padded to 16) and 128 (two groups of 64): the fused-projection and
+    image scans, the fused block and the unified op."""
+    L, D = 45, 64
+    g = _gen(N + 7)
+    chunk = scan_mod.scan_chunk(N)
+    fused = _fused_scan_inputs(g, 2, L, D, N, dtype, dev)
+    y, hb = scan_mod.scan_fused_forward(*fused)
+    y_p, hb_p = scan_mod.scan_fused_forward_plain(*fused, chunk)
+    assert hb.shape == hb_p.shape
+    _close(y, y_p, dtype)
+    _close(hb, hb_p, torch.float32)
+    x = torch.nn.functional.silu(_n(g, (2, 8, 6, D), 1.0, dev)).to(dtype)
+    _close(scan_mod.scan_image_forward(x, *fused[1:]),
+           scan_mod.scan_image_forward_plain(x, *fused[1:]), dtype)
+    blk = _block_kwargs(g, 2, 8, 6, 32, N, dtype, dev)
+    _close(ss2d_mod.ss2d_image_block(**blk), ss2d_mod.ss2d_image_block_plain(**blk), dtype,
+           base=blk["x_raw"])
+    mb = _mamba_args(g, 2, 8, 6, 32, N, dtype, dev)
+    _close(unified_mod.ss2d_mamba_block(**mb), unified_mod.ss2d_mamba_block_plain(**mb), dtype,
+           base=mb["x"])
+
+
+@pytest.mark.gpu
+def test_selective_scan_fn_grads_at_d_state_12(dev):
+    args = _scan_inputs(_gen(12), 2, 100, 48, 12, torch.float32, dev)
+    _grad_check(scan_mod.selective_scan, args, dev)

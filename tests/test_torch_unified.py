@@ -100,11 +100,12 @@ def _close(got, want, rtol=OP_TOL, atol=OP_TOL):
                                                   (*SHAPES[1], True)])
 def test_mamba_block_op(B, H, W, C0, D, N, local):
     R, i = _inputs(B, H, W, C0, D, N, seed=C0 + B)
+    before = tun.ss2d_mamba_block.launches
     got = _port_op(tun.ss2d_mamba_block, i, D, R, N, local)
     _close(got, _jax_op_jit(i, D, R, N, local))  # Pallas, interpret mode
     _close(got, _jax_compose(i, D, R, N, local))
     _close(_port_op(tun.ss2d_mamba_block_plain, i, D, R, N, local), got, 0, 0)
-    assert tun.ss2d_mamba_block.launches == 0  # CPU never launches
+    assert tun.ss2d_mamba_block.launches == before  # CPU never launches
 
 
 @pytest.mark.parametrize("local", [True, False])
