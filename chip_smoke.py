@@ -54,6 +54,12 @@ Phases (any failure exits non-zero before the last line is printed):
    ``ss2d_image_block`` and ``ss2d_mamba_block`` at the 32^2 blocks of
    phase 15 (C0 512).  Then ``scan_forward``'s bounds-only h_bounds against
    its full mode's, bit for bit, at every scan_forward shape of phase 2.
+   ``attn_block`` also at the three C = 64 MambaBlocks of a 512^2 slice
+   (512^2 and 256^2 at bs4), where ``FOUNDDIFF_ATTN_BLOCK=on`` takes it and
+   the default runs the plain composition, timed beside that composition;
+   and the device time of each launch of the two kernels redesigned last,
+   ``attn_block`` over a bs1 bf16 512^2 UNet forward and
+   ``scan_image_forward`` over an fp32 train step (``torch.profiler``).
 3. Main path at full width: ``build(Config())`` on the card (dim 64 x
    (1, 2, 4, 8), full RN50 CLIPIQA tower, seeded random weights with
    non-zero adaLN and prompt), ``make_hoisted_sampler(...,
@@ -317,7 +323,7 @@ ODD_STATES = (12, 128)
 # the fp32 train step of the parent tree, seconds, at 512^2 and 360^2:
 # scripts/port_ab.py, the parent's two turns of one call, NVIDIA H100 80GB
 # HBM3 at 700 W (PERF.md section 6)
-PARENT_STEP_S = {512: (0.8990, 0.9023), 360: (1.1152, 1.2053)}
+PARENT_STEP_S = {512: (0.8806, 0.8595), 360: (1.6304, 1.2626)}
 
 
 def runtime_n_ptxas(text):
@@ -458,9 +464,8 @@ def attn_case(B, H, C, dtype, gen, dev):
     kw = dict(heads=heads, eps=1e-6)
     io = torch.tensor([], dtype=dtype).element_size()
     # x in and out, qkv_w and the taps at the io dtype the kernel reads them
-    # in, temperature, proj_w and the modulation in fp32, gate at io
-    moved = 2 * io * P * C + io * (3 * C * C + 27 * C + B * C) \
-        + 4 * (heads + C * C + 2 * B * C)
+    # in, temperature, proj_w, the modulation and the gate in fp32
+    moved = 2 * io * P * C + io * (3 * C * C + 27 * C) + 4 * (heads + C * C + 3 * B * C)
     mm = 2 * P * (3 * C * C + C * C + 32 * C + 2 * C)
     other = 2 * P * 27 * C
     return args, kw, args[0], moved, [(mm, PEAK_FLOPS[dtype]), (other, FP32_FLOPS)]
@@ -804,6 +809,78 @@ def check_fused_h_bounds():
         if not ok:
             failed.append(label)
     return result, failed
+
+
+# the three C = 64 MambaBlocks of a 512^2 slice (down_0, down_1, up_3): (H,
+# blocks per UNet forward), where FOUNDDIFF_ATTN_BLOCK=on takes the fused
+# attention half (the default keeps the plain composition there)
+ATTN_ON_C64 = ((512, 2), (256, 1))
+
+
+def attn_on_cases():
+    """(batch, kernel, label, count, make) of ``attn_block`` at the C = 64
+    shapes of ATTN_ON_C64 at bs4, none on the default path (count 0): the
+    kernel timed beside the plain composition the default runs there."""
+    return [(4, "attn_block", f"bs4 {H}^2 C=64 heads=2 (ATTN_BLOCK=on)", 0,
+             lambda dt, g, d, H=H: attn_case(4, H, 64, dt, g, d)) for H, _ in ATTN_ON_C64]
+
+
+def attn_on_summary(rows):
+    """The kernel's and the plain composition's bs4 bf16 time summed over
+    the three C = 64 blocks of one UNet forward."""
+    per = {f"bs4 {H}^2 C=64 heads=2 (ATTN_BLOCK=on)": n for H, n in ATTN_ON_C64}
+    mine = [r for r in rows if r["shape"] in per and r["dtype"] == "bfloat16"]
+    out = {k: sum(r[k] * per[r["shape"]] for r in mine) for k in ("ms", "plain_ms", "bound_ms")}
+    log(f"[attn on C64] attn_block at the three C = 64 blocks of a bs4 bf16 512^2 forward: "
+        f"kernel {out['ms']:.4f} ms, plain composition {out['plain_ms']:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms")
+    return out
+
+
+def _kernel_name(key: str) -> str:
+    """A profiler kernel name without namespaces or parameters, with its
+    template arguments (pass 1 and pass 2 of one template stay apart)."""
+    for drop in ("void ", "(anonymous namespace)::", "fd::"):
+        key = key.replace(drop, "")
+    return key.split("(")[0]
+
+
+def launch_split(ops, card):
+    """Phase 2: the device time of each launch of the two redesigned
+    kernels, by kernel, summed over one unit's calls at its main-path shapes:
+    ``attn_block`` over a bs1 bf16 512^2 UNet forward (6 calls) and
+    ``scan_image_forward`` over an fp32 train step (10 calls);
+    ``torch.profiler`` over 10 calls of each shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(47)
+    units = (("attn_block", "bs1 bf16 forward", torch.bfloat16,
+              [c for c in kernel_cases(1) if c[0] == "attn_block"]),
+             ("scan_image_forward", "fp32 step", torch.float32,
+              [c for c in train_cases() if c[0] == "scan_image_forward"]))
+    result = {}
+    for kname, unit, dtype, cases in units:
+        split = {}
+        for _, label, count, make in cases:
+            args, kw = make(dtype, gen, dev)[:2]
+            fn = lambda: ops[kname][0](*args, **kw)
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    fn()
+                torch.cuda.synchronize()
+            for e in prof.key_averages():
+                if e.device_type.name == "CUDA":
+                    k = _kernel_name(e.key)
+                    split[k] = split.get(k, 0.0) + e.self_device_time_total / 1e3 / 10 * count
+            del args, kw
+        result[f"{kname} per {unit}"] = split
+        log(f"[split] {kname} per {unit}, device ms by launch [{card}]: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(split.items(), key=lambda x: -x[1])))
+    torch.cuda.empty_cache()
+    return result
 
 
 def train_cases():
@@ -1740,13 +1817,15 @@ def main() -> int:
     cases += [(b, *c) for b in (1, TRAIN_BATCH, 4) for c in unfused_cases(b)]
     cases += slice6_cases()
     cases += slice7_cases()
+    cases += attn_on_cases()
     rows, failed = check_kernels(ops, cases)
     bounds, bounds_failed = check_fused_h_bounds()
     failed += bounds_failed
     bounds_only, bounds_only_failed = check_bounds_only(cases)
     failed += bounds_only_failed
     record = dict(card=card, build_seconds=built["seconds"], ptxas=built["logs"],
-                  kernel_cases=rows, fused_h_bounds=bounds, bounds_only=bounds_only)
+                  kernel_cases=rows, fused_h_bounds=bounds, bounds_only=bounds_only,
+                  attn_on_c64=attn_on_summary(rows), split=launch_split(ops, card))
     if failed:
         _write_record(record)
         raise AssertionError(f"kernels disagree with their plain versions: {failed}")

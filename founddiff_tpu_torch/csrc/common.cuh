@@ -1,7 +1,9 @@
 // Shared device code of the port's kernels: dtype conversion, 16-byte
 // vector loads and stores, warp reductions, two LayerNorm+modulation row
-// kernels, two GEMMs with a gathered A operand and a fused epilogue (the
-// fp32 CUDA cores, and bf16 tensor cores), and the depthwise 3x3.
+// kernels, GEMMs with a gathered A operand and a fused epilogue (the fp32
+// CUDA cores, bf16 tensor cores, and fp32 on the tensor cores as three TF32
+// products), the warp-level tensor-core product they and the fused kernels
+// share, and the depthwise 3x3.
 //
 // Element types: float or __nv_bfloat16 activations ("io" dtype); every sum
 // and every piece of arithmetic runs in fp32, and values are rounded to the
@@ -87,9 +89,9 @@ __device__ __forceinline__ float warp_max(float v) {
 // E[x^2] - mean^2 (as _ln_mod_kernel), optional affine g/b [C], then
 // * (1 + ms[b]) + mt[b] with ms/mt [B, C].  ms == nullptr skips the
 // modulation; out == nullptr writes (mean, rstd) pairs to stats instead.
-// The first row kernel of the port, kept for attn_block.cu and the LN
-// centring of mamba_block.cu so that their outputs keep their bits;
-// ln_rows_vec below serves the LayerNorm entries and the SS2D tail.
+// The first row kernel of the port, kept for the LN centring of
+// mamba_block.cu so that its output keeps its bits; ln_rows_vec below
+// serves the LayerNorm entries, the SS2D tail and attn_block.cu.
 // ---------------------------------------------------------------------------
 constexpr int LN_THREADS = 256;
 
@@ -499,18 +501,220 @@ cudaError_t gemm_io(bool tc, int Z, int M, int N, int K, RowA rowA, const T* B,
   return gemm<T>(Z, M, N, K, rowA, B, strideBz, zmod, ldb, epi, s);
 }
 
+// Launch a kernel with its dynamic shared memory, opting in above the 48 KB
+// default.
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kern, dim3 grid, int threads, size_t smem, cudaStream_t s,
+                   Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kern<<<grid, threads, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// fp32 products on the tensor cores as three TF32 products ("3xTF32"): each
+// operand v splits into hi = tf32(v) and lo = tf32(v - hi), and a * b is
+// summed as a_lo b_hi + a_hi b_lo + a_hi b_hi (the lo * lo term, below
+// 2^-22 of the product, is dropped), with fp32 sums: about the accuracy
+// of an fp32 product at three TF32 rates (495 TFLOP/s dense).  Used where
+// an fp32 kernel holds the fp32 tolerance this way (attn_block.cu,
+// scan_image.cu); the other kernels keep fp32 on the CUDA cores.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ unsigned tf32_bits(float v) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+__device__ __forceinline__ void split_tf32(float v, unsigned& hi, unsigned& lo) {
+  hi = tf32_bits(v);
+  lo = tf32_bits(v - __uint_as_float(hi));
+}
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One warp's (16 MI) x (8 NJ) tile of A B over kc values of k, both
+// operands in shared memory: A row-major at As (the warp's first row, lda
+// elements a row), B row-major [k][n] at Bs (the warp's first column, ldb
+// a row).  bf16: ldmatrix and mma m16n8k16 (kc % 16 == 0, NJ even, rows
+// 16-byte aligned); fp32: scalar loads and 3xTF32 mma m16n8k8 (kc % 8 ==
+// 0).  acc[i][j] holds the m16n8 fragment: c0, c1 at row lane/4, columns
+// 2 (lane%4) + {0, 1}; c2, c3 eight rows below.
+template <typename T, int MI, int NJ>
+__device__ __forceinline__ void warp_mma(float (&acc)[MI][NJ][4], const T* As, int lda,
+                                         const T* Bs, int ldb, int kc, int lane) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    for (int k = 0; k < kc; k += 16) {
+      unsigned a[MI][4], b[NJ / 2][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        ldmatrix_x4(a[i], As + (16 * i + (lane & 15)) * lda + k + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < NJ / 2; ++j)
+        ldmatrix_x4_trans(b[j], Bs + (k + (lane & 15)) * ldb + 16 * j + (lane >> 4) * 8);
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          mma_bf16(acc[i][j], a[i], b[j >> 1][(j & 1) * 2], b[j >> 1][(j & 1) * 2 + 1]);
+    }
+  } else {
+    const int g = lane >> 2, t = lane & 3;
+    for (int k = 0; k < kc; k += 8) {
+      unsigned ah[MI][4], al[MI][4], bh[NJ][2], bl[NJ][2];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const float* a = As + (16 * i + g) * lda + k + t;
+        split_tf32(a[0], ah[i][0], al[i][0]);
+        split_tf32(a[8 * lda], ah[i][1], al[i][1]);
+        split_tf32(a[4], ah[i][2], al[i][2]);
+        split_tf32(a[8 * lda + 4], ah[i][3], al[i][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float* b = Bs + (k + t) * ldb + 8 * j + g;
+        split_tf32(b[0], bh[j][0], bl[j][0]);
+        split_tf32(b[4 * ldb], bh[j][1], bl[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          mma_tf32(acc[i][j], al[i], bh[j][0], bh[j][1]);
+          mma_tf32(acc[i][j], ah[i], bl[j][0], bl[j][1]);
+          mma_tf32(acc[i][j], ah[i], bh[j][0], bh[j][1]);
+        }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// gemm_tc's fp32 counterpart on the tensor cores (3xTF32), with gemm's
+// interface: block tile 128 x 64, k in steps of 16 in X3_STAGES cp.async
+// stages (44.5 KB of static shared memory), 8 warps of 32 x 32, three
+// blocks an SM (at most 85 registers: the loads' latency, not the products,
+// bounds it at K = 128 to 256); a warp whose columns all lie past N (in the
+// last column tile) skips the products.  The 16-byte copies need K, N, lda, ldb and strideBz % 4 == 0
+// and A and B 16-byte aligned (gemm_x3_ok).
+// ---------------------------------------------------------------------------
+constexpr int X3_BK = 16, X3_STAGES = 3;
+constexpr int X3_APAD = X3_BK + 4, X3_BPAD = TC_BN + 8;  // conflict-free fragment loads
+
+template <class RowA, class Epi>
+__global__ void __launch_bounds__(TC_THREADS, 3)
+gemm_x3_kernel(int M, int N, int K, RowA rowA, const float* __restrict__ B,
+               long long strideBz, int zmod, int ldb, Epi epi) {
+  __shared__ __align__(16) float As[X3_STAGES][TC_BM][X3_APAD];
+  __shared__ __align__(16) float Bs[X3_STAGES][X3_BK][X3_BPAD];
+  const int z = blockIdx.z;
+  const int m0 = blockIdx.y * TC_BM, n0 = blockIdx.x * TC_BN;
+  const float* Bz = B + (long long)(z % zmod) * strideBz;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 32;
+  const bool live = n0 + wn < N;  // warp-uniform
+  // this thread's copies: A rows tid/4 and tid/4 + 64 at k chunk tid%4;
+  // B row tid/16 at n chunk tid%16 (each chunk 4 values, 16 bytes)
+  const float* arow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int m = m0 + (tid >> 2) + 64 * i;
+    arow[i] = m < M ? rowA(z, m) : nullptr;
+  }
+  const int ak = (tid & 3) * 4, br = tid >> 4, bn = n0 + (tid & 15) * 4;
+  auto load = [&](int stage, int kt) {
+    const int k0 = kt * X3_BK;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const bool ok = arow[i] != nullptr && k0 + ak < K;
+      cp_async16(&As[stage][(tid >> 2) + 64 * i][ak], ok ? arow[i] + k0 + ak : B, ok ? 16 : 0);
+    }
+    const int k = k0 + br;
+    const bool ok = k < K && bn < N;
+    cp_async16(&Bs[stage][br][(tid & 15) * 4], ok ? Bz + (long long)k * ldb + bn : B,
+               ok ? 16 : 0);
+  };
+  float acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int kts = (K + X3_BK - 1) / X3_BK;
+#pragma unroll
+  for (int st = 0; st < X3_STAGES - 1; ++st) {
+    if (st < kts) load(st, st);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < kts; ++kt) {
+    cp_async_wait<X3_STAGES - 2>();
+    __syncthreads();  // tile kt has landed; every warp is done with tile kt - 1
+    if (kt + X3_STAGES - 1 < kts) load((kt + X3_STAGES - 1) % X3_STAGES, kt + X3_STAGES - 1);
+    cp_async_commit();
+    const int st = kt % X3_STAGES;
+    if (live)
+      warp_mma<float, 2, 4>(acc, &As[st][wm][0], X3_APAD, &Bs[st][0][wn], X3_BPAD, X3_BK,
+                            lane);
+  }
+  cp_async_wait<0>();
+  if (!live) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + wm + 16 * i + (lane >> 2) + 8 * (e >> 1);
+        const int n = n0 + wn + 8 * j + 2 * (lane & 3) + (e & 1);
+        if (m < M && n < N) epi(z, m, n, acc[i][j][e]);
+      }
+}
+
+inline bool gemm_x3_ok(int N, int K, int lda, int ldb, long long strideBz, const void* A,
+                       const void* B) {
+  return K % 4 == 0 && N % 4 == 0 && lda % 4 == 0 && ldb % 4 == 0 && strideBz % 4 == 0 &&
+         aligned16(A, B);
+}
+
+// The products of attn_block.cu and scan_image.cu: on the tensor cores
+// where the operands allow (bf16: gemm_tc; fp32: gemm_x3), else gemm.
+// lda and A (the first row) are only checked.
+template <typename T, class RowA, class Epi>
+cudaError_t gemm_mma(int Z, int M, int N, int K, RowA rowA, int lda, const T* A, const T* B,
+                     long long strideBz, int zmod, int ldb, Epi epi, cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (gemm_x3_ok(N, K, lda, ldb, strideBz, A, B)) {
+      dim3 grid((N + TC_BN - 1) / TC_BN, (M + TC_BM - 1) / TC_BM, Z);
+      gemm_x3_kernel<RowA, Epi><<<grid, TC_THREADS, 0, s>>>(M, N, K, rowA, B, strideBz, zmod,
+                                                            ldb, epi);
+      return cudaGetLastError();
+    }
+  }
+  return gemm_io<T>(gemm_tc_ok(N, K, lda, ldb, strideBz, A, B), Z, M, N, K, rowA, B, strideBz,
+                    zmod, ldb, epi, s);
+}
+
 // ---------------------------------------------------------------------------
 // Depthwise 3x3 with a zero halo (SAME padding) over u [B, H, W, K], taps
 // [9, K] at 3 * dr + dc, one thread per (pixel, channel), channels
 // innermost: fp32 products of the io values, then epi(idx, k, acc) writes
-// output element idx.  The two TPU kernels it replaces sum in different
-// orders, and each port is held to its own: BY_COLUMN false adds the taps
-// row by row (_attn_block_kernel), BY_COLUMN true adds each column's three
-// rows first, then the columns (the unified MambaBlock kernels).
+// output element idx.  The taps add up in the unified MambaBlock kernels'
+// order: each column's three rows first, then the columns (attn_block.cu
+// sums its own 3x3 row by row, as _attn_block_kernel does).
 // ---------------------------------------------------------------------------
 constexpr int DW_THREADS = 256;
 
-template <typename T, bool BY_COLUMN, class Epi>
+template <typename T, class Epi>
 __global__ void __launch_bounds__(DW_THREADS)
 dwconv3x3_kernel(const T* __restrict__ u, const T* __restrict__ taps, int H, int W, int K,
                  long long total, Epi epi) {
@@ -522,28 +726,24 @@ dwconv3x3_kernel(const T* __restrict__ u, const T* __restrict__ taps, int H, int
   const long long img = pix / ((long long)H * W);
   float acc = 0.f;
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    float part = 0.f;  // BY_COLUMN: column i's three rows
+  for (int dc = 0; dc < 3; ++dc) {
+    float part = 0.f;  // column dc's three rows
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int dr = BY_COLUMN ? j : i, dc = BY_COLUMN ? i : j;
+    for (int dr = 0; dr < 3; ++dr) {
       const int yy = y + dr - 1, xx = x + dc - 1;
       if (yy < 0 || yy >= H || xx < 0 || xx >= W) continue;
       const float v = to_f<T>(u[((img * H + yy) * W + xx) * K + k]);
-      if (BY_COLUMN)
-        part += v * to_f<T>(taps[(dr * 3 + dc) * K + k]);
-      else
-        acc += v * to_f<T>(taps[(dr * 3 + dc) * K + k]);
+      part += v * to_f<T>(taps[(dr * 3 + dc) * K + k]);
     }
-    if (BY_COLUMN) acc += part;
+    acc += part;
   }
   epi(idx, k, acc);
 }
 
-template <typename T, bool BY_COLUMN, class Epi>
+template <typename T, class Epi>
 cudaError_t dwconv3x3(const T* u, const T* taps, int H, int W, int K, long long total, Epi epi,
                       cudaStream_t s) {
-  dwconv3x3_kernel<T, BY_COLUMN, Epi>
+  dwconv3x3_kernel<T, Epi>
       <<<(unsigned)((total + DW_THREADS - 1) / DW_THREADS), DW_THREADS, 0, s>>>(u, taps, H, W, K,
                                                                                 total, epi);
   return cudaGetLastError();

@@ -83,7 +83,7 @@ int run(const void* x_, const void* wxg_, const float* bx, const void* wzg_, con
                       static_cast<const T*>(wxg_), (long long)C0 * D, B, D,
                       EpiBiasRound<T>{U, bx, D, HW}, s)));
   const long long total = P * D;
-  FD_TRY((fd::dwconv3x3<T, true>(U, static_cast<const T*>(taps_), H, W, D, total,
+  FD_TRY((fd::dwconv3x3<T>(U, static_cast<const T*>(taps_), H, W, D, total,
                                   EpiBiasSilu<T>{xs, dwb}, s)));
   return fd::ss2d_tail<T, true>(xc, xs, x, static_cast<const T*>(wzg_), bz,
                                 static_cast<const T*>(wproj_), A, Ds, dbias, lng, lnb, local,

@@ -35,7 +35,8 @@
 //   shared memory, never from device memory.
 // - A parallel carry.  Chunk summaries compose associatively,
 //   (a1, b1) o (a2, b2) = (a1 a2, a2 b1 + b2), with a = exp(A * sum delta'),
-//   so a decay exponent is never positive.  carry_scan_kernel gives each of
+//   so a decay exponent is never positive.  fd::carry_scan_kernel
+//   (scan_common.cuh, shared with scan_image.cu) gives each of
 //   16 warps a segment of chunks (32 channels a warp), composes the
 //   segments in shared memory and rewalks each segment from its entry:
 //   2 NC / 16 + 16 dependent steps instead of NC, the loads of 8 chunks
@@ -89,8 +90,6 @@ namespace {
 constexpr int FWD_THREADS = 128;
 constexpr int WARP = 32;
 constexpr int GROUP = 64;        // states of one launch of the runtime-N kernels
-constexpr int CARRY_WARPS = 16;  // chunk segments of carry_scan_kernel
-constexpr int CARRY_BATCH = 8;   // chunks whose loads carry_scan_kernel issues at once
 constexpr int RP_ROWS = 16;      // rows of reduce_params_kernel
 
 // ---------------------------------------------------------------------------
@@ -129,29 +128,6 @@ Geometry geometry(int nloc) {
   g.NT = g.DT * g.ng;
   g.NLP = (nloc + 7) & ~7;
   return g;
-}
-
-// rows x [0, cols) of src (row stride ld elements) into dst [rows][ldd]:
-// 16-byte cp.async where src rows are 16-byte aligned (a ragged end copies
-// fewer bytes), element copies elsewhere.  The caller commits and waits.
-template <typename T>
-__device__ __forceinline__ void stage_tile(T* dst, const T* src, long long ld, int rows,
-                                           int cols, int ldd, int tid, int nthr) {
-  constexpr int V = 16 / sizeof(T);
-  const bool vec = ((reinterpret_cast<uintptr_t>(src) | (uintptr_t)(ld * sizeof(T))) & 15) == 0;
-  if (vec) {
-    const int per = (cols + V - 1) / V;
-    for (int i = tid; i < rows * per; i += nthr) {
-      const int r = i / per, c = (i - r * per) * V;
-      fd::cp_async16(dst + (long long)r * ldd + c, src + r * ld + c,
-                     min(V, cols - c) * (int)sizeof(T));
-    }
-  } else {
-    for (int i = tid; i < rows * cols; i += nthr) {
-      const int r = i / cols, c = i - r * cols;
-      dst[(long long)r * ldd + c] = src[r * ld + c];
-    }
-  }
 }
 
 // v[i] summed with the other lanes of v[i]'s channel group: lanes that
@@ -214,14 +190,14 @@ fwd_kernel(ScanArgs<T> p, T* __restrict__ y, float* __restrict__ yacc, int mode,
   T* sB = reinterpret_cast<T*>(smem_raw);
   T* sC = sB + p.TC * NLP;
   T* ring = sC + (FINAL ? p.TC * NLP : 0);  // [2][u, delta][TS][DT]
-  stage_tile(sB, p.Bm + row0 * p.N + p.n0, p.N, nt, p.nloc, NLP, tid, nthr);
-  if (FINAL) stage_tile(sC, p.Cm + row0 * p.N + p.n0, p.N, nt, p.nloc, NLP, tid, nthr);
+  fd::stage_tile(sB, p.Bm + row0 * p.N + p.n0, p.N, nt, p.nloc, NLP, tid, nthr);
+  if (FINAL) fd::stage_tile(sC, p.Cm + row0 * p.N + p.n0, p.N, nt, p.nloc, NLP, tid, nthr);
   auto issue = [&](int s) {
     T* dst = ring + (s & 1) * 2 * TS * DT;
     const long long r = row0 + s * TS;
     const int rows = min(TS, nt - s * TS);
-    stage_tile(dst, p.u + r * p.D + d0, p.D, rows, cols, DT, tid, nthr);
-    stage_tile(dst + TS * DT, p.dl + r * p.D + d0, p.D, rows, cols, DT, tid, nthr);
+    fd::stage_tile(dst, p.u + r * p.D + d0, p.D, rows, cols, DT, tid, nthr);
+    fd::stage_tile(dst + TS * DT, p.dl + r * p.D + d0, p.D, rows, cols, DT, tid, nthr);
   };
   const int nsub = (nt + TS - 1) / TS;
   issue(0);
@@ -284,74 +260,6 @@ fwd_kernel(ScanArgs<T> p, T* __restrict__ y, float* __restrict__ yacc, int mode,
   }
 }
 
-// Chunk summaries -> chunk carries, per (g, n, d); st [G, NC, N, D].
-// Forward: st holds end states and becomes entry states (left to right).
-// Backward: st holds abar_first * gh_first from a zero carry and becomes the
-// carry entering each chunk at its last step (right to left).  Block: 32
-// channels x CARRY_WARPS segments of chunks.
-template <bool REVERSE>
-__global__ void __launch_bounds__(WARP * CARRY_WARPS)
-carry_scan_kernel(const float* __restrict__ A, const float* __restrict__ dsum,
-                  float* __restrict__ st, int K, int D, int N, int NC) {
-  __shared__ float seg_b[CARRY_WARPS][WARP], seg_s[CARRY_WARPS][WARP];
-  const int lane = threadIdx.x & (WARP - 1), w = threadIdx.x / WARP;
-  const int d = blockIdx.x * WARP + lane, n = blockIdx.y;
-  const long long g = blockIdx.z;
-  const bool on = d < D;
-  const int dd = on ? d : D - 1;
-  const float a = A[((g % K) * D + dd) * N + n];
-  const int S = (NC + CARRY_WARPS - 1) / CARRY_WARPS;
-  const int i0 = min(NC, w * S), i1 = min(NC, i0 + S);
-  auto sidx = [&](int i) {
-    const int c = REVERSE ? NC - 1 - i : i;
-    return ((g * NC + c) * N + n) * D + dd;
-  };
-  auto didx = [&](int i) { return (g * NC + (REVERSE ? NC - 1 - i : i)) * D + dd; };
-  // CARRY_BATCH chunks' loads issued before their dependent steps
-  float v[CARRY_BATCH], ds[CARRY_BATCH];
-  auto load = [&](int i) {
-#pragma unroll
-    for (int k = 0; k < CARRY_BATCH; ++k) {
-      v[k] = i + k < i1 ? st[sidx(i + k)] : 0.f;
-      ds[k] = i + k < i1 ? dsum[didx(i + k)] : 0.f;
-    }
-  };
-  float b = 0.f, s = 0.f;
-  for (int i = i0; i < i1; i += CARRY_BATCH) {
-    load(i);
-#pragma unroll
-    for (int k = 0; k < CARRY_BATCH; ++k) {
-      if (i + k < i1) {
-        b = expf(a * ds[k]) * b + v[k];
-        s += ds[k];
-      }
-    }
-  }
-  seg_b[w][lane] = b;
-  seg_s[w][lane] = s;
-  __syncthreads();
-  if (w == 0) {  // the segments' entries, in order
-    float carry = 0.f;
-    for (int j = 0; j < CARRY_WARPS; ++j) {
-      const float bj = seg_b[j][lane], sj = seg_s[j][lane];
-      seg_b[j][lane] = carry;
-      carry = expf(a * sj) * carry + bj;
-    }
-  }
-  __syncthreads();
-  float carry = seg_b[w][lane];
-  for (int i = i0; i < i1; i += CARRY_BATCH) {
-    load(i);
-#pragma unroll
-    for (int k = 0; k < CARRY_BATCH; ++k) {
-      if (i + k < i1) {
-        if (on) st[sidx(i + k)] = carry;
-        carry = expf(a * ds[k]) * carry + v[k];
-      }
-    }
-  }
-}
-
 // Backward local pass: per (channel tile, chunk, sequence) the adjoint from
 // a zero carry, right to left: zl [G, NC, N, D] = abar_first * gh_first, and
 // sum delta' into dsum.  Shared memory: C [TC][NLP], two sub-tiles of
@@ -372,15 +280,15 @@ bwd_local_kernel(ScanArgs<T> p, float* __restrict__ zl, float* __restrict__ dsum
   const long long row0 = (long long)g * p.L + l0;
   T* sC = reinterpret_cast<T*>(smem_raw);
   T* ring = sC + p.TC * NLP;  // [2][delta, dy][TS][DT]
-  stage_tile(sC, p.Cm + row0 * p.N + p.n0, p.N, nt, p.nloc, NLP, tid, nthr);
+  fd::stage_tile(sC, p.Cm + row0 * p.N + p.n0, p.N, nt, p.nloc, NLP, tid, nthr);
   const int nsub = (nt + TS - 1) / TS;
   auto issue = [&](int i) {  // item i: sub-tile nsub - 1 - i
     const int sb = nsub - 1 - i;
     T* dst = ring + (i & 1) * 2 * TS * DT;
     const long long r = row0 + sb * TS;
     const int rows = min(TS, nt - sb * TS);
-    stage_tile(dst, p.dl + r * p.D + d0, p.D, rows, cols, DT, tid, nthr);
-    stage_tile(dst + TS * DT, p.dy + r * p.D + d0, p.D, rows, cols, DT, tid, nthr);
+    fd::stage_tile(dst, p.dl + r * p.D + d0, p.D, rows, cols, DT, tid, nthr);
+    fd::stage_tile(dst + TS * DT, p.dy + r * p.D + d0, p.D, rows, cols, DT, tid, nthr);
   };
   issue(0);
   fd::cp_async_commit();
@@ -458,8 +366,8 @@ bwd_main_kernel(ScanArgs<T> p, const float* __restrict__ hb, const float* __rest
   T* ring = sC + p.TC * NLP;  // [2][u, delta, dy][TS][DT]
   float* ck = reinterpret_cast<float*>(ring + 2 * 3 * TS * DT);  // [nsub_max - 1][NG][NT]
   float* wred = ck + (nsub_max - 1) * NG * nthr;                 // [warps][TS][2][NLP]
-  stage_tile(sB, p.Bm + row0 * p.N + p.n0, p.N, nt, p.nloc, NLP, tid, nthr);
-  stage_tile(sC, p.Cm + row0 * p.N + p.n0, p.N, nt, p.nloc, NLP, tid, nthr);
+  fd::stage_tile(sB, p.Bm + row0 * p.N + p.n0, p.N, nt, p.nloc, NLP, tid, nthr);
+  fd::stage_tile(sC, p.Cm + row0 * p.N + p.n0, p.N, nt, p.nloc, NLP, tid, nthr);
   // items: sub-tiles 0 .. nsub-2 forward (checkpoints), then nsub-1 .. 0 (adjoint)
   const int nf = nsub - 1, items = nf + nsub;
   auto sub_of = [&](int i) { return i < nf ? i : nsub - 1 - (i - nf); };
@@ -468,9 +376,10 @@ bwd_main_kernel(ScanArgs<T> p, const float* __restrict__ hb, const float* __rest
     T* dst = ring + (i & 1) * 3 * TS * DT;
     const long long r = row0 + sb * TS;
     const int rows = min(TS, nt - sb * TS);
-    stage_tile(dst, p.u + r * p.D + d0, p.D, rows, cols, DT, tid, nthr);
-    stage_tile(dst + TS * DT, p.dl + r * p.D + d0, p.D, rows, cols, DT, tid, nthr);
-    if (i >= nf) stage_tile(dst + 2 * TS * DT, p.dy + r * p.D + d0, p.D, rows, cols, DT, tid, nthr);
+    fd::stage_tile(dst, p.u + r * p.D + d0, p.D, rows, cols, DT, tid, nthr);
+    fd::stage_tile(dst + TS * DT, p.dl + r * p.D + d0, p.D, rows, cols, DT, tid, nthr);
+    if (i >= nf)
+      fd::stage_tile(dst + 2 * TS * DT, p.dy + r * p.D + d0, p.D, rows, cols, DT, tid, nthr);
   };
   issue(0);
   fd::cp_async_commit();
@@ -676,16 +585,6 @@ reduce_params_kernel(const float* __restrict__ gAp, const float* __restrict__ gD
   }
 }
 
-// Launch one runtime-N kernel with its dynamic shared memory, opting in
-// above the 48 KB default.
-template <typename Kernel, typename... Args>
-int launch(Kernel kern, dim3 grid, int threads, size_t smem, cudaStream_t s, Args... args) {
-  if (smem > 48 * 1024)
-    FD_TRY(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-  kern<<<grid, threads, smem, s>>>(args...);
-  return (int)cudaGetLastError();
-}
-
 // the mode of group i of ngroups (see fwd_kernel and bwd_main_kernel)
 int group_mode(int i, int ngroups) {
   return ngroups == 1 ? 0 : i == 0 ? 1 : i == ngroups - 1 ? 3 : 2;
@@ -698,8 +597,10 @@ int forward_pass(ScanArgs<T> p, const Geometry& q, bool final_pass, T* y, float*
   const size_t smem = (final_pass ? 2 : 1) * (size_t)p.TC * q.NLP * es + 2 * 2 * TS * q.DT * es;
   const dim3 grid((p.D + q.DT - 1) / q.DT, p.NC, G);
   if (final_pass)
-    return launch(fwd_kernel<T, NG, TS, true>, grid, q.NT, smem, s, p, y, yacc, mode, hb, dsum);
-  return launch(fwd_kernel<T, NG, TS, false>, grid, q.NT, smem, s, p, y, yacc, mode, hb, dsum);
+    return fd::launch(fwd_kernel<T, NG, TS, true>, grid, q.NT, smem, s, p, y, yacc, mode, hb,
+                      dsum);
+  return fd::launch(fwd_kernel<T, NG, TS, false>, grid, q.NT, smem, s, p, y, yacc, mode, hb,
+                    dsum);
 }
 
 // One geometry for every group: that of the first (the last may have fewer
@@ -712,10 +613,7 @@ int forward(ScanArgs<T> p, T* y, float* yacc, float* hb, float* dsum, int G, cud
   p.DT = q.DT;
   for (int pass = 0; pass < 2; ++pass) {
     if (pass == 1) {
-      const dim3 cg((p.D + WARP - 1) / WARP, p.N, G);
-      carry_scan_kernel<false><<<cg, WARP * CARRY_WARPS, 0, s>>>(p.A, dsum, hb, p.K, p.D, p.N,
-                                                                 p.NC);
-      FD_TRY(cudaGetLastError());
+      FD_TRY(fd::carry_scan<false>(p.A, dsum, hb, p.K, p.D, p.N, p.NC, G, s));
       if (y == nullptr) return 0;  // bounds only
     }
     for (int i = 0; i < ngroups; ++i) {
@@ -736,7 +634,7 @@ int backward_local(ScanArgs<T> p, const Geometry& q, float* zl, float* dsum, int
   const size_t es = sizeof(T);
   const size_t smem = (size_t)p.TC * q.NLP * es + 2 * 2 * TS * q.DT * es;
   const dim3 grid((p.D + q.DT - 1) / q.DT, p.NC, G);
-  return launch(bwd_local_kernel<T, NG, TS>, grid, q.NT, smem, s, p, zl, dsum);
+  return fd::launch(bwd_local_kernel<T, NG, TS>, grid, q.NT, smem, s, p, zl, dsum);
 }
 
 template <typename T, int NG, int TS>
@@ -748,8 +646,8 @@ int backward_main(ScanArgs<T> p, const Geometry& q, const float* hb, const float
   const size_t smem = 2 * (size_t)p.TC * q.NLP * es + 2 * 3 * TS * q.DT * es +
                       ((size_t)(nsub_max - 1) * NG * q.NT + (q.NT / WARP) * TS * 2 * q.NLP) * 4;
   const dim3 grid((p.D + q.DT - 1) / q.DT, p.NC, G);
-  return launch(bwd_main_kernel<T, NG, TS>, grid, q.NT, smem, s, p, hb, cin, gu, gdl, gBp, gCp,
-                gAp, gDp, gbp, sacc, hacc, mode);
+  return fd::launch(bwd_main_kernel<T, NG, TS>, grid, q.NT, smem, s, p, hb, cin, gu, gdl, gBp,
+                    gCp, gAp, gDp, gbp, sacc, hacc, mode);
 }
 
 template <typename T>
@@ -764,10 +662,7 @@ int backward(ScanArgs<T> p, const float* hb, T* gu, T* gdl, T* gB, T* gC, float*
   const int nb = (p.D + q.DT - 1) / q.DT;
   for (int pass = 0; pass < 2; ++pass) {
     if (pass == 1) {
-      const dim3 cg((p.D + WARP - 1) / WARP, p.N, G);
-      carry_scan_kernel<true><<<cg, WARP * CARRY_WARPS, 0, s>>>(p.A, dsum, zl, p.K, p.D, p.N,
-                                                                p.NC);
-      FD_TRY(cudaGetLastError());
+      FD_TRY(fd::carry_scan<true>(p.A, dsum, zl, p.K, p.D, p.N, p.NC, G, s));
     }
     for (int i = 0; i < ngroups; ++i) {
       p.n0 = i * GROUP;

@@ -1,8 +1,11 @@
-// Device code shared by the image-direct scans (ss2d_tail.cuh, scan_image.cu):
-// the pixel map of the four step-2 decimated directions, the projection
-// GEMM's row gather and epilogue, and the three-pass chunked scan.
+// Device code shared by the selective scans (scan.cu, scan_image.cu,
+// ss2d_tail.cuh): the pixel map of the four step-2 decimated directions,
+// the projection GEMM's row gather and epilogue, the three-pass chunked
+// image scan of the fused blocks, and the operand staging and parallel carry
+// of the runtime-N scans and of scan_image.cu.
 //
-// The scan cuts each direction's L steps into chunks of TC steps:
+// The fused blocks' image scan (image_scan below) cuts each direction's L
+// steps into chunks of TC steps:
 //   1. pass 1: one thread per (direction, chunk, channel) runs the
 //      recurrence from a zero state with all N states in registers and keeps
 //      the chunk's end state and its sum of delta (so the chunk's decay is
@@ -152,6 +155,113 @@ __global__ void image_scan_carry_kernel(const float* __restrict__ A,
     chunk_state[si * NS + n] = carry;
     carry = expf(a * chunk_sum[si]) * carry + hend;
   }
+}
+
+// ---------------------------------------------------------------------------
+// Pieces of the chunked scans with the states at run time (scan.cu) and of
+// the image scan's chunk passes (scan_image.cu).
+// ---------------------------------------------------------------------------
+constexpr int CARRY_LANES = 32;  // channels of one carry_scan_kernel block
+constexpr int CARRY_WARPS = 16;  // chunk segments of carry_scan_kernel
+constexpr int CARRY_BATCH = 8;   // chunks whose loads carry_scan_kernel issues at once
+
+// rows x [0, cols) of src (row stride ld elements) into dst [rows][ldd]:
+// 16-byte cp.async where src rows are 16-byte aligned (a ragged end copies
+// fewer bytes), element copies elsewhere.  The caller commits and waits.
+template <typename T>
+__device__ __forceinline__ void stage_tile(T* dst, const T* src, long long ld, int rows,
+                                           int cols, int ldd, int tid, int nthr) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = ((reinterpret_cast<uintptr_t>(src) | (uintptr_t)(ld * sizeof(T))) & 15) == 0;
+  if (vec) {
+    const int per = (cols + V - 1) / V;
+    for (int i = tid; i < rows * per; i += nthr) {
+      const int r = i / per, c = (i - r * per) * V;
+      cp_async16(dst + (long long)r * ldd + c, src + r * ld + c,
+                 min(V, cols - c) * (int)sizeof(T));
+    }
+  } else {
+    for (int i = tid; i < rows * cols; i += nthr) {
+      const int r = i / cols, c = i - r * cols;
+      dst[(long long)r * ldd + c] = src[r * ld + c];
+    }
+  }
+}
+
+// Chunk summaries -> chunk carries, per (g, n, d); st [G, NC, N, D].
+// Forward: st holds end states and becomes entry states (left to right).
+// Backward: st holds abar_first * gh_first from a zero carry and becomes the
+// carry entering each chunk at its last step (right to left).  Block: 32
+// channels x CARRY_WARPS segments of chunks.  (scan.cu, scan_image.cu)
+template <bool REVERSE>
+__global__ void __launch_bounds__(CARRY_LANES * CARRY_WARPS)
+carry_scan_kernel(const float* __restrict__ A, const float* __restrict__ dsum,
+                  float* __restrict__ st, int K, int D, int N, int NC) {
+  __shared__ float seg_b[CARRY_WARPS][CARRY_LANES], seg_s[CARRY_WARPS][CARRY_LANES];
+  const int lane = threadIdx.x & (CARRY_LANES - 1), w = threadIdx.x / CARRY_LANES;
+  const int d = blockIdx.x * CARRY_LANES + lane, n = blockIdx.y;
+  const long long g = blockIdx.z;
+  const bool on = d < D;
+  const int dd = on ? d : D - 1;
+  const float a = A[((g % K) * D + dd) * N + n];
+  const int S = (NC + CARRY_WARPS - 1) / CARRY_WARPS;
+  const int i0 = min(NC, w * S), i1 = min(NC, i0 + S);
+  auto sidx = [&](int i) {
+    const int c = REVERSE ? NC - 1 - i : i;
+    return ((g * NC + c) * N + n) * D + dd;
+  };
+  auto didx = [&](int i) { return (g * NC + (REVERSE ? NC - 1 - i : i)) * D + dd; };
+  // CARRY_BATCH chunks' loads issued before their dependent steps
+  float v[CARRY_BATCH], ds[CARRY_BATCH];
+  auto load = [&](int i) {
+#pragma unroll
+    for (int k = 0; k < CARRY_BATCH; ++k) {
+      v[k] = i + k < i1 ? st[sidx(i + k)] : 0.f;
+      ds[k] = i + k < i1 ? dsum[didx(i + k)] : 0.f;
+    }
+  };
+  float b = 0.f, s = 0.f;
+  for (int i = i0; i < i1; i += CARRY_BATCH) {
+    load(i);
+#pragma unroll
+    for (int k = 0; k < CARRY_BATCH; ++k) {
+      if (i + k < i1) {
+        b = expf(a * ds[k]) * b + v[k];
+        s += ds[k];
+      }
+    }
+  }
+  seg_b[w][lane] = b;
+  seg_s[w][lane] = s;
+  __syncthreads();
+  if (w == 0) {  // the segments' entries, in order
+    float carry = 0.f;
+    for (int j = 0; j < CARRY_WARPS; ++j) {
+      const float bj = seg_b[j][lane], sj = seg_s[j][lane];
+      seg_b[j][lane] = carry;
+      carry = expf(a * sj) * carry + bj;
+    }
+  }
+  __syncthreads();
+  float carry = seg_b[w][lane];
+  for (int i = i0; i < i1; i += CARRY_BATCH) {
+    load(i);
+#pragma unroll
+    for (int k = 0; k < CARRY_BATCH; ++k) {
+      if (i + k < i1) {
+        if (on) st[sidx(i + k)] = carry;
+        carry = expf(a * ds[k]) * carry + v[k];
+      }
+    }
+  }
+}
+
+template <bool REVERSE>
+cudaError_t carry_scan(const float* A, const float* dsum, float* st, int K, int D, int N, int NC,
+                       int G, cudaStream_t s) {
+  const dim3 grid((D + CARRY_LANES - 1) / CARRY_LANES, N, G);
+  carry_scan_kernel<REVERSE><<<grid, CARRY_LANES * CARRY_WARPS, 0, s>>>(A, dsum, st, K, D, N, NC);
+  return cudaGetLastError();
 }
 
 // The three passes on the caller's stream for NST states in groups of NS;

@@ -27,6 +27,7 @@ from founddiff_tpu_torch.diffusion.schedules import (
     extract,
     make_gaussian_schedule,
 )
+from founddiff_tpu_torch.utils.device import resolve
 
 ModelFn = Callable[..., torch.Tensor]
 
@@ -39,7 +40,8 @@ class ModelPrediction(NamedTuple):
 class GaussianDiffusion:
     """Functional DDPM process.  ``model_fn(x, t, x_self_cond)`` returns the
     raw UNet output, one tensor.  ``device``: where ``sample`` puts its
-    images."""
+    images, the card unless the caller names another (CUDA on a host
+    without a card raises)."""
 
     condition = False  # the trainer's generation branch (no conditioning image)
 
@@ -59,7 +61,7 @@ class GaussianDiffusion:
         ddim_sampling_eta: float = 1.0,
         self_condition: bool = False,
         clip_denoised: bool = True,
-        device="cpu",
+        device="cuda",
     ):
         if objective not in ("pred_noise", "pred_x0", "pred_v"):
             raise ValueError(f"unknown objective {objective!r}")
@@ -70,7 +72,7 @@ class GaussianDiffusion:
         self.loss_type = loss_type
         self.self_condition = self_condition
         self.clip_denoised = clip_denoised
-        self.device = torch.device(device)
+        self.device = resolve(device, "GaussianDiffusion")
         self._on_device = {}
         self.schedule = make_gaussian_schedule(
             timesteps, beta_schedule=beta_schedule, p2_loss_weight_gamma=p2_loss_weight_gamma,

@@ -21,6 +21,7 @@ from founddiff_tpu_torch.diffusion.schedules import (
     extract,
     make_residual_schedule,
 )
+from founddiff_tpu_torch.utils.device import resolve
 
 ModelFn = Callable[..., Sequence[torch.Tensor]]
 
@@ -41,7 +42,10 @@ def unnormalize_to_zero_to_one(x):
 
 class ResidualDiffusion:
     """``model_fn(x_in, time_pair, x_self_cond)`` returns one prediction per
-    UNet; ``time_pair`` is ``[acs[t]*T, bcs[t]*T]`` (src/DADiff.py:1153-1209)."""
+    UNet; ``time_pair`` is ``[acs[t]*T, bcs[t]*T]`` (src/DADiff.py:1153-1209).
+    ``device``: where ``ddim_sample`` draws when ``x_input`` names none (an
+    unconditional sample), the card unless the caller names another (CUDA
+    on a host without a card raises)."""
 
     def __init__(
         self,
@@ -64,6 +68,7 @@ class ResidualDiffusion:
         convert_to_ddim: bool = True,
         aux_grad_loss_weight: float = 0.0,
         aux_wavelet_loss_weight: float = 0.0,
+        device="cuda",
     ):
         if ddim_update not in ("use_pred_noise", "use_x_start"):
             raise ValueError(f"unknown ddim_update {ddim_update!r}")
@@ -81,6 +86,7 @@ class ResidualDiffusion:
         if aux_grad_loss_weight > 0.0 or aux_wavelet_loss_weight > 0.0:
             raise NotImplementedError("the auxiliary Sobel and wavelet losses "
                                       "(founddiff_tpu/ops/losses.py) are not ported")
+        self.device = resolve(device, "ResidualDiffusion")
         if condition:
             self.sum_scale = sum_scale if sum_scale is not None else 0.01
             ddim_sampling_eta = 0.0
@@ -177,12 +183,14 @@ class ResidualDiffusion:
 
         The initial noise is ``noise`` when given (tests hand in the JAX
         package's draw), else a standard normal from ``generator`` drawn on
-        the CPU, so a seed gives the same image on every device.
+        the CPU, so a seed gives the same image on every device.  The sample
+        lies on ``x_input``'s device, or on ``self.device`` when ``x_input``
+        is no tensor.
         """
         sch = self.train_schedule if sch is None else sch
         x_input, x_input_condition = self._split_input(x_input)
         ref = x_input if torch.is_tensor(x_input) else None
-        device = ref.device if ref is not None else torch.device("cpu")
+        device = ref.device if ref is not None else self.device
         sch = sch.to(device)
         eta = self.ddim_sampling_eta
         if noise is None:

@@ -27,6 +27,7 @@ from founddiff_tpu_torch.models.founddiff import FoundDiffDenoiser
 from founddiff_tpu_torch.models.ss2d import SS2D, MambaBlock
 from founddiff_tpu_torch.models.unet import Unet
 from founddiff_tpu_torch.models.vanilla_unet import VanillaUnet
+from founddiff_tpu_torch.utils.device import resolve
 
 
 def _fill(t: torch.Tensor, gen: torch.Generator, kind: str, a: float = 0.0,
@@ -133,10 +134,7 @@ def build(config: Config, device="cuda", seed: Optional[int] = None, clip_overri
     The device defaults to the card; asking for CUDA on a host without one
     raises rather than running on the CPU.
     """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("build: CUDA device requested but no GPU is available; "
-                           "pass device='cpu' to run the plain versions")
+    device = resolve(device, "build")
     m, d = config.model, config.diffusion
     model = build_denoiser(config, clip_overrides)
     gen = torch.Generator().manual_seed(config.train.seed if seed is None else seed)
@@ -158,5 +156,5 @@ def build(config: Config, device="cuda", seed: Optional[int] = None, clip_overri
         condition=m.condition, sum_scale=d.sum_scale, input_condition=m.input_condition,
         test_res_or_noise=m.test_res_or_noise, self_condition=m.self_condition,
         ddim_sampling_eta=d.ddim_sampling_eta, ddim_update=d.ddim_update,
-        convert_to_ddim=d.convert_to_ddim, clip_denoised=d.clip_denoised)
+        convert_to_ddim=d.convert_to_ddim, clip_denoised=d.clip_denoised, device=device)
     return diffusion, model

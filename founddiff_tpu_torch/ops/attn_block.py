@@ -8,6 +8,9 @@ project_out folded into one [C, C] matrix M per image, and the gated
 residual.  CUDA tensors go to ``csrc/attn_block.cu``; CPU tensors to the
 plain version :func:`attn_block_plain` (``attn_block_xla`` :343-390).  The
 backward is ``_ab_bwd``'s (:412-416): autograd through the plain version.
+The weight operands (io-dtype casts, fp32 copies) are derived once per
+parameter version (:mod:`._cache`), and the modulation and gate are read in
+place when they are fp32 row-strided views (the adaLN chunks).
 
 Weights keep the reference layout: qkv_w [3C, C, 1, 1], dw_w [3C, 1, 3, 3],
 temperature [heads, 1, 1], proj_w [C, C, 1, 1].
@@ -16,15 +19,20 @@ temperature [heads, 1, 1], proj_w [C, C, 1, 1].
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 import torch.nn.functional as F
 
-from founddiff_tpu_torch.ops import _build
-from founddiff_tpu_torch.ops.norm import _ln_mod
+from founddiff_tpu_torch.ops import _build, _cache
+from founddiff_tpu_torch.ops.norm import _ln_mod, _modulation
 from founddiff_tpu_torch.ops.remat import remat_grads
 
 _HEAD_DIM = 32  # MambaBlock builds heads = C // 32
+# as csrc/attn_block.cu: the output pixels of one tile (rows, columns) and
+# the tiles whose Gram partials one reduce block sums
+_TILE = (8, 16)
+_REDUCE = 16
 
 
 def attn_block_ok(H: int, W: int, C: int) -> bool:
@@ -34,9 +42,16 @@ def attn_block_ok(H: int, W: int, C: int) -> bool:
 
 
 def attn_block_route(H: int, W: int, C: int) -> bool:
-    """The JAX default routing (``FOUNDDIFF_ATTN_BLOCK=auto``): the fused
-    kernel at C >= 128, the plain composition below."""
-    return attn_block_ok(H, W, C) and C >= 128
+    """The JAX routing (``founddiff_tpu/ops/attn_block.py:61-78``), read at
+    each call: ``FOUNDDIFF_ATTN_BLOCK`` ``auto`` (the default) takes the
+    fused kernel at C >= 128 and the plain composition below, ``on`` the
+    kernel at every shape :func:`attn_block_ok` takes, ``off`` never.  The
+    capability gate is the port's own (the JAX one adds a VMEM budget that
+    every MambaBlock shape of the shipped sizes meets)."""
+    mode = os.environ.get("FOUNDDIFF_ATTN_BLOCK", "auto")
+    if mode == "off" or not attn_block_ok(H, W, C):
+        return False
+    return mode == "on" or C >= 128
 
 
 def transposed_attention(x2, qkv_w, dw_w, temperature, proj_w, heads: int):
@@ -79,10 +94,26 @@ def attn_block_plain(x, mod_scale, mod_shift, gate, qkv_w, dw_w, temperature,
     return x + gate.to(x.dtype)[:, None, None, :] * out
 
 
-def _gram_splits(B: int, heads: int, HW: int, sms: int) -> int:
-    """Pixel runs per (image, head) of the partial-Gram pass: enough blocks
-    for about four per SM of the card's ``sms``, at least 256 pixels each."""
-    return max(1, min(-(-HW // 256), -(-4 * sms // (B * heads))))
+def _rows32(t):
+    """t [B, C] as fp32 rows with unit channel stride and its row stride: read
+    in place when it is such a view (an adaLN chunk), else copied."""
+    t = t.detach()
+    if t.dtype == torch.float32 and t.dim() == 2 and t.stride(1) == 1:
+        return t, t.stride(0)
+    t = t.float().contiguous()
+    return t, t.shape[-1]
+
+
+def _workspace_bytes(B: int, H: int, W: int, C: int, io_size: int) -> int:
+    """The kernel's workspace (csrc/attn_block.cu ``attn_block_forward``):
+    256-byte aligned pieces for the LN statistics, v, the per-tile Gram
+    partials, their sums by 16 tiles and M."""
+    P, heads = B * H * W, C // _HEAD_DIM
+    tiles = -(-H // _TILE[0]) * -(-W // _TILE[1])
+    part = (_HEAD_DIM + 2) * _HEAD_DIM
+    pieces = (P * 2 * 4, P * C * io_size, B * heads * tiles * part * 4,
+              B * heads * -(-tiles // _REDUCE) * part * 4, B * C * C * io_size)
+    return sum(-(-n // 256) * 256 for n in pieces)
 
 
 def _attn_block_cuda(x, mod_scale, mod_shift, gate, qkv_w, dw_w, temperature,
@@ -93,31 +124,28 @@ def _attn_block_cuda(x, mod_scale, mod_shift, gate, qkv_w, dw_w, temperature,
                          f"got {tuple(x.shape)} with {heads} heads")
     io = x.dtype
     x = x.contiguous()
-    f32 = lambda t: t.detach().float().contiguous()
-    ms, mt = f32(mod_scale), f32(mod_shift)
-    gate_io = gate.to(io).contiguous()
-    wqkv = qkv_w[:, :, 0, 0].t().to(io).contiguous()  # [C, 3C]
-    taps = dw_w.reshape(3 * C, 9).t().to(io).contiguous()  # [9, 3C]
-    temp = f32(temperature.reshape(heads))
-    pk = f32(proj_w[:, :, 0, 0].t())  # [C_in, C_out]
-    P = B * H * W
+    if x.data_ptr() % 16:
+        x = x.clone()
+    ms, mt, ldm = _modulation(mod_scale, mod_shift)
+    g32, ldg = _rows32(gate)
+    wqkv = _cache.derived(("attn_wqkv", io), (qkv_w,),
+                          lambda: qkv_w.detach()[:, :, 0, 0].t().to(io).contiguous())  # [C, 3C]
+    taps = _cache.derived(("attn_taps", io), (dw_w,),
+                          lambda: dw_w.detach().reshape(3 * C, 9).t().to(io).contiguous())
+    temp = _cache.f32(temperature.reshape(heads))
+    pk = _cache.derived("attn_pk", (proj_w,),
+                        lambda: proj_w.detach()[:, :, 0, 0].t().float().contiguous())
     dev = x.device
-    splits = _gram_splits(B, heads, H * W,
-                          torch.cuda.get_device_properties(dev).multi_processor_count)
-    _build.expect(dev, mod_scale=(ms, (B, C)), mod_shift=(mt, (B, C)), gate=(gate_io, (B, C)),
+    _build.expect(dev, mod_scale=(ms, (B, C)), mod_shift=(mt, (B, C)), gate=(g32, (B, C)),
                   qkv_w=(wqkv, (C, 3 * C)), dw_w=(taps, (9, 3 * C)), temperature=(temp, (heads,)),
                   proj_w=(pk, (C, C)))
-    x2 = torch.empty(P * C, device=dev, dtype=io)
-    u = torch.empty(P * 3 * C, device=dev, dtype=io)
-    qkv = torch.empty(P * 3 * C, device=dev, dtype=io)
-    part = torch.empty(B * heads * splits * (_HEAD_DIM + 2) * _HEAD_DIM, device=dev)
-    M = torch.empty(B * C * C, device=dev, dtype=io)
+    ws = torch.empty(_workspace_bytes(B, H, W, C, x.element_size()), device=dev,
+                     dtype=torch.uint8)
     out = torch.empty_like(x)
-    fn = _build.kernel("attn_block", "attn_block_forward", 14,
-                       [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int])
-    rc = fn(*map(_build.ptr, (x, ms, mt, gate_io, wqkv, taps, temp, pk, out, x2, u,
-                              qkv, part, M)),
-            B, H, W, C, splits, eps, _build.dtype_code(x), _build.stream())
+    fn = _build.kernel("attn_block", "attn_block_forward", 10,
+                       [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int])
+    rc = fn(*map(_build.ptr, (x, ms, mt, g32, wqkv, taps, temp, pk, out, ws)),
+            ldm, ldg, B, H, W, C, eps, _build.dtype_code(x), _build.stream())
     _build.check(rc, "attn_block_forward")
     attn_block.launches += 1
     return out
@@ -145,9 +173,12 @@ def attn_block(x, mod_scale, mod_shift, gate, qkv_w, dw_w, temperature, proj_w,
                heads: int, eps: float = 1e-6):
     """Fused ``x + gate * TransposedAttention(modulate(LN(x)))``; x [B,H,W,C],
     mod_scale/mod_shift/gate [B,C].  CUDA tensors launch the kernel; CPU
-    tensors take the plain version.  Differentiable in every tensor argument."""
-    return _AttnBlockFn.apply(heads, eps, x, mod_scale, mod_shift, gate, qkv_w, dw_w,
-                              temperature, proj_w)
+    tensors take the plain version.  Differentiable in every tensor argument;
+    a call that needs no gradient launches without the autograd Function."""
+    args = (x, mod_scale, mod_shift, gate, qkv_w, dw_w, temperature, proj_w)
+    if _cache.needs_grad(*args):
+        return _AttnBlockFn.apply(heads, eps, *args)
+    return (_attn_block_cuda if x.is_cuda else attn_block_plain)(*args, heads, eps)
 
 
 attn_block.launches = 0

@@ -53,7 +53,7 @@ from founddiff_tpu_torch.ops.selective_scan import (
 # of 64.  scan_forward and scan_backward take any N as it is.
 _STATE_SIZES = (4, 8, 16, 32, 64)
 _GROUP = 64
-_IMAGE_CHUNK = 128  # scan chunk of the image kernel (as csrc/ss2d_block.cu)
+_IMAGE_CHUNK = 128  # scan chunk of the image scan's plain version (as csrc/ss2d_block.cu)
 
 
 def kernel_states(N: int) -> int:
@@ -456,6 +456,13 @@ def image_scan_vmem_ok(H: int, W: int, d_inner: int, d_state: int) -> bool:
     return 4 * d_state * S * d_inner * 4 <= 40 * 1024 * 1024
 
 
+def _image_chunk(N: int) -> int:
+    """Steps per chunk of the image kernel (csrc/scan_image.cu) at N states
+    (padded): chunk * min(N, 64) held at 1024, 32 to 256 steps, so that a
+    chunk's B and C rows take at most 16 KB of shared memory."""
+    return max(32, min(256, 1024 // min(N, _GROUP)))
+
+
 def scan_image_forward_plain(x, w_delta, w_b, w_c, A, Dskip, delta_bias):
     """Plain version of ``scan_image_forward``: EfficientScan, then the plain
     fused-projection scan at the image kernel's chunk; ys [B, 4, L, D] at
@@ -479,15 +486,16 @@ def _scan_image_cuda(x, w_delta, w_b, w_c, A, Dskip, delta_bias):
     _build.expect(dev, wproj=(wproj, (4, D, D + 2 * N)), A=(A32, (4, D, N)),
                   Dskip=(Ds32, (4, D)), delta_bias=(bias32, (4, D)))
     L = (H // 2) * (W // 2)
-    NC = -(-L // _IMAGE_CHUNK)
+    G, TC = B * 4, _image_chunk(N)
+    NC = -(-L // TC)
     ys = torch.empty(B, 4, L, D, device=dev, dtype=io)
-    proj = torch.empty(B * 4 * L * (D + 2 * N), device=dev)
-    csum = torch.empty(B * 4 * NC * D, device=dev)
-    cstate = torch.empty(B * 4 * NC * D * N, device=dev)
-    yacc = torch.empty(B * 4 * L * D, device=dev) if N > _GROUP else None
+    # fp32 scratch in one allocation: proj, hb, dsum and, above 64 states, yacc
+    sizes = (G * L * (D + 2 * N), G * NC * N * D, G * NC * D, G * L * D if N > _GROUP else 0)
+    proj, hb, dsum, yacc = torch.empty(sum(sizes), device=dev).split(sizes)
+    yacc = yacc if N > _GROUP else None
     fn = _build.kernel("scan_image", "scan_image_forward", 10, [ctypes.c_int] * 7)
-    rc = fn(*map(_build.ptr, (x, wproj, A32, Ds32, bias32, ys, proj, csum, cstate, yacc)),
-            B, H, W, D, N, _IMAGE_CHUNK, _build.dtype_code(x), _build.stream())
+    rc = fn(*map(_build.ptr, (x, wproj, A32, Ds32, bias32, ys, proj, hb, dsum, yacc)),
+            B, H, W, D, N, TC, _build.dtype_code(x), _build.stream())
     _build.check(rc, "scan_image_forward")
     scan_image_forward.launches += 1
     return ys

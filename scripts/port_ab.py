@@ -13,13 +13,14 @@ tree, so that each imports its own ``founddiff_tpu_torch`` and
 CUDA events (median of 7 after 2 warm-ups) on inputs made from a seed by
 its tree's ``chip_smoke.py`` case functions:
 
-- the redesigned kernels, ``scan_forward`` and ``scan_backward``, at each
-  shape of the 512^2 fp32 train step (``train_cases``: 2 slices a
-  microbatch, so 8 direction sequences), event and device time
-  (``torch.profiler``) of one call and the device time of each of its
-  launches by kernel, and their sums over one step's calls (18 of each; a
-  tree whose ``scan_forward`` has the bounds-only mode runs it where the
-  step does, at the image-route blocks' remat backward);
+- the redesigned kernels, ``attn_block`` and ``scan_image_forward``, event
+  and device time (``torch.profiler``) of one call and the device time of
+  each of its launches by kernel, at each shape of their units:
+  ``attn_block`` at the six MambaBlock shapes of a bs1 and of a bs4 bf16
+  512^2 UNet forward and of the fp32 train step (``kernel_cases`` at batch
+  1, 4 and 2; 12 calls a step), ``scan_image_forward`` at the five
+  image-route shapes of the fp32 train step (``train_cases``: 2 slices a
+  microbatch, 10 calls a step); and their sums over each unit;
 - the fp32 train step of ``Config()`` at 512^2 and 360^2 (chip_smoke's
   ``train_full_width`` without its bf16 steps: a warm-up step, then the
   median of 3, host clock around work that ends in
@@ -30,8 +31,10 @@ its tree's ``chip_smoke.py`` case functions:
 In its first turn each tree also hashes (sha256) the outputs of every
 phase-2 case of the kernels listed in ``UNTOUCHED``, fp32 and bf16, at
 inputs seeded by the case's name, so that the two trees' bits can be
-compared.  Needs one CUDA card.  Writes ``chiprun_out/port_ab.json`` under
-the working directory and prints a table.
+compared.  ``--parts`` picks what a worker measures (``hash``,
+``kernels``, ``train``, ``serving``; all by default).  Needs one CUDA card.
+Writes ``chiprun_out/port_ab.json`` under the working directory and prints a
+table.
 """
 
 from __future__ import annotations
@@ -47,10 +50,11 @@ import time
 import zlib
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REDESIGNED = ("scan_forward", "scan_backward")
-UNTOUCHED = ("ss2d_image_block", "attn_block", "layer_norm_modulated", "scan_image_forward",
+REDESIGNED = ("attn_block", "scan_image_forward")
+UNTOUCHED = ("ss2d_image_block", "layer_norm_modulated", "scan_forward", "scan_backward",
              "scan_fused_forward", "layer_norm", "merge_ln_gate", "gn_stats", "gn_apply",
              "ss2d_mamba_block", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+PARTS = ("hash", "kernels", "train", "serving")
 # the modules of the kernels whose launches a train step counts
 WRAPPED = (("ss2d_image_block", "ss2d_block"), ("attn_block", "attn_block"),
            ("layer_norm_modulated", "norm"), ("scan_forward", "scan"),
@@ -143,10 +147,12 @@ def _serve(cs, size: int, card: str):
 
 
 def _kernel_name(key: str) -> str:
-    """A profiler kernel name without namespace, template arguments or
-    parameters: ``bwd_main_kernel``."""
-    key = key.replace("void ", "").replace("(anonymous namespace)::", "")
-    return key.split("<")[0].split("(")[0].split("::")[-1]
+    """A profiler kernel name without namespaces or parameters, with its
+    template arguments, which tell the launches of one template apart:
+    ``gemm_kernel<float, RowStrided<float>, EpiGated<float> >``."""
+    for drop in ("void ", "(anonymous namespace)::", "fd::"):
+        key = key.replace(drop, "")
+    return key.split("(")[0]
 
 
 def _device_split(fn, n: int = 10) -> dict:
@@ -169,35 +175,37 @@ def _device_split(fn, n: int = 10) -> dict:
     return out
 
 
-def _scan_rows(cs) -> dict:
-    """scan_forward and scan_backward at each shape of the 512^2 fp32 train
-    step: one call's event ms, device ms and device split, and its calls
-    per step.  The image-route blocks' forward is bounds-only where the tree
-    has the mode (their backward needs h_bounds alone)."""
-    import inspect
-
+def _redesigned_cases(cs):
+    """(kernel, unit, calls per unit, label, dtype, make) of the redesigned
+    kernels at each shape of their units."""
     import torch
-    from founddiff_tpu_torch.ops import scan as sm
 
-    bounds_mode = "bounds_only" in inspect.signature(sm.scan_forward).parameters
+    cases = []
+    for B, unit, dtype, per in ((1, "bs1 bf16 forward", torch.bfloat16, 1),
+                                (4, "bs4 bf16 forward", torch.bfloat16, 1),
+                                (cs.TRAIN_BATCH, "fp32 step", torch.float32, 2)):
+        cases += [(k, unit, per * n, label, dtype, make)
+                  for k, label, n, make in cs.kernel_cases(B) if k == "attn_block"]
+    cases += [(k, "fp32 step", n, label, torch.float32, make)
+              for k, label, n, make in cs.train_cases() if k == "scan_image_forward"]
+    return cases
+
+
+def _kernel_rows(cs) -> dict:
+    """One call's event ms, device ms and device split by launch, with its
+    calls per unit, at each case of :func:`_redesigned_cases`."""
+    import torch
+
+    ops = _ops()
     rows = {}
-    for kname, label, count, make in cs.train_cases():
-        if kname not in REDESIGNED:
-            continue
-        f = dict(w.split("=") for w in label.split() if "=" in w)
-        L, D, N = int(f["L"]), int(f["D"]), int(f["N"])
-        H = 2 * int(round(L ** 0.5))
-        args = make(torch.float32, _gen(f"{kname} | {label}"), torch.device("cuda"))[0]
-        bounds = kname == "scan_forward" and bounds_mode and sm.image_scan_vmem_ok(H, H, D, N)
-        if bounds:
-            fn = lambda: sm.scan_forward(*args, bounds_only=True)
-        else:
-            fn = lambda w=getattr(sm, kname): w(*args)
+    for kname, unit, count, label, dtype, make in _redesigned_cases(cs):
+        key = f"{kname} | {unit} | {label}"
+        args, kw = make(dtype, _gen(key), torch.device("cuda"))[:2]
+        fn = lambda: ops[kname](*args, **kw)
         split = _device_split(fn)
-        rows[f"{kname} | {label}"] = dict(kernel=kname, per_step=count, bounds_only=bounds,
-                                          ms=cs.cuda_ms(fn), device_ms=sum(split.values()),
-                                          split=split)
-        del args
+        rows[key] = dict(kernel=kname, unit=unit, per_unit=count, ms=cs.cuda_ms(fn),
+                         device_ms=sum(split.values()), split=split)
+        del args, kw
         torch.cuda.empty_cache()
     return rows
 
@@ -222,7 +230,7 @@ def _train(cs, card: str) -> dict:
     return out
 
 
-def worker(tree: str, out_path: str, do_hash: bool) -> None:
+def worker(tree: str, out_path: str, parts) -> None:
     os.chdir(tree)
     sys.path.insert(0, tree)
     import torch
@@ -238,8 +246,9 @@ def worker(tree: str, out_path: str, do_hash: bool) -> None:
     built = _build.build_all()
     ops = _ops()
     dev = torch.device("cuda")
-    rec = dict(tree=tree, card=card, build_s=built["seconds"], hashes={})
-    if do_hash:
+    rec = dict(tree=tree, card=card, build_s=built["seconds"], hashes={}, rows={}, train={},
+               serving={})
+    if "hash" in parts:
         for batch, kname, label, count, make in _cases(cs):
             if kname not in UNTOUCHED:
                 continue
@@ -249,23 +258,31 @@ def worker(tree: str, out_path: str, do_hash: bool) -> None:
                 rec["hashes"][key] = _digest(ops[kname](*args, **kw))
                 del args, kw
             torch.cuda.empty_cache()
-    rec["rows"] = _scan_rows(cs)
-    rec["train"] = _train(cs, card)
-    rec["serving"] = {str(size): _serve(cs, size, card) for size in (512, cs.ODD_SIZE)}
+    if "kernels" in parts:
+        rec["rows"] = _kernel_rows(cs)
+    if "train" in parts:
+        rec["train"] = _train(cs, card)
+    if "serving" in parts:
+        rec["serving"] = {str(size): _serve(cs, size, card) for size in (512, cs.ODD_SIZE)}
     with open(out_path, "w") as f:
         json.dump(rec, f, indent=1)
 
 
-def _per_step(rows, kname, key="ms"):
-    return sum(r[key] * r["per_step"] for r in rows.values() if r["kernel"] == kname)
+def _units(rows):
+    return sorted({(r["kernel"], r["unit"]) for r in rows.values()})
 
 
-def _split_per_step(rows, kname):
+def _per_unit(rows, kname, unit, key="ms"):
+    return sum(r[key] * r["per_unit"] for r in rows.values()
+               if (r["kernel"], r["unit"]) == (kname, unit))
+
+
+def _split_per_unit(rows, kname, unit):
     out = {}
     for r in rows.values():
-        if r["kernel"] == kname:
+        if (r["kernel"], r["unit"]) == (kname, unit):
             for k, v in r["split"].items():
-                out[k] = out.get(k, 0.0) + v * r["per_step"]
+                out[k] = out.get(k, 0.0) + v * r["per_unit"]
     return out
 
 
@@ -276,10 +293,11 @@ def main() -> int:
     ap.add_argument("--turns", type=int, default=2)
     ap.add_argument("--worker")
     ap.add_argument("--out")
-    ap.add_argument("--hash", type=int, default=0)
+    ap.add_argument("--parts", default=",".join(PARTS))
     a = ap.parse_args()
+    parts = set(a.parts.split(","))
     if a.worker:
-        worker(a.worker, a.out, bool(a.hash))
+        worker(a.worker, a.out, parts)
         return 0
     import torch
 
@@ -293,21 +311,24 @@ def main() -> int:
     for i, name in enumerate(order):
         path = os.path.join(out_dir, f"{i}_{name}.json")
         t0 = time.perf_counter()
+        # each tree hashes in its first turn only
+        mine = parts - ({"hash"} if runs[name] else set())
         subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", trees[name],
-                        "--out", path, "--hash", str(int(not runs[name]))], check=True)
+                        "--out", path, "--parts", ",".join(sorted(mine))], check=True)
         with open(path) as f:
             runs[name].append(json.load(f))
         print(f"[turn {i}] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
     card = runs["change"][0]["card"]
     summary = dict(card=card, order=order, kernels={}, split={}, train={}, serving={},
                    bits={})
-    for kname in REDESIGNED:
+    for kname, unit in _units(runs["change"][0]["rows"]):
         for key in ("ms", "device_ms"):
-            summary["kernels"][f"{kname} per fp32 step {key}"] = {
-                n: [_per_step(r["rows"], kname, key) for r in runs[n]] for n in runs}
+            summary["kernels"][f"{kname} per {unit} {key}"] = {
+                n: [_per_unit(r["rows"], kname, unit, key) for r in runs[n]] for n in runs}
     for n in runs:
-        summary["split"][n] = {k: [_split_per_step(r["rows"], k) for r in runs[n]]
-                               for k in REDESIGNED}
+        summary["split"][n] = {f"{k} per {u}": [_split_per_unit(r["rows"], k, u)
+                                                for r in runs[n]]
+                               for k, u in _units(runs["change"][0]["rows"])}
         summary["train"][n] = [r["train"] for r in runs[n]]
         summary["serving"][n] = [{s: {k: v for k, v in d.items() if k.endswith("per_s")}
                                   for s, d in r["serving"].items()} for r in runs[n]]
@@ -320,12 +341,12 @@ def main() -> int:
         json.dump(dict(summary=summary, runs=runs), f, indent=1)
     print(card)
     for k, vals in summary["kernels"].items():
-        print(f"[ab] {k:40s} parent {[round(v, 4) for v in vals['parent']]}  "
+        print(f"[ab] {k:52s} parent {[round(v, 4) for v in vals['parent']]}  "
               f"change {[round(v, 4) for v in vals['change']]}")
     for n in runs:
         for kname, turns in summary["split"][n].items():
             for r in turns:
-                print(f"[ab split per fp32 step] {n} {kname}: " + ", ".join(
+                print(f"[ab split] {n} {kname}: " + ", ".join(
                     f"{k} {v:.3f}" for k, v in sorted(r.items(), key=lambda x: -x[1])) + " ms")
         for r in summary["train"][n]:
             print(f"[ab train fp32 step] {n}: " + ", ".join(

@@ -131,6 +131,27 @@ def test_attn_block_kernel(dev, dtype, H, W, C):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H,W,C", [(2, 24, 40, 128), (2, 16, 16, 96), (2, 8, 24, 160),
+                                     (3, 16, 8, 64), (1, 256, 256, 128)])
+def test_attn_block_kernel_edges(dev, dtype, B, H, W, C):
+    """The redesigned kernel's edges: 8 x 16 pixel tiles that do not divide
+    W (40, 24, 8), head counts that are no power of two (3, 5), a last v
+    slice of 32 columns (C 96, 160), three images, a full 256^2 C 128 map."""
+    g = _gen(B * H * W + C)
+    heads = C // 32
+    u = lambda *s, b: ((torch.rand(s, generator=g) * 2 - 1) * b).to(dev)
+    args = (_n(g, (B, H, W, C), 1.0, dev).to(dtype), _n(g, (B, C), 0.2, dev),
+            _n(g, (B, C), 0.2, dev), _n(g, (B, C), 0.5, dev), u(3 * C, C, 1, 1, b=C ** -0.5),
+            u(3 * C, 1, 3, 3, b=1 / 3), _n(g, (heads, 1, 1), 0.3, dev).abs() + 0.5,
+            u(C, C, 1, 1, b=C ** -0.5))
+    before = attn_mod.attn_block.launches
+    got = attn_mod.attn_block(*args, heads=heads)
+    assert attn_mod.attn_block.launches == before + 1
+    _close(got, attn_mod.attn_block_plain(*args, heads=heads), dtype, base=args[0])
+
+
+@pytest.mark.gpu
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     """A CUDA tensor reaches the kernel or an exception, never the plain path."""
     x = torch.zeros(1, 6, 6, 64, device=dev)  # H % 8 != 0
@@ -202,6 +223,26 @@ def test_scan_image_forward_kernel(dev, dtype, H, W, D, N):
     _close(got, scan_mod.scan_image_forward_plain(x, *w, A, Ds, bias), dtype)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,W,D,N", [(46, 30, 64, 4), (22, 14, 96, 12), (12, 20, 64, 64),
+                                     (10, 14, 128, 128), (8, 8, 36, 4)])
+def test_scan_image_forward_kernel_edges(dev, dtype, H, W, D, N):
+    """The redesigned kernel's edges: L not a multiple of the chunk (345 at
+    N 4, 77 at N 12, 60 at N 64, 35 at N 128), H != W, N padded (12) and
+    in two groups of 64 (128), D below one channel tile (96, 64, 36) and
+    one that no 16-byte copy takes (36)."""
+    g = _gen(H * W + D + N)
+    _, _, A, _, _, Ds, bias = _scan_inputs(g, 1, 1, D, N, dtype, dev)
+    x = torch.nn.functional.silu(_n(g, (2, H, W, D), 1.0, dev)).to(dtype)
+    u = lambda *s, b: ((torch.rand(s, generator=g) * 2 - 1) * b).to(dev).to(dtype)
+    w = (u(4, D, D, b=D ** -0.5), u(4, D, N, b=D ** -0.5), u(4, D, N, b=D ** -0.5))
+    before = scan_mod.scan_image_forward.launches
+    got = scan_mod.scan_image_forward(x, *w, A, Ds, bias)
+    assert scan_mod.scan_image_forward.launches == before + 1
+    _close(got, scan_mod.scan_image_forward_plain(x, *w, A, Ds, bias), dtype)
+
+
 def _grad_check(fn, args, dev):
     """fn's gradients on the card against fn on CPU copies (plain versions);
     fp32, per input relative norm <= 1e-3; a fixed random cotangent."""
@@ -227,13 +268,14 @@ def test_selective_scan_fn_grads(dev):
 
 
 @pytest.mark.gpu
-def test_scan_image_fn_grads(dev):
-    g = _gen(4)
-    _, _, A, _, _, Ds, bias = _scan_inputs(g, 1, 1, 64, 4, torch.float32, dev)
-    x = _n(g, (2, 16, 12, 64), 1.0, dev)
-    xw, dtw = _n(g, (4, 4 + 8, 64), 0.1, dev), _n(g, (4, 64, 4), 0.3, dev)
+@pytest.mark.parametrize("H,W,D,N", [(16, 12, 64, 4), (46, 18, 96, 8)])
+def test_scan_image_fn_grads(dev, H, W, D, N):
+    g = _gen(4 if D == 64 else D + N)
+    _, _, A, _, _, Ds, bias = _scan_inputs(g, 1, 1, D, N, torch.float32, dev)
+    x = _n(g, (2, H, W, D), 1.0, dev)
+    xw, dtw = _n(g, (4, 4 + 2 * N, D), 0.1, dev), _n(g, (4, D, 4), 0.3, dev)
     _grad_check(lambda x, xw, dtw, A, Ds, b: scan_mod.ScanImageFn.apply(
-        x, *ss2d_mod._derive_weights(xw, dtw, 4, 4), A, Ds, b), (x, xw, dtw, A, Ds, bias), dev)
+        x, *ss2d_mod._derive_weights(xw, dtw, 4, N), A, Ds, b), (x, xw, dtw, A, Ds, bias), dev)
 
 
 @pytest.mark.gpu
@@ -251,11 +293,12 @@ def test_ss2d_image_block_fn_grads(dev, H, C0, N):
 
 
 @pytest.mark.gpu
-def test_attn_block_fn_grads(dev):
-    g = _gen(5)
-    C, heads = 128, 4
-    args = (_n(g, (2, 8, 16, C), 1.0, dev), _n(g, (2, C), 0.2, dev), _n(g, (2, C), 0.2, dev),
-            _n(g, (2, C), 0.5, dev), _n(g, (3 * C, C, 1, 1), C ** -0.5, dev),
+@pytest.mark.parametrize("B,H,W,C", [(2, 8, 16, 128), (3, 8, 24, 96)])
+def test_attn_block_fn_grads(dev, B, H, W, C):
+    g = _gen(5 if C == 128 else C)
+    heads = C // 32
+    args = (_n(g, (B, H, W, C), 1.0, dev), _n(g, (B, C), 0.2, dev), _n(g, (B, C), 0.2, dev),
+            _n(g, (B, C), 0.5, dev), _n(g, (3 * C, C, 1, 1), C ** -0.5, dev),
             _n(g, (3 * C, 1, 3, 3), 1 / 3, dev), _n(g, (heads, 1, 1), 0.3, dev).abs() + 0.5,
             _n(g, (C, C, 1, 1), C ** -0.5, dev))
     _grad_check(lambda *a: attn_mod.attn_block(*a, heads=heads), args, dev)

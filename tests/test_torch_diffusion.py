@@ -64,7 +64,7 @@ def test_ddim_sample(objective, res_or_noise, update):
     kw = dict(image_size=8, timesteps=1000, sampling_timesteps=5, objective=objective,
               condition=True, sum_scale=0.01, test_res_or_noise=res_or_noise,
               ddim_update=update)
-    jd, td = JDiffusion(jfn, **kw), TDiffusion(tfn, **kw)
+    jd, td = JDiffusion(jfn, **kw), TDiffusion(tfn, **kw, device="cpu")
     x = _x01(13) * 2 - 1
     rng = jax.random.PRNGKey(5)
     noise = jax.random.normal(jax.random.split(rng)[1], x.shape)

@@ -92,7 +92,7 @@ def test_p_losses(objective, loss_type):
     kw = dict(image_size=SIZE, timesteps=1000, sampling_timesteps=2, loss_type=loss_type,
               objective=objective, condition=True, sum_scale=0.01, test_res_or_noise="res")
     jd = JDiffusion(lambda p, x, t, s=None: model(x, t), **kw)
-    td = TDiffusion(lambda x, t, s=None: model(x, t), **kw)
+    td = TDiffusion(lambda x, t, s=None: model(x, t), **kw, device="cpu")
     imgs = _pair(3)
     rng = jax.random.PRNGKey(5)
     want = jd.loss(None, rng, [jnp.asarray(i) for i in imgs])

@@ -198,7 +198,7 @@ def _closed_form(x, t):
 def _pair(**kw):
     kw = dict(image_size=8, channels=1, **kw)
     return (JGaussian(lambda p, x, t, s=None: _closed_form(x, t), **kw),
-            GaussianDiffusion(lambda x, t, s=None: _closed_form(x, t), **kw))
+            GaussianDiffusion(lambda x, t, s=None: _closed_form(x, t), **kw, device="cpu"))
 
 
 @pytest.mark.parametrize("objective", ["pred_noise", "pred_x0", "pred_v"])
