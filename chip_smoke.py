@@ -36,13 +36,16 @@ Phases (any failure exits non-zero before the last line is printed):
    kernels of phases 12-14: ``scan_fused_forward`` at the three 45^2
    MambaBlocks of a 360^2 slice (L 529, D 512 and 1024, N 32) at batches 1,
    2 and 4, its h_bounds also against ``scan_forward``'s on the same
-   delta/B/C; ``layer_norm`` at those rows (B * 2025, C 512 and 1024) with
-   and without its affine; the epilogue ``merge_ln_gate`` on the joint
-   layout at the 360^2 top scale where the JAX package runs it on a TPU
-   ([B, 4, 32400, 128], Co 64) and on the split layout at the 16^2 route's
-   2x2 grids (C 512 and 1024) and at 360^2 and 180^2, with and without the
-   folded out_proj.  The edges of the redesigned kernels, none on the main
-   path: ``ss2d_image_block`` in bf16 on the tensor cores at C0 40, N 4
+   delta/B/C and its y without h_bounds (the serving call) bit for bit
+   against its y with them; ``layer_norm`` at those rows (B * 2025, C 512
+   and 1024) with and without its affine; the epilogue ``merge_ln_gate``
+   on the joint layout at the 360^2 top scale where the JAX package runs it
+   on a TPU ([B, 4, 32400, 128], Co 64) and on the split layout at the
+   16^2 route's 2x2 grids (C 512 and 1024) and at 360^2 and 180^2, with and
+   without the folded out_proj, and at a 2x2 grid with C 2048 (in fp32 the
+   two-launch form: og and the weight slice exceed a block's shared
+   memory).  The edges of the redesigned kernels, none on the main path:
+   ``ss2d_image_block`` in bf16 on the tensor cores at C0 40, N 4
    (ragged GEMM tiles), ``layer_norm`` and ``layer_norm_modulated`` at C 100
    and on a misaligned view; and every scan kernel, the fused block and the
    unified op at d_state 64, at the 32^2 blocks of phase 15.  At d_state 12
@@ -57,9 +60,11 @@ Phases (any failure exits non-zero before the last line is printed):
    ``attn_block`` also at the three C = 64 MambaBlocks of a 512^2 slice
    (512^2 and 256^2 at bs4), where ``FOUNDDIFF_ATTN_BLOCK=on`` takes it and
    the default runs the plain composition, timed beside that composition;
-   and the device time of each launch of the two kernels redesigned last,
-   ``attn_block`` over a bs1 bf16 512^2 UNet forward and
-   ``scan_image_forward`` over an fp32 train step (``torch.profiler``).
+   and the device time of each launch of the two kernels redesigned last
+   (``torch.profiler``), ``scan_fused_forward`` over a bs1 and a bs4 bf16
+   360^2 UNet forward and an fp32 360^2 train step and ``merge_ln_gate``
+   over a bs1 bf16 16^2 UNet forward; and those two kernels' summed times
+   and bounds per bs4 forward and (``scan_fused_forward``) per fp32 step.
 3. Main path at full width: ``build(Config())`` on the card (dim 64 x
    (1, 2, 4, 8), full RN50 CLIPIQA tower, seeded random weights with
    non-zero adaLN and prompt), ``make_hoisted_sampler(...,
@@ -164,8 +169,10 @@ summed times of the calls of one bs1 bf16 UNet forward (serving kernels and
 ``ss2d_mamba_block`` at 512^2, ``scan_fused_forward`` and ``layer_norm`` at
 360^2, ``merge_ln_gate`` at 16^2), one bs1 fp32 vanilla UNet forward (``flash_fwd``, the
 GroupNorm pair) or one fp32 train step (the scan and flash backward
-kernels); and ``d_state``, the state sizes phase 2 held it at, where it has
-one); the last is ``{"ok": true, "device": {...}}``.
+kernels); ``d_state``, the state sizes phase 2 held it at, where it has
+one; and for ``scan_fused_forward`` and ``merge_ln_gate`` ``units``, their
+time and bound summed over a bs4 bf16 forward and, for the scan, an fp32
+360^2 train step); the last is ``{"ok": true, "device": {...}}``.
 A longer record goes to ``chiprun_out/chip_smoke.json``.
 """
 
@@ -323,7 +330,7 @@ ODD_STATES = (12, 128)
 # the fp32 train step of the parent tree, seconds, at 512^2 and 360^2:
 # scripts/port_ab.py, the parent's two turns of one call, NVIDIA H100 80GB
 # HBM3 at 700 W (PERF.md section 6)
-PARENT_STEP_S = {512: (0.8806, 0.8595), 360: (1.6304, 1.2626)}
+PARENT_STEP_S = {512: (0.8548, 0.8435), 360: (1.1291, 1.4072)}
 
 
 def runtime_n_ptxas(text):
@@ -643,8 +650,9 @@ def unfused_cases(B):
     phases 12-14 at batch B: the fused scan and ``layer_norm`` at the 360^2
     slice's three 45^2 blocks (``layer_norm`` also without its affine, 0
     calls), the epilogue at the 16^2 slice's three 2x2 blocks (split) and,
-    0 calls, at the JAX package's 360^2 top-scale shapes (joint) and at
-    360^2 and 180^2 split, with and without the folded out_proj."""
+    0 calls, at the JAX package's 360^2 top-scale shapes (joint), at
+    360^2 and 180^2 split, with and without the folded out_proj, and at C
+    2048 on a 2x2 grid (fp32: the two-launch form)."""
     cases = []
     serve = B != TRAIN_BATCH  # the epilogue runs when serving only
     for C0, N, n in DEEP:
@@ -667,7 +675,8 @@ def unfused_cases(B):
                 ("joint 360^2 C=128 no fold", 360, 128, 128, False, False),
                 ("split 360^2 C=128 Co=64", 360, 128, 64, True, True),
                 ("split 180^2 C=256 Co=128", 180, 256, 128, True, True),
-                ("split 2x2 C=1024 no fold", 2, 1024, 1024, True, False)):
+                ("split 2x2 C=1024 no fold", 2, 1024, 1024, True, False),
+                ("split 2x2 C=2048 Co=1024", 2, 2048, 1024, True, True)):
             cases.append(("merge_ln_gate", f"bs1 {label}", 0,
                           lambda dt, g, d, a=(H, C, Co, split, fold): epilogue_case(
                               1, *a, dt, g, d)))
@@ -790,7 +799,8 @@ def check_fused_h_bounds():
     """``scan_fused_forward``'s h_bounds against ``scan_forward``'s on the
     same delta/B/C (their fp32 products; the fused kernel sums them in
     another order), fp32, at the training batch: the state the backward
-    reads."""
+    reads.  And its y without h_bounds (``bounds=False``, what serving
+    calls) bit for bit against its y with them, fp32 and bf16."""
     from founddiff_tpu_torch.ops.scan import scan_forward, scan_fused_forward
 
     dev = torch.device("cuda")
@@ -808,6 +818,16 @@ def check_fused_h_bounds():
         result[label] = dict(max_abs_err=err, err_past_ulp=excess, tol=tol, ok=ok)
         if not ok:
             failed.append(label)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = (*(t.to(dtype) for t in (xs, wd, wb, wc)), A, Ds, bias)
+            y, _ = scan_fused_forward(*args)
+            y_only, none = scan_fused_forward(*args, bounds=False)
+            same = none is None and torch.equal(y, y_only)
+            key = f"{label} {str(dtype).replace('torch.', '')} y without h_bounds"
+            log(f"[kernel] scan_fused_forward y without h_bounds bit-identical, {key}: {same}")
+            result[key] = dict(ok=same)
+            if not same:
+                failed.append(key)
     return result, failed
 
 
@@ -848,19 +868,22 @@ def _kernel_name(key: str) -> str:
 def launch_split(ops, card):
     """Phase 2: the device time of each launch of the two redesigned
     kernels, by kernel, summed over one unit's calls at its main-path shapes:
-    ``attn_block`` over a bs1 bf16 512^2 UNet forward (6 calls) and
-    ``scan_image_forward`` over an fp32 train step (10 calls);
-    ``torch.profiler`` over 10 calls of each shape."""
+    ``scan_fused_forward`` over a bs1 and a bs4 bf16 360^2 UNet forward (3
+    calls) and an fp32 360^2 train step (6 calls), ``merge_ln_gate`` over a
+    bs1 bf16 16^2 UNet forward (3 calls); ``torch.profiler`` over 10 calls
+    of each shape."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(47)
-    units = (("attn_block", "bs1 bf16 forward", torch.bfloat16,
-              [c for c in kernel_cases(1) if c[0] == "attn_block"]),
-             ("scan_image_forward", "fp32 step", torch.float32,
-              [c for c in train_cases() if c[0] == "scan_image_forward"]))
+    units = [(k, unit, dtype, per, [c for c in unfused_cases(B) if c[0] == k and c[2]])
+             for k, unit, B, dtype, per in (
+                 ("scan_fused_forward", "bs1 bf16 360^2 forward", 1, torch.bfloat16, 1),
+                 ("scan_fused_forward", "bs4 bf16 360^2 forward", 4, torch.bfloat16, 1),
+                 ("scan_fused_forward", "fp32 360^2 step", TRAIN_BATCH, torch.float32, 2),
+                 ("merge_ln_gate", "bs1 bf16 16^2 forward", 1, torch.bfloat16, 1))]
     result = {}
-    for kname, unit, dtype, cases in units:
+    for kname, unit, dtype, per, cases in units:
         split = {}
         for _, label, count, make in cases:
             args, kw = make(dtype, gen, dev)[:2]
@@ -874,13 +897,36 @@ def launch_split(ops, card):
             for e in prof.key_averages():
                 if e.device_type.name == "CUDA":
                     k = _kernel_name(e.key)
-                    split[k] = split.get(k, 0.0) + e.self_device_time_total / 1e3 / 10 * count
+                    split[k] = split.get(k, 0.0) + (e.self_device_time_total / 1e3 / 10
+                                                    * count * per)
             del args, kw
         result[f"{kname} per {unit}"] = split
         log(f"[split] {kname} per {unit}, device ms by launch [{card}]: " + ", ".join(
             f"{k} {v:.4f}" for k, v in sorted(split.items(), key=lambda x: -x[1])))
     torch.cuda.empty_cache()
     return result
+
+
+# the units beside the kernels line's bs1 bf16 forward: (kernel, unit,
+# batch, dtype, calls of a phase-2 row's count per unit)
+UNITS = (("scan_fused_forward", "bs4 bf16 forward", 4, "bfloat16", 1),
+         ("scan_fused_forward", "fp32 step", TRAIN_BATCH, "float32", 2),
+         ("merge_ln_gate", "bs4 bf16 forward", 4, "bfloat16", 1))
+
+
+def unit_totals(rows, card):
+    """Time, bound and plain time of the redesigned kernels summed over the
+    calls of each of UNITS (phase-2 rows at their main-path shapes)."""
+    out = {}
+    for k, unit, batch, dtype, per in UNITS:
+        mine = [r for r in rows if (r["kernel"], r["batch"], r["dtype"]) == (k, batch, dtype)
+                and r["per_forward"]]
+        tot = {key: sum(r[key] * r["per_forward"] * per for r in mine)
+               for key in ("ms", "bound_ms", "plain_ms")}
+        out.setdefault(k, {})[unit] = tot
+        log(f"[unit] {k} per {unit}: kernel {tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} "
+            f"ms, plain {tot['plain_ms']:.4f} ms [{card}]")
+    return out
 
 
 def train_cases():
@@ -1825,7 +1871,8 @@ def main() -> int:
     failed += bounds_only_failed
     record = dict(card=card, build_seconds=built["seconds"], ptxas=built["logs"],
                   kernel_cases=rows, fused_h_bounds=bounds, bounds_only=bounds_only,
-                  attn_on_c64=attn_on_summary(rows), split=launch_split(ops, card))
+                  attn_on_c64=attn_on_summary(rows), split=launch_split(ops, card),
+                  units=unit_totals(rows, card))
     if failed:
         _write_record(record)
         raise AssertionError(f"kernels disagree with their plain versions: {failed}")
@@ -2002,7 +2049,8 @@ def main() -> int:
             plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
             bound_by="bytes" if total("bytes_ms") >= total("ops_ms") else "operations",
             library_ms=total("library_ms") if main_rows[0]["library_ms"] is not None else None,
-            **({"d_state": states} if states else {})))
+            **({"d_state": states} if states else {}),
+            **({"units": record["units"][k]} if k in record["units"] else {})))
     record["kernels"] = kernels
     _write_record(record)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

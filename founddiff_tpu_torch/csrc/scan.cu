@@ -72,22 +72,31 @@
 // [G, L, D] with the folded weights [K, D, D+2N] (delta | B | C); its
 // outputs are y and the same h_bounds as the forward above, so its
 // backward is scan_backward (_ssf_bwd, :791-812).  Bound on the H100: the
-// [D, D+2N] projection at D = 512 and 1024, 2 * D * (D + 2N) operations per
-// step against the scan's 6 * N * D, on the fp32 CUDA cores of
-// common.cuh's tiled GEMM (no tensor cores yet), then the bytes of the fp32
-// projections it passes through device memory.  Design: that GEMM with
-// delta' = softplus(acc + bias) in its epilogue (EpiProj of
-// scan_common.cuh, rows read straight from xs), then chunk passes with the
-// states in registers (N in {4, 8, 16, 32, 64}, a template argument; the
-// wrapper pads other sizes up with states whose B and C are zero, and runs
-// N above 64 as groups of 64 summed into an fp32 y) and the serial carry
-// carry_kernel, reading delta'/B/C from the projections unrounded, as the
-// TPU kernel keeps them in VMEM.  A chunk ends at L (L = 529 at 45^2).
+// [D, D+2N] projection at D = 512 and 1024 (2 * D * (D + 2N) operations per
+// step against the scan's 6 * N * D and N exponentials), then the bytes of
+// the fp32 projections it passes through device memory.  The first port ran
+// that product on the fp32 CUDA cores, a chunk pass of one thread per
+// channel reading B and C from device memory at every step, and a carry
+// serial over 67 chunks of 8 steps (L 529 at 45^2); the carry and the
+// product took two thirds of its time.  Design, as scan_image.cu's:
+//   1. the product on the tensor cores (fd::gemm_mma: bf16 mma, fp32 as
+//      three TF32 products), A rows strided in xs, softplus(delta + bias)
+//      in its epilogue (EpiProjFast: the fast exponential and logarithm, to
+//      about 4e-6 of the value), the fp32 projections written once;
+//   2. scan_common.cuh's staged chunk passes (chunk_passes_n, shared with
+//      scan_image.cu, u rows strided here) over chunks of TC steps (1024 /
+//      N, 32 at N = 32: a chunk's B and C rows in shared memory), pass 1
+//      bounds-only, the parallel carry fd::carry_scan_kernel between;
+//   3. pass 2 writes, beside y, the state entering every chunk of TCB =
+//      scan_chunk(N) steps (8 at N = 32), the h_bounds layout [G, NCB, N, D]
+//      scan_backward reads; serving (no gradient) passes hb == nullptr and
+//      writes none.
+// delta'/B/C stay unrounded in fp32, as the TPU kernel keeps them in VMEM.
+// A chunk ends at L (L = 529 at 45^2).
 #include "scan_common.cuh"
 
 namespace {
 
-constexpr int FWD_THREADS = 128;
 constexpr int WARP = 32;
 constexpr int GROUP = 64;        // states of one launch of the runtime-N kernels
 constexpr int RP_ROWS = 16;      // rows of reduce_params_kernel
@@ -717,128 +726,21 @@ ScanArgs<T> scan_args(const void* u, const void* dl, const void* Bm, const void*
 }
 
 // ---------------------------------------------------------------------------
-// fused-projection forward
+// fused-projection forward: the projection product on the tensor cores, then
+// scan_common.cuh's staged chunk passes over the [G, L, D] rows of xs, chunks
+// of TC steps, h_bounds at every TCB steps (TC % TCB == 0)
 // ---------------------------------------------------------------------------
-// chunk-entry states -> chunk carries for the fused forward, one thread per
-// (g, n, d), serially over the chunks; st [G, NC, N, D] holds end states and
-// becomes entry states.
-__global__ void carry_kernel(const float* __restrict__ A, const float* __restrict__ dsum,
-                             float* __restrict__ st, int K, int D, int NS, int NC,
-                             long long total) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int d = idx % D;
-  const int n = (idx / D) % NS;
-  const long long g = idx / ((long long)NS * D);
-  const float a = A[((g % K) * D + d) * NS + n];
-  float carry = 0.f;
-  for (int i = 0; i < NC; ++i) {
-    const long long si = ((g * NC + i) * NS + n) * D + d;
-    const float v = st[si];
-    st[si] = carry;
-    carry = expf(a * dsum[(g * NC + i) * D + d]) * carry + v;
-  }
-}
-
-// The chunk passes with delta' (softplus applied), B and C read from the
-// projection rows proj [G, L, D+2N] fp32; K = 4 directions.  GROUPED: NS
-// states [n0, n0 + NS) of NST, y by mode as fwd_kernel's; otherwise NST =
-// NS, one group, its strides known at compile time.
-template <typename T, int NS, bool FINAL, bool GROUPED>
-__global__ void __launch_bounds__(FWD_THREADS)
-fused_chunk_kernel(const T* __restrict__ u, const float* __restrict__ proj,
-                   const float* __restrict__ A, const float* __restrict__ Ds,
-                   T* __restrict__ y, float* __restrict__ yacc, int mode, float* __restrict__ hb,
-                   float* __restrict__ dsum, int L, int D, int NST, int n0, int TC, int NC) {
-  if (!GROUPED) NST = NS, n0 = 0, mode = 0;
-  const int d = blockIdx.x * FWD_THREADS + threadIdx.x;
-  const int c = blockIdx.y, g = blockIdx.z;
-  if (d >= D) return;
-  const int k = g & 3, NP = D + 2 * NST;
-  float a[NS], h[NS];
-  float* hbp = hb + (((long long)g * NC + c) * NST + n0) * D + d;  // [g, c, n, d]
-#pragma unroll
-  for (int n = 0; n < NS; ++n) {
-    a[n] = A[((long long)k * D + d) * NST + n0 + n];
-    h[n] = FINAL ? hbp[(long long)n * D] : 0.f;
-  }
-  const float dsk = FINAL ? Ds[k * D + d] : 0.f;
-  float s = 0.f;
-  const int l1 = min(L, (c + 1) * TC);
-  for (int l = c * TC; l < l1; ++l) {
-    const long long row = (long long)g * L + l;
-    const float* pr = proj + row * NP;
-    const float dlt = pr[d];
-    const float uu = fd::to_f<T>(u[row * D + d]);
-    const float du = dlt * uu;
-    float yv = 0.f;
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      h[n] = expf(dlt * a[n]) * h[n] + du * pr[D + n0 + n];
-      if (FINAL) yv = fmaf(pr[D + NST + n0 + n], h[n], yv);
-    }
-    if (FINAL) {
-      const long long i = row * D + d;
-      if (mode == 0) y[i] = fd::from_f<T>(yv + dsk * uu);
-      else if (mode == 1) yacc[i] = yv + dsk * uu;
-      else if (mode == 2) yacc[i] = yacc[i] + yv;
-      else y[i] = fd::from_f<T>(yacc[i] + yv);
-    } else {
-      s += dlt;
-    }
-  }
-  if (!FINAL) {
-#pragma unroll
-    for (int n = 0; n < NS; ++n) hbp[(long long)n * D] = h[n];
-    dsum[((long long)g * NC + c) * D + d] = s;
-  }
-}
-
-// The two chunk passes of NS states per group, ngroups groups of NST.
-template <typename T, int NS>
-int fused_passes(const T* u, const float* proj, const float* A, const float* Ds, T* y,
-                 float* yacc, float* hb, float* dsum, int G, int L, int D, int NST, int TC,
-                 cudaStream_t s) {
-  const int NC = (L + TC - 1) / TC, ngroups = NST / NS;
-  dim3 grid((D + FWD_THREADS - 1) / FWD_THREADS, NC, G);
-  auto pass = [&](auto final_pass, int i, int mode) {
-    constexpr bool FINAL = decltype(final_pass)::value;
-    if constexpr (NS == 64) {
-      if (ngroups > 1) {
-        fused_chunk_kernel<T, NS, FINAL, true><<<grid, FWD_THREADS, 0, s>>>(
-            u, proj, A, Ds, y, yacc, mode, hb, dsum, L, D, NST, i * NS, TC, NC);
-        return cudaGetLastError();
-      }
-    }
-    fused_chunk_kernel<T, NS, FINAL, false><<<grid, FWD_THREADS, 0, s>>>(
-        u, proj, A, Ds, y, yacc, mode, hb, dsum, L, D, NST, i * NS, TC, NC);
-    return cudaGetLastError();
-  };
-  for (int i = 0; i < ngroups; ++i) FD_TRY(pass(std::false_type{}, i, 0));
-  const long long total = (long long)G * NST * D;
-  carry_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(A, dsum, hb, 4, D, NST, NC,
-                                                               total);
-  FD_TRY(cudaGetLastError());
-  for (int i = 0; i < ngroups; ++i) FD_TRY(pass(std::true_type{}, i, group_mode(i, ngroups)));
-  return 0;
-}
-
 template <typename T>
 int fused_forward(const T* u, const T* wproj, const float* A, const float* Ds,
-                  const float* bias, T* y, float* yacc, float* hb, float* proj, float* dsum,
-                  int G, int L, int D, int NS, int TC, cudaStream_t s) {
+                  const float* bias, T* y, float* yacc, float* hb, float* proj, float* hs,
+                  float* dsum, int G, int L, int D, int NS, int TC, int TCB, cudaStream_t s) {
   const int NP = D + 2 * NS;
-  FD_TRY((fd::gemm<T>(G, L, NP, D, fd::RowStrided<T>{u, (long long)L * D, D}, wproj,
-                      (long long)D * NP, 4, NP, fd::EpiProj{proj, bias, L, D, NP}, s)));
-  switch (NS) {
-    case 4: return fused_passes<T, 4>(u, proj, A, Ds, y, yacc, hb, dsum, G, L, D, NS, TC, s);
-    case 8: return fused_passes<T, 8>(u, proj, A, Ds, y, yacc, hb, dsum, G, L, D, NS, TC, s);
-    case 16: return fused_passes<T, 16>(u, proj, A, Ds, y, yacc, hb, dsum, G, L, D, NS, TC, s);
-    case 32: return fused_passes<T, 32>(u, proj, A, Ds, y, yacc, hb, dsum, G, L, D, NS, TC, s);
-    default:  // 64, and multiples of 64 in groups of 64 (the wrapper pads)
-      if (NS % 64 || (NS > 64 && yacc == nullptr)) return (int)cudaErrorInvalidValue;
-      return fused_passes<T, 64>(u, proj, A, Ds, y, yacc, hb, dsum, G, L, D, NS, TC, s);
-  }
+  const fd::RowStrided<T> rows{u, (long long)L * D, D};
+  FD_TRY((fd::gemm_mma<T>(G, L, NP, D, rows, D, u, wproj, (long long)D * NP, 4, NP,
+                          fd::EpiProjFast{proj, bias, L, D, NP}, s)));
+  const bool few_chunks = (L + TC - 1) / TC <= 32;  // the carry's 4-warp blocks
+  return fd::chunk_passes_n<T, true>(rows, proj, A, Ds, hs, dsum, y, yacc, hb, G, D, NS, L, TC,
+                                     TCB, few_chunks, s);
 }
 
 }  // namespace
@@ -900,22 +802,26 @@ extern "C" int scan_backward(const void* u, const void* dl, const void* Bm, cons
 
 // xs [G, L, D] (G = Bsz * 4, direction g % 4) and wproj [4, D, D+2N]
 // (delta | B | C) at the io dtype; A [4, D, N], Ds and bias [4, D] fp32;
-// N in {4, 8, 16, 32} or a multiple of 64.  Writes y [G, L, D] (io) and hb
-// [G, NC, N, D] fp32 as scan_forward does.  Scratch (fp32): proj
-// [G, L, D+2N], dsum [G, NC, D], for N > 64 yacc [G, L, D] (else unused).
+// N in {4, 8, 16, 32} or a multiple of 64.  Writes y [G, L, D] (io) and,
+// unless hb is null, hb [G, NCB, N, D] fp32, the state entering each chunk
+// of TCB steps, as scan_forward does at chunk TCB.  The passes run chunks of
+// TC steps, a multiple of TCB.  Scratch (fp32): proj [G, L, D+2N], dsum
+// [G, NC, D] and hs [G, NC, N, D] (NC = ceil(L / TC)), for N > 64 yacc
+// [G, L, D] (else unused).
 extern "C" int scan_fused_forward(const void* xs, const void* wproj, const float* A,
                                   const float* Ds, const float* bias, void* y, float* hb,
-                                  float* proj, float* dsum, float* yacc, int G, int L, int D,
-                                  int NS, int TC, int dtype, void* stream) {
+                                  float* proj, float* dsum, float* yacc, float* hs, int G, int L,
+                                  int D, int NS, int TCB, int TC, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (TCB < 1 || TC % TCB) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return fused_forward<float>(static_cast<const float*>(xs), static_cast<const float*>(wproj),
-                                A, Ds, bias, static_cast<float*>(y), yacc, hb, proj, dsum, G, L,
-                                D, NS, TC, s);
+                                A, Ds, bias, static_cast<float*>(y), yacc, hb, proj, hs, dsum,
+                                G, L, D, NS, TC, TCB, s);
   if (dtype == 1)
     return fused_forward<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(xs),
                                         static_cast<const __nv_bfloat16*>(wproj), A, Ds, bias,
-                                        static_cast<__nv_bfloat16*>(y), yacc, hb, proj, dsum, G,
-                                        L, D, NS, TC, s);
+                                        static_cast<__nv_bfloat16*>(y), yacc, hb, proj, hs,
+                                        dsum, G, L, D, NS, TC, TCB, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -134,7 +134,7 @@ class SS2D(nn.Module):
         H, W = x1.shape[1:3]
         D, N, io = self.d_inner, self.d_state, x1.dtype
         z = F.linear(x1, self.in_proj.weight[D:].to(io))
-        fold = dict(proj_w=self.out_proj.weight.t().to(io), gate=gate.to(io),
+        fold = dict(proj_w=self.out_proj.weight.t(), gate=gate.to(io),
                     residual_x=residual, H=H, W=W, eps=1e-5, gate_silu=True)
         norm = (z, self.out_norm.weight, self.out_norm.bias, local)
         if image_scan_vmem_ok(H, W, D, N):

@@ -39,7 +39,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from founddiff_tpu_torch.ops import _build
+from founddiff_tpu_torch.ops import _build, _cache
 from founddiff_tpu_torch.ops.selective_scan import (
     efficient_merge,
     efficient_scan,
@@ -312,45 +312,74 @@ def scan_fused_forward_plain(xs, w_delta, w_b, w_c, A, Dskip, delta_bias, chunk:
     return y.to(io), hb
 
 
-def _scan_fused_cuda(xs, w_delta, w_b, w_c, A, Dskip, delta_bias, chunk: int):
+def _fused_chunk(chunk: int, N: int) -> int:
+    """Steps per chunk of the fused-projection kernel's passes at N
+    (padded) states: the largest multiple of the h_bounds chunk ``chunk`` at
+    most the image kernel's chunk (:func:`_image_chunk`), and at least
+    ``chunk``; pass 2 writes h_bounds at every ``chunk`` steps inside it."""
+    return chunk * max(1, _image_chunk(N) // chunk)
+
+
+def _fused_wproj(w_delta, w_b, w_c, io):
+    """The folded projection [4, D, D + 2Np] (delta | B | C) at the io dtype,
+    B and C padded to Np = :func:`kernel_states` (N) states."""
+    N = w_b.shape[-1]
+    pad = (0, kernel_states(N) - N)
+    return torch.cat([w_delta, F.pad(w_b, pad), F.pad(w_c, pad)], dim=-1).to(io).contiguous()
+
+
+def _scan_fused_launch(xs, wproj, A, Dskip, delta_bias, chunk: int, bounds: bool):
+    """The kernel on xs [B, 4, L, D] with the folded ``wproj`` of
+    :func:`_fused_wproj`: ``(y, h_bounds [B*4, NC, N, D] or None)``."""
     Bsz, K, L, D = xs.shape
     N0 = A.shape[-1]
     if K != 4:
         raise ValueError(f"scan_fused_forward takes the 4 SS2D directions, got K = {K}")
-    io = xs.dtype
     xs = xs.contiguous()
-    A, w_b, w_c = pad_states(A, w_b, w_c)
+    (A,) = pad_states(A)
     N = A.shape[-1]
-    wproj = torch.cat([w_delta, w_b, w_c], dim=-1).to(io).contiguous()  # [4, D, D+2N]
-    f32 = lambda t: t.detach().float().contiguous()
-    A32, Ds32, bias32 = f32(A), f32(Dskip), f32(delta_bias)
+    A32, Ds32, bias32 = _cache.f32(A), _cache.f32(Dskip), _cache.f32(delta_bias)
     dev = xs.device
     _build.expect(dev, wproj=(wproj, (4, D, D + 2 * N)), A=(A32, (4, D, N)),
                   Dskip=(Ds32, (4, D)), delta_bias=(bias32, (4, D)))
-    G, NC = Bsz * 4, -(-L // chunk)
+    G, TC = Bsz * 4, _fused_chunk(chunk, N)
+    NC = -(-L // TC)
     y = torch.empty_like(xs)
-    hb = torch.empty(G, NC, N, D, device=dev)
-    proj = torch.empty(G * L * (D + 2 * N), device=dev)
-    dsum = torch.empty(G * NC * D, device=dev)
-    yacc = torch.empty(G * L * D, device=dev) if N > _GROUP else None
-    fn = _build.kernel("scan", "scan_fused_forward", 10, [ctypes.c_int] * 6)
-    rc = fn(*map(_build.ptr, (xs, wproj, A32, Ds32, bias32, y, hb, proj, dsum, yacc)),
-            G, L, D, N, chunk, _build.dtype_code(xs), _build.stream())
+    hb = torch.empty(G, -(-L // chunk), N, D, device=dev) if bounds else None
+    # fp32 scratch in one allocation: proj, the passes' chunk states and
+    # delta' sums, and, above 64 states, yacc
+    sizes = (G * L * (D + 2 * N), G * NC * N * D, G * NC * D, G * L * D if N > _GROUP else 0)
+    proj, hs, dsum, yacc = torch.empty(sum(sizes), device=dev).split(sizes)
+    yacc = yacc if N > _GROUP else None
+    fn = _build.kernel("scan", "scan_fused_forward", 11, [ctypes.c_int] * 7)
+    rc = fn(*map(_build.ptr, (xs, wproj, A32, Ds32, bias32, y, hb, proj, dsum, yacc, hs)),
+            G, L, D, N, chunk, TC, _build.dtype_code(xs), _build.stream())
     _build.check(rc, "scan_fused_forward")
     scan_fused_forward.launches += 1
-    return y, (hb if N == N0 else hb[:, :, :N0])
+    return y, (hb if hb is None or N == N0 else hb[:, :, :N0])
+
+
+def _scan_fused_cuda(xs, w_delta, w_b, w_c, A, Dskip, delta_bias, chunk: int,
+                     bounds: bool = True):
+    io = xs.dtype
+    wproj = _cache.derived(("ssf_wproj", io), (w_delta, w_b, w_c),
+                           lambda: _fused_wproj(w_delta.detach(), w_b.detach(), w_c.detach(), io))
+    return _scan_fused_launch(xs, wproj, A, Dskip, delta_bias, chunk, bounds)
 
 
 def scan_fused_forward(xs, w_delta, w_b, w_c, A, Dskip, delta_bias,
-                       chunk: Optional[int] = None):
+                       chunk: Optional[int] = None, bounds: bool = True):
     """The scan of xs [B, 4, L, D] with delta = xs @ w_delta [4, D, D], B =
     xs @ w_b, C = xs @ w_c ([4, D, N]): ``(y [B,4,L,D] at xs's dtype,
     h_bounds [B*4, NC, N, D] fp32)``, h_bounds as ``scan_forward`` gives
-    them at the same ``chunk``.  CUDA tensors launch the kernel; CPU tensors
+    them at the same ``chunk``; ``bounds=False`` returns None for them (the
+    kernel then writes none).  CUDA tensors launch the kernel; CPU tensors
     take the plain version."""
     chunk = chunk or scan_chunk(A.shape[-1])
-    fn = _scan_fused_cuda if xs.is_cuda else scan_fused_forward_plain
-    return fn(xs, w_delta, w_b, w_c, A, Dskip, delta_bias, chunk)
+    if xs.is_cuda:
+        return _scan_fused_cuda(xs, w_delta, w_b, w_c, A, Dskip, delta_bias, chunk, bounds)
+    y, hb = scan_fused_forward_plain(xs, w_delta, w_b, w_c, A, Dskip, delta_bias, chunk)
+    return y, (hb if bounds else None)
 
 
 scan_fused_forward.launches = 0
@@ -392,7 +421,20 @@ def selective_scan_fused(xs, x_proj_weight, dt_projs_weight, A, Dskip, delta_bia
     R+2N, D] and dt_projs_weight [4, D, R], with delta_softplus=True.  The
     dt low rank is folded into one [D, D] matrix and every weight cast to
     xs's dtype, as the JAX op does.  Returns y [B, 4, L, D] at xs's dtype;
-    differentiable in every tensor argument."""
+    differentiable in every tensor argument.  A call on CUDA tensors that
+    needs no gradient launches without the autograd Function, with the
+    folded projection derived once per version of the two weights, and
+    writes no h_bounds."""
+    if xs.is_cuda and not _cache.needs_grad(xs, x_proj_weight, dt_projs_weight, A, Dskip,
+                                            delta_bias):
+        io = xs.dtype
+        wproj = _cache.derived(
+            ("ssf_wproj_unfolded", io, dt_rank, d_state), (x_proj_weight, dt_projs_weight),
+            lambda: _fused_wproj(*_derive_weights(x_proj_weight.detach(),
+                                                  dt_projs_weight.detach(), dt_rank,
+                                                  d_state), io))
+        return _scan_fused_launch(xs, wproj, A, Dskip, delta_bias, scan_chunk(A.shape[-1]),
+                                  bounds=False)[0]
     w = _derive_weights(x_proj_weight, dt_projs_weight, dt_rank, d_state)
     return SelectiveScanFusedFn.apply(xs, *(t.to(xs.dtype) for t in w), A, Dskip, delta_bias)
 

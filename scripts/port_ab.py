@@ -13,14 +13,20 @@ tree, so that each imports its own ``founddiff_tpu_torch`` and
 CUDA events (median of 7 after 2 warm-ups) on inputs made from a seed by
 its tree's ``chip_smoke.py`` case functions:
 
-- the redesigned kernels, ``attn_block`` and ``scan_image_forward``, event
-  and device time (``torch.profiler``) of one call and the device time of
-  each of its launches by kernel, at each shape of their units:
-  ``attn_block`` at the six MambaBlock shapes of a bs1 and of a bs4 bf16
-  512^2 UNet forward and of the fp32 train step (``kernel_cases`` at batch
-  1, 4 and 2; 12 calls a step), ``scan_image_forward`` at the five
-  image-route shapes of the fp32 train step (``train_cases``: 2 slices a
-  microbatch, 10 calls a step); and their sums over each unit;
+- the redesigned kernels, ``scan_fused_forward`` and ``merge_ln_gate``,
+  event and device time (``torch.profiler``) of one call and the device
+  time of each of its launches by kernel, at each shape of their units
+  (``unfused_cases``): ``scan_fused_forward`` at the three 45^2 MambaBlocks
+  of a bs1 and of a bs4 bf16 360^2 UNet forward and of the fp32 360^2
+  train step (2 slices a microbatch, 6 calls a step), ``merge_ln_gate`` at
+  the three 2x2 MambaBlocks of a bs1 and of a bs4 bf16 16^2 UNet forward;
+  and ``scan_image_forward``, which shares the scan's chunk passes, at the
+  five image-route shapes of the fp32 512^2 train step (``train_cases``,
+  10 calls a step); and their sums over each unit;
+- ``share``: where the device time of one bs4 bf16 360^2 DDIM-2 request
+  goes (``profile_device``): the fused scan's launches, named by the
+  kernel rows above, against the other port kernels, cuDNN/cuBLAS and the
+  other PyTorch kernels;
 - the fp32 train step of ``Config()`` at 512^2 and 360^2 (chip_smoke's
   ``train_full_width`` without its bf16 steps: a warm-up step, then the
   median of 3, host clock around work that ends in
@@ -32,7 +38,8 @@ In its first turn each tree also hashes (sha256) the outputs of every
 phase-2 case of the kernels listed in ``UNTOUCHED``, fp32 and bf16, at
 inputs seeded by the case's name, so that the two trees' bits can be
 compared.  ``--parts`` picks what a worker measures (``hash``,
-``kernels``, ``train``, ``serving``; all by default).  Needs one CUDA card.
+``kernels``, ``share``, ``train``, ``serving``; all by default; ``share``
+needs ``kernels``).  Needs one CUDA card.
 Writes ``chiprun_out/port_ab.json`` under the working directory and prints a
 table.
 """
@@ -50,11 +57,13 @@ import time
 import zlib
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REDESIGNED = ("attn_block", "scan_image_forward")
-UNTOUCHED = ("ss2d_image_block", "layer_norm_modulated", "scan_forward", "scan_backward",
-             "scan_fused_forward", "layer_norm", "merge_ln_gate", "gn_stats", "gn_apply",
+REDESIGNED = ("scan_fused_forward", "merge_ln_gate")
+# scan_image_forward is timed beside them (it shares their chunk passes) and
+# hashed as untouched (its bits must not move)
+UNTOUCHED = ("ss2d_image_block", "attn_block", "layer_norm_modulated", "scan_forward",
+             "scan_backward", "scan_image_forward", "layer_norm", "gn_stats", "gn_apply",
              "ss2d_mamba_block", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-PARTS = ("hash", "kernels", "train", "serving")
+PARTS = ("hash", "kernels", "share", "train", "serving")
 # the modules of the kernels whose launches a train step counts
 WRAPPED = (("ss2d_image_block", "ss2d_block"), ("attn_block", "attn_block"),
            ("layer_norm_modulated", "norm"), ("scan_forward", "scan"),
@@ -181,12 +190,16 @@ def _redesigned_cases(cs):
     import torch
 
     cases = []
-    for B, unit, dtype, per in ((1, "bs1 bf16 forward", torch.bfloat16, 1),
-                                (4, "bs4 bf16 forward", torch.bfloat16, 1),
-                                (cs.TRAIN_BATCH, "fp32 step", torch.float32, 2)):
+    for kname, B, unit, dtype, per in (
+            ("scan_fused_forward", 1, "bs1 bf16 360^2 forward", torch.bfloat16, 1),
+            ("scan_fused_forward", 4, "bs4 bf16 360^2 forward", torch.bfloat16, 1),
+            ("scan_fused_forward", cs.TRAIN_BATCH, "fp32 360^2 step", torch.float32, 2),
+            ("merge_ln_gate", 1, "bs1 bf16 16^2 forward", torch.bfloat16, 1),
+            ("merge_ln_gate", 4, "bs4 bf16 16^2 forward", torch.bfloat16, 1)):
         cases += [(k, unit, per * n, label, dtype, make)
-                  for k, label, n, make in cs.kernel_cases(B) if k == "attn_block"]
-    cases += [(k, "fp32 step", n, label, torch.float32, make)
+                  for k, label, n, make in cs.unfused_cases(B) if k == kname and n]
+    # row 6 runs the chunk passes it shares with scan_fused_forward
+    cases += [(k, "fp32 512^2 step", n, label, torch.float32, make)
               for k, label, n, make in cs.train_cases() if k == "scan_image_forward"]
     return cases
 
@@ -208,6 +221,50 @@ def _kernel_rows(cs) -> dict:
         del args, kw
         torch.cuda.empty_cache()
     return rows
+
+
+def _fused_scan_launch(name: str, mine) -> bool:
+    """Whether a profiled kernel is one of the fused scan's: a name of its
+    rows, or one only its calls launch (the serving call writes no h_bounds,
+    so its pass 2 is another template than its rows' in the newer tree):
+    the projection GEMM on strided rows, its chunk passes and its carry."""
+    n = _kernel_name(name)
+    return (n in mine or ("RowStrided" in n and ("EpiProj" in n or "chunk_pass_kernel" in n))
+            or n.startswith("fused_chunk_kernel") or n in ("carry_kernel",
+                                                           "carry_scan_kernel<false, 4>"))
+
+
+def _share(cs, rows) -> dict:
+    """Device ms of one bs4 bf16 360^2 DDIM-2 request by group: the fused
+    scan's launches (:func:`_fused_scan_launch`), the other port kernels,
+    cuDNN/cuBLAS and the other PyTorch kernels; and the device's busy ms."""
+    import numpy as np
+    import torch
+    from founddiff_tpu_torch.config import Config
+    from founddiff_tpu_torch.factory import build
+    from founddiff_tpu_torch.pipeline import make_hoisted_sampler
+
+    mine = {k for r in rows.values() if r["kernel"] == "scan_fused_forward" for k in r["split"]}
+    cfg = Config()
+    cfg.diffusion.image_size = cs.ODD_SIZE
+    diffusion, model = build(cfg, device="cuda", seed=0)
+    cs.perturb_gates(model, seed=0)
+    sampler = make_hoisted_sampler(model, diffusion, compute_dtype=torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(1).random(
+        (4, cs.ODD_SIZE, cs.ODD_SIZE, 1), dtype=np.float32)).cuda()
+    run = lambda: sampler(x, generator=torch.Generator().manual_seed(9))
+    run()
+    torch.cuda.synchronize()
+    prof = cs.profile_device(run, "ab share 360 bs4", top=0)
+    groups = {"scan_fused_forward": 0.0}
+    for r in prof["kernels"]:
+        g = ("scan_fused_forward" if _fused_scan_launch(r["name"], mine) else
+             next((n for n, match in cs.PROFILE_GROUPS if match(r["name"])),
+                  "other PyTorch kernels"))
+        groups[g] = groups.get(g, 0.0) + r["ms"]
+    del model, diffusion, sampler
+    torch.cuda.empty_cache()
+    return dict(wall_ms=prof["wall_ms"], busy_ms=prof["busy_ms"], groups=groups)
 
 
 def _train(cs, card: str) -> dict:
@@ -246,8 +303,8 @@ def worker(tree: str, out_path: str, parts) -> None:
     built = _build.build_all()
     ops = _ops()
     dev = torch.device("cuda")
-    rec = dict(tree=tree, card=card, build_s=built["seconds"], hashes={}, rows={}, train={},
-               serving={})
+    rec = dict(tree=tree, card=card, build_s=built["seconds"], hashes={}, rows={}, share={},
+               train={}, serving={})
     if "hash" in parts:
         for batch, kname, label, count, make in _cases(cs):
             if kname not in UNTOUCHED:
@@ -260,6 +317,8 @@ def worker(tree: str, out_path: str, parts) -> None:
             torch.cuda.empty_cache()
     if "kernels" in parts:
         rec["rows"] = _kernel_rows(cs)
+    if "share" in parts:
+        rec["share"] = _share(cs, rec["rows"])
     if "train" in parts:
         rec["train"] = _train(cs, card)
     if "serving" in parts:
@@ -319,8 +378,8 @@ def main() -> int:
             runs[name].append(json.load(f))
         print(f"[turn {i}] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
     card = runs["change"][0]["card"]
-    summary = dict(card=card, order=order, kernels={}, split={}, train={}, serving={},
-                   bits={})
+    summary = dict(card=card, order=order, kernels={}, split={}, share={}, train={},
+                   serving={}, bits={})
     for kname, unit in _units(runs["change"][0]["rows"]):
         for key in ("ms", "device_ms"):
             summary["kernels"][f"{kname} per {unit} {key}"] = {
@@ -329,6 +388,7 @@ def main() -> int:
         summary["split"][n] = {f"{k} per {u}": [_split_per_unit(r["rows"], k, u)
                                                 for r in runs[n]]
                                for k, u in _units(runs["change"][0]["rows"])}
+        summary["share"][n] = [r["share"] for r in runs[n]]
         summary["train"][n] = [r["train"] for r in runs[n]]
         summary["serving"][n] = [{s: {k: v for k, v in d.items() if k.endswith("per_s")}
                                   for s, d in r["serving"].items()} for r in runs[n]]
@@ -348,6 +408,11 @@ def main() -> int:
             for r in turns:
                 print(f"[ab split] {n} {kname}: " + ", ".join(
                     f"{k} {v:.3f}" for k, v in sorted(r.items(), key=lambda x: -x[1])) + " ms")
+        for r in summary["share"][n]:
+            if r:
+                print(f"[ab share 360^2 bs4 request] {n}: busy {r['busy_ms']:.3f} of "
+                      f"{r['wall_ms']:.3f} ms: " + ", ".join(
+                          f"{g} {v:.3f}" for g, v in r["groups"].items()) + " ms")
         for r in summary["train"][n]:
             print(f"[ab train fp32 step] {n}: " + ", ".join(
                 f"{s}^2 {t:.4f} s" for s, t in r.items()))

@@ -472,17 +472,29 @@ def _fused_scan_inputs(g, B, L, D, N, dtype, dev):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("L,D,N", [(37, 64, 4), (529, 96, 32), (100, 128, 16)])
-def test_scan_fused_forward_kernel(dev, dtype, L, D, N):
-    """Ragged L (37, 529 = 23^2: a 45^2 grid's padded decimation); y and
-    h_bounds against the plain version."""
-    args = _fused_scan_inputs(_gen(L + D + 1), 2, L, D, N, dtype, dev)
+@pytest.mark.parametrize("B,L,D,N", [(2, 37, 64, 4), (2, 529, 96, 32), (2, 100, 128, 16),
+                                     (4, 529, 1024, 32), (1, 256, 128, 12),
+                                     (1, 100, 128, 128)])
+def test_scan_fused_forward_kernel(dev, dtype, B, L, D, N):
+    """Ragged L (37, 529 = 23^2: a 45^2 grid's padded decimation), a 45^2
+    block at bs4 and full width, N = 12 (padded) and 128 (two groups); y and
+    h_bounds against the plain version and, in fp32, h_bounds against
+    ``scan_forward``'s on the same delta/B/C (the backward's chunks inside
+    the passes' longer ones); without h_bounds the same y, bit for bit."""
+    args = _fused_scan_inputs(_gen(L + D + 1), B, L, D, N, dtype, dev)
     before = scan_mod.scan_fused_forward.launches
     y, hb = scan_mod.scan_fused_forward(*args)
     assert scan_mod.scan_fused_forward.launches == before + 1
     y_p, hb_p = scan_mod.scan_fused_forward_plain(*args, scan_mod.scan_chunk(N))
     _close(y, y_p, dtype)
     _close(hb, hb_p, torch.float32)
+    y_only, none = scan_mod.scan_fused_forward(*args, bounds=False)
+    assert none is None and torch.equal(y_only, y)
+    if dtype == torch.float32:
+        xs, wd, wb, wc, A, Ds, bias = args
+        _, hb_s = scan_mod.scan_forward(xs, xs @ wd[None], A, xs @ wb[None], xs @ wc[None], Ds,
+                                        bias)
+        _close(hb, hb_s, torch.float32)
 
 
 @pytest.mark.gpu
@@ -506,11 +518,19 @@ def _epilogue_args(g, B, H, W, C, Co, dtype, dev, local, fold):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("split", [False, True])
-@pytest.mark.parametrize("H,W,C,Co,local,fold", [(2, 2, 512, 256, True, True),
-                                                 (12, 20, 64, 32, False, True),
-                                                 (8, 6, 96, 96, True, False)])
-def test_ss2d_epilogue_kernel(dev, dtype, split, H, W, C, Co, local, fold):
-    args, kw = _epilogue_args(_gen(H * W + C), 2, H, W, C, Co, dtype, dev, local, fold)
+@pytest.mark.parametrize("B,H,W,C,Co,local,fold", [(2, 2, 2, 512, 256, True, True),
+                                                   (2, 12, 20, 64, 32, False, True),
+                                                   (2, 8, 6, 96, 96, True, False),
+                                                   (1, 2, 2, 1024, 512, True, True),
+                                                   (4, 2, 2, 1024, 512, False, True),
+                                                   (1, 2, 2, 2048, 64, True, True),
+                                                   (1, 10, 8, 136, 72, True, True)])
+def test_ss2d_epilogue_kernel(dev, dtype, split, B, H, W, C, Co, local, fold):
+    """With fold: the few-pixel tiling at P = 4, 8 and 16 (2x2 grids at bs1,
+    2 and 4), the many-pixel tiling at P = 80 (C and Co no multiple of
+    their tiles) and 480, and at C 2048 in fp32 the two-launch form (og and
+    the weight slice exceed a block's shared memory; bf16 still fits)."""
+    args, kw = _epilogue_args(_gen(H * W + C), B, H, W, C, Co, dtype, dev, local, fold)
     ys = args.pop("ys")
     before = fused_mod.merge_ln_gate.launches
     if split:

@@ -171,6 +171,93 @@ def test_merge_ln_gate(split, local, gate_silu, fold):
         _close(a, b, name)
 
 
+# --- the kernels' host-side planning -------------------------------------------
+
+
+class _Launch:
+    """A stand-in for a kernel's C function: records its arguments."""
+
+    def __init__(self):
+        self.args = None
+
+    def __call__(self, *args):
+        self.args = args
+        return 0
+
+
+def _stand_in(monkeypatch, *counted):
+    """Every kernel call goes to one recorder; the launch counters of
+    ``counted`` are restored when ``monkeypatch`` undoes its patches."""
+    rec = _Launch()
+    for fn in counted:
+        monkeypatch.setattr(fn, "launches", fn.launches)
+    monkeypatch.setattr(tscan._build, "kernel", lambda *a: rec)
+    monkeypatch.setattr(tscan._build, "stream", lambda: 0)
+    return rec
+
+
+@pytest.mark.parametrize("N", [4, 8, 12, 16, 32, 64, 128])
+def test_fused_pass_chunk(N):
+    """The fused-projection kernel's passes run the largest multiple of the
+    h_bounds chunk at most the image kernel's chunk (at least the h_bounds
+    chunk), so pass 2 meets every h_bounds boundary: 32 steps at N = 32
+    (four of ``scan_backward``'s 8)."""
+    chunk, Np = tscan.scan_chunk(N), tscan.kernel_states(N)
+    TC, img = tscan._fused_chunk(chunk, Np), tscan._image_chunk(Np)
+    assert TC % chunk == 0 and chunk <= TC <= max(chunk, img) and TC + chunk > img
+    if N == 32:
+        assert (chunk, TC) == (8, 32)
+
+
+@pytest.mark.parametrize("bounds", [True, False])
+def test_scan_fused_launch_arguments(monkeypatch, bounds):
+    """What the wrapper hands the kernel at L = 45, N = 32: G, L, D, N, the
+    h_bounds chunk and the passes' chunk; h_bounds [G, 6, N, D] or, without
+    them, a null pointer and None."""
+    rec = _stand_in(monkeypatch, tscan.scan_fused_forward)
+    xs, w_delta, w_b, w_c, A, Ds, bias = map(t_, _fused_inputs(2, 45, 16, 32, seed=9))
+    y, hb = tscan._scan_fused_cuda(xs, w_delta, w_b, w_c, A, Ds, bias, tscan.scan_chunk(32),
+                                   bounds)
+    ptrs, ints = rec.args[:11], rec.args[11:]
+    assert ints == (8, 45, 16, 32, 8, 32, 0, 0)
+    assert y.shape == xs.shape
+    assert (ptrs[6] is None) == (not bounds) and ptrs[9] is None  # no yacc at N <= 64
+    assert hb is None if not bounds else hb.shape == (8, 6, 32, 16)
+
+
+@pytest.mark.parametrize("P,C,Co,io_size,plan", [
+    (4, 1024, 512, 2, 1), (4, 1024, 512, 4, 1), (16, 1024, 512, 4, 1), (4, 512, 256, 2, 1),
+    (64, 1024, 512, 4, 1), (65, 128, 64, 4, 2), (129600, 128, 64, 2, 2),
+    (32400, 256, 128, 4, 2), (4, 2048, 1024, 4, 0), (4, 2048, 1024, 2, 1)])
+def test_fold_plan(P, C, Co, io_size, plan):
+    """The epilogue fold's tiling: few pixels (the 2x2 grids of a 16^2 slice
+    at bs1 to bs4, up to 64) on 16 x 16 tiles with K split over the warps,
+    many on 64 x 64 tiles, both where og and the weight slice fit a block's
+    227 KB of shared memory; fp32 at C 2048 does not, and takes two
+    launches."""
+    got, smem = tfused._fold_plan(P, C, Co, io_size)
+    assert got == plan
+    assert (smem <= 227 * 1024) == (plan != 0)
+
+
+@pytest.mark.parametrize("C,fold,plan", [(1024, True, 1), (2048, True, 0), (64, False, 0)])
+def test_epilogue_launch_arguments(monkeypatch, C, fold, plan):
+    """fp32 at a 2x2 grid: the plan the wrapper hands the kernel, and the og
+    scratch only for the two-launch form."""
+    rec = _stand_in(monkeypatch, tfused.merge_ln_gate)
+    B, H, W, Co = 1, 2, 2, 64
+    rs = np.random.RandomState(C)
+    f = lambda *s: t_(_f(rs, *s))
+    kw = dict(proj_w=f(C, Co), gate=f(B, Co), residual_x=f(B, H, W, Co)) if fold else {}
+    out = tfused._epilogue_cuda(f(B, 2, 1, C), f(B, 2, 1, C), f(B, H, W, C), f(C), f(C), None,
+                                kw.get("proj_w"), kw.get("gate"), kw.get("residual_x"), H, W,
+                                1e-5, True)
+    assert out.shape == (B, H, W, Co if fold else C)
+    ptrs, ints = rec.args[:13], rec.args[13:]
+    assert ints[9:12] == (int(fold), plan, 0)
+    assert (ptrs[12] is not None) == (fold and plan == 0)
+
+
 # --- a micro FoundDiff whose deepest grid is odd ------------------------------
 
 # dim 16 x (1,) at 5^2: every MambaBlock on the odd grid, so on the unfused
