@@ -19,8 +19,10 @@ Phases (any failure exits non-zero before the last line is printed):
    microbatch, so 8 direction sequences), the flash kernels at the vanilla
    UNet's bottleneck ([1, 4, 4096, 32] serving, [2, 4, 4096, 32] training)
    and at a ragged Lq 1000 / Lk 777, the GroupNorm pair at the seven (H, C)
-   of both UNets at batches 1, 2 and 4 (``gn_apply`` with the residual and,
-   without one, with the time scale/shift folded in), the unified op at the
+   of both UNets at batches 1, 2 and 4 as block1 calls it (the time
+   scale/shift as the ``.chunk`` views of one [B, 2C] tensor) and as block2
+   calls it (the residual), and at groups 4 and the 360^2 and 45^2
+   ResnetBlocks of a 360^2 slice, the unified op at the
    MambaBlock shapes at batches 1, 2 and 4, in fp32 and bf16, with the stated
    tolerance (the scan backward's seven gradients each); prints the errors,
    the kernel's and the plain version's times (CUDA events, warmed up,
@@ -60,11 +62,11 @@ Phases (any failure exits non-zero before the last line is printed):
    ``attn_block`` also at the three C = 64 MambaBlocks of a 512^2 slice
    (512^2 and 256^2 at bs4), where ``FOUNDDIFF_ATTN_BLOCK=on`` takes it and
    the default runs the plain composition, timed beside that composition;
-   and the device time of each launch of the two kernels redesigned last
-   (``torch.profiler``), ``scan_fused_forward`` over a bs1 and a bs4 bf16
-   360^2 UNet forward and an fp32 360^2 train step and ``merge_ln_gate``
-   over a bs1 bf16 16^2 UNet forward; and those two kernels' summed times
-   and bounds per bs4 forward and (``scan_fused_forward``) per fp32 step.
+   the device time of each launch of the GroupNorm pair, redesigned last
+   (``torch.profiler``), over the 38 epilogues of a bs1 fp32 vanilla UNet
+   forward on the kernel route, and the launches of one epilogue; and the
+   summed times and bounds of ``scan_fused_forward`` and ``merge_ln_gate``
+   per bs4 forward and (``scan_fused_forward``) per fp32 step.
 3. Main path at full width: ``build(Config())`` on the card (dim 64 x
    (1, 2, 4, 8), full RN50 CLIPIQA tower, seeded random weights with
    non-zero adaLN and prompt), ``make_hoisted_sampler(...,
@@ -129,7 +131,8 @@ Phases (any failure exits non-zero before the last line is printed):
    at bs1 and bs4, training as phase 9 (3 timed fp32 steps, 2 / 2 / 2 flash
    and 76 / 76 GroupNorm launches per step), each printed beside phases 8
    and 9; then the 38 GroupNorm epilogues of a bs1 fp32 vanilla forward
-   timed on each route against that forward's device-busy time.
+   timed on each route against that forward's device-busy time, with each
+   route's launches per epilogue.
 12. FoundDiff serving on slices whose deepest grid is odd: the phase-3
    model on 4 bs1 requests of a 360^2 slice (8 x 45: the three deepest
    MambaBlocks run at 45^2, on the unfused route) and 2 batches of 4, with 6
@@ -865,46 +868,60 @@ def _kernel_name(key: str) -> str:
     return key.split("(")[0]
 
 
-def launch_split(ops, card):
-    """Phase 2: the device time of each launch of the two redesigned
-    kernels, by kernel, summed over one unit's calls at its main-path shapes:
-    ``scan_fused_forward`` over a bs1 and a bs4 bf16 360^2 UNet forward (3
-    calls) and an fp32 360^2 train step (6 calls), ``merge_ln_gate`` over a
-    bs1 bf16 16^2 UNet forward (3 calls); ``torch.profiler`` over 10 calls
-    of each shape."""
+def gn_split(card):
+    """Phase 2: the device time of each launch of the GroupNorm pair, by
+    kernel (``torch.profiler``), over the 38 epilogues of a bs1 fp32 vanilla
+    UNet forward: ``group_norm_silu`` on the kernel route at each (H, C) of
+    GN_BLOCKS as block1 calls it (the time scale/shift as ``.chunk`` views)
+    and as block2 calls it (the residual), 10 calls of each; and the
+    launches of one epilogue, the port's and PyTorch's."""
     from torch.profiler import ProfilerActivity, profile
 
+    from founddiff_tpu_torch.ops.groupnorm import group_norm_silu
+
     dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(47)
-    units = [(k, unit, dtype, per, [c for c in unfused_cases(B) if c[0] == k and c[2]])
-             for k, unit, B, dtype, per in (
-                 ("scan_fused_forward", "bs1 bf16 360^2 forward", 1, torch.bfloat16, 1),
-                 ("scan_fused_forward", "bs4 bf16 360^2 forward", 4, torch.bfloat16, 1),
-                 ("scan_fused_forward", "fp32 360^2 step", TRAIN_BATCH, torch.float32, 2),
-                 ("merge_ln_gate", "bs1 bf16 16^2 forward", 1, torch.bfloat16, 1))]
-    result = {}
-    for kname, unit, dtype, per, cases in units:
-        split = {}
-        for _, label, count, make in cases:
-            args, kw = make(dtype, gen, dev)[:2]
-            fn = lambda: ops[kname][0](*args, **kw)
-            fn()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(10):
-                    fn()
+    gen = torch.Generator().manual_seed(38)
+    ms_by, n_by, per_epilogue = {}, {}, {}
+    with routes_on(FOUNDDIFF_GN=ROUTES["FOUNDDIFF_GN"]):
+        for (H, C), n in GN_BLOCKS.items():
+            for ss in (True, False):
+                x, g, b, ms, mt = _gn_operands(1, H, C, ss, torch.float32, gen, dev)
+                x = x.view(1, H, H, C)
+                r = None if ss else _n(gen, (1, H, H, C), 1.0, dev)
+                pair = (ms, mt) if ss else None
+                fn = lambda: group_norm_silu(x, g, b, residual=r, scale_shift=pair)
+                fn()
                 torch.cuda.synchronize()
-            for e in prof.key_averages():
-                if e.device_type.name == "CUDA":
-                    k = _kernel_name(e.key)
-                    split[k] = split.get(k, 0.0) + (e.self_device_time_total / 1e3 / 10
-                                                    * count * per)
-            del args, kw
-        result[f"{kname} per {unit}"] = split
-        log(f"[split] {kname} per {unit}, device ms by launch [{card}]: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in sorted(split.items(), key=lambda x: -x[1])))
+                for _ in range(3):  # a profile now and then comes back without device events
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        for _ in range(10):
+                            fn()
+                        torch.cuda.synchronize()
+                    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+                    if events:
+                        break
+                else:
+                    raise AssertionError(f"GroupNorm split at {H}^2 C={C}: no device events")
+                for e in events:  # launches a call rounded: the profiler may drop an event
+                    k, per_call = _kernel_name(e.key), max(1, round(e.count / 10))
+                    ms_by[k] = (ms_by.get(k, 0.0)
+                                + e.self_device_time_total / 1e3 / e.count * per_call * n)
+                    n_by[k] = n_by.get(k, 0) + per_call * n
+                    group = next((name for name, match in PROFILE_GROUPS if match(e.key)),
+                                 "other PyTorch kernels")
+                    per_epilogue[group] = per_epilogue.get(group, 0) + per_call * n
+                del x, r, pair, ms, mt
+    calls = 2 * sum(GN_BLOCKS.values())
+    per_epilogue = {k: v / calls for k, v in per_epilogue.items()}
+    for k in sorted(ms_by, key=lambda k: -ms_by[k]):
+        log(f"[split] GroupNorm per bs1 fp32 vanilla forward ({calls} epilogues): {k} "
+            f"{ms_by[k]:.4f} ms in {n_by[k]:.0f} launches, {1e3 * ms_by[k] / n_by[k]:.2f} us a "
+            f"launch [{card}]")
+    log(f"[split] GroupNorm launches per epilogue on the kernel route: {per_epilogue}")
+    if per_epilogue != {"port kernels": 2}:  # one C call, two launches, nothing of PyTorch's
+        raise AssertionError(f"GroupNorm epilogue launches {per_epilogue}, want 2 of the port's")
     torch.cuda.empty_cache()
-    return result
+    return dict(device_ms=ms_by, launches=n_by, launches_per_epilogue=per_epilogue)
 
 
 # the units beside the kernels line's bs1 bf16 forward: (kernel, unit,
@@ -1013,34 +1030,43 @@ def _group_norm_library(x4, gen, dev):
     return lambda: torch.nn.functional.group_norm(nchw, GN_GROUPS, w, b, 1e-5)
 
 
-def gn_stats_case(B, H, C, dtype, gen, dev):
+def _gn_operands(B, H, C, ss, dtype, gen, dev):
+    """x [B, H*H, C] at the io dtype, the GroupNorm affine [C] and, with
+    ``ss``, the time scale/shift as the ``.chunk`` views of one [B, 2C]
+    tensor (the time MLP's output, rows of stride 2C), else (None, None)."""
     x = _n(gen, (B, H * H, C), 1.5, dev).add_(0.3).to(dtype)
+    g, b = _n(gen, (C,), 0.1, dev).add_(1.0), _n(gen, (C,), 0.1, dev)
+    ms, mt = _n(gen, (B, 2 * C), 0.2, dev).chunk(2, dim=-1) if ss else (None, None)
+    return x, g, b, ms, mt
+
+
+def gn_stats_case(B, H, C, ss, dtype, gen, dev, groups=GN_GROUPS):
+    """gn_stats as an epilogue calls it: block1's with the time scale/shift,
+    block2's (and the ResnetBlocks') without; its output, the [B, 2, C]
+    coefficient table."""
+    x, g, b, ms, mt = _gn_operands(B, H, C, ss, dtype, gen, dev)
     # x read once, [B, 2, C] fp32 written; a sum and a square-add per element
+    # (the row's bound as first defined, kept so its times compare across versions)
     moved = nbytes(x) + 4 * 2 * B * C
     # no library row of its own: the pair's F.group_norm stands in gn_apply's
-    return (x,), {}, None, moved, [(3 * x.numel(), FP32_FLOPS)]
+    return (x, g, b, ms, mt, groups, 1e-5), {}, None, moved, [(3 * x.numel(), FP32_FLOPS)]
 
 
-def gn_apply_case(B, H, C, res, dtype, gen, dev):
+def gn_apply_case(B, H, C, res, dtype, gen, dev, groups=GN_GROUPS):
     """gn_apply as the Blocks call it: with the residual (block2, the
     ResnetBlocks) or, without one, with the time scale/shift folded into the
-    per-image affine (block1)."""
-    from founddiff_tpu_torch.ops.groupnorm import gn_stats_plain, group_stats
+    table (block1); the table from the plain stats."""
+    from founddiff_tpu_torch.ops.groupnorm import gn_stats_plain
 
-    x = _n(gen, (B, H * H, C), 1.5, dev).add_(0.3).to(dtype)
-    mean, rstd = group_stats(gn_stats_plain(x), H * H, GN_GROUPS, 1e-5)
-    g, b = _n(gen, (C,), 0.1, dev).add_(1.0), _n(gen, (C,), 0.1, dev)
-    ms, mt = (_n(gen, (B, C), 0.2, dev) for _ in range(2))
-    if res:
-        g, b = g.expand(B, C).contiguous(), b.expand(B, C).contiguous()
-    else:
-        g, b = g * (ms + 1.0), b * (ms + 1.0) + mt
+    x, g, b, ms, mt = _gn_operands(B, H, C, not res, dtype, gen, dev)
+    table = gn_stats_plain(x, g, b, ms, mt, groups, 1e-5)
     r = _n(gen, (B, H * H, C), 1.0, dev).to(dtype) if res else None
-    # x (and the residual) read, y written at the io dtype, four [B, C] fp32;
-    # per element about 10 fp32 operations and one exponential
+    # x (and the residual) read, y written at the io dtype, four [B, C] fp32
+    # (the row's bound as first defined, kept so its times compare across versions); per
+    # element about 10 fp32 operations and one exponential
     moved = nbytes(x, r) + nbytes(x) + 4 * 4 * B * C
     work = [(10 * x.numel(), FP32_FLOPS), (x.numel(), SFU_EXP_PER_S)]
-    return ((x, mean, rstd, g, b, r), {}, r, moved, work,
+    return ((x, table, r), {}, r, moved, work,
             _group_norm_library(x.view(B, H, H, C), gen, dev))
 
 
@@ -1086,13 +1112,21 @@ def route_cases(B):
     BLOCKS (counts: calls per FoundDiff UNet forward); batches 1 and 4 are
     the serving batches, TRAIN_BATCH the microbatch of the train steps."""
     cases = []
-    for (H, C), n in GN_BLOCKS.items():
-        cases.append(("gn_stats", f"bs{B} {H}^2 C={C}", 2 * n,
-                      lambda dt, g, d, H=H, C=C: gn_stats_case(B, H, C, dt, g, d)))
+    # (H, C, groups, calls per bs1 vanilla forward): GN_BLOCKS, then edges no
+    # forward of phase 11 runs: groups 4, and the ResnetBlocks of a 360^2
+    # slice at its top (360^2) and deepest (45^2) scale
+    gn = [(H, C, GN_GROUPS, n) for (H, C), n in GN_BLOCKS.items()]
+    gn += [(128, 128, 4, 0), (ODD_SIZE, 64, GN_GROUPS, 0), (ODD_SIZE // 8, 512, GN_GROUPS, 0)]
+    for H, C, G, n in gn:
+        edge = "" if G == GN_GROUPS else f" groups={G}"
         for res in (True, False):
-            cases.append(("gn_apply", f"bs{B} {H}^2 C={C} {'res' if res else 'scale/shift'}",
-                          n, lambda dt, g, d, H=H, C=C, res=res: gn_apply_case(
-                              B, H, C, res, dt, g, d)))
+            variant = "res" if res else "scale/shift"
+            cases.append(("gn_stats", f"bs{B} {H}^2 C={C} {variant}{edge}", n,
+                          lambda dt, g, d, H=H, C=C, G=G, res=res: gn_stats_case(
+                              B, H, C, not res, dt, g, d, G)))
+            cases.append(("gn_apply", f"bs{B} {H}^2 C={C} {variant}{edge}", n,
+                          lambda dt, g, d, H=H, C=C, G=G, res=res: gn_apply_case(
+                              B, H, C, res, dt, g, d, G)))
     ss = {}
     for H, C, N in BLOCKS.values():
         ss[(H, C, N)] = ss.get((H, C, N), 0) + 1
@@ -1648,8 +1682,9 @@ def gn_share(card, forward_busy_ms):
     """Phase 11: the 38 GroupNorm epilogues of one bs1 fp32 vanilla forward
     at their shapes (per (H, C): block1 with the scale/shift, block2 with the
     residual), run as ``group_norm_silu`` calls on each route under
-    ``torch.profiler``: their device-busy time against that of one such
-    forward (phase 8's profile)."""
+    ``torch.profiler``: their device-busy and wall time against the
+    device-busy time of one such forward (phase 8's profile), and each
+    route's launches per epilogue, the port's and PyTorch's."""
     from founddiff_tpu_torch.ops.groupnorm import group_norm_silu
 
     dev = torch.device("cuda")
@@ -1658,7 +1693,7 @@ def gn_share(card, forward_busy_ms):
     for (H, C), n in GN_BLOCKS.items():
         x, r = (_n(gen, (1, H, H, C), 1.0, dev) for _ in range(2))
         g, b = _n(gen, (C,), 0.1, dev).add_(1.0), _n(gen, (C,), 0.1, dev)
-        ss = (_n(gen, (1, C), 0.2, dev), _n(gen, (1, C), 0.2, dev))
+        ss = _n(gen, (1, 2 * C), 0.2, dev).chunk(2, dim=-1)  # as the time MLP's output
         calls += [lambda x=x, g=g, b=b, ss=ss: group_norm_silu(x, g, b, scale_shift=ss)] * n
         calls += [lambda x=x, g=g, b=b, r=r: group_norm_silu(x, g, b, residual=r)] * n
     result = {}
@@ -1669,13 +1704,18 @@ def gn_share(card, forward_busy_ms):
             prof = profile_device(lambda: [f() for f in calls], f"vanilla gn epilogues {route}",
                                   top=4)
         result[route] = dict(busy_ms=prof["busy_ms"], wall_ms=prof["wall_ms"],
-                             share_of_forward_busy=prof["busy_ms"] / forward_busy_ms)
+                             share_of_forward_busy=prof["busy_ms"] / forward_busy_ms,
+                             launches_per_epilogue={g: c / len(calls) for g, (c, _)
+                                                    in prof["groups"].items()})
     log(f"[vanilla gn] the 38 GroupNorm epilogues of one bs1 fp32 vanilla forward, device-busy: "
         f"default route {result['default']['busy_ms']:.3f} ms "
         f"({100 * result['default']['share_of_forward_busy']:.1f}% of the forward's "
         f"{forward_busy_ms:.2f} ms in phase 8), the two kernels "
         f"{result['kernels']['busy_ms']:.3f} ms "
-        f"({100 * result['kernels']['share_of_forward_busy']:.1f}%) [{card}]")
+        f"({100 * result['kernels']['share_of_forward_busy']:.1f}%); wall "
+        f"{result['default']['wall_ms']:.3f} / {result['kernels']['wall_ms']:.3f} ms; launches "
+        f"per epilogue {result['default']['launches_per_epilogue']} / "
+        f"{result['kernels']['launches_per_epilogue']} [{card}]")
     return dict(result, forward_busy_ms=forward_busy_ms)
 
 
@@ -1813,8 +1853,9 @@ def main() -> int:
     for kname, regs, spill in runtime_n_ptxas(built["logs"]["scan"]):
         log(f"[ptxas scan] {kname}: {regs} registers, {spill} bytes spill stores")
 
-    # gn_stats returns [B, 2, C]: held as its two halves, each against its own scale
-    halves = lambda fn: lambda x: tuple(fn(x).unbind(1))
+    # gn_stats returns the [B, 2, C] table: held as its two halves, each
+    # against its own scale
+    halves = lambda fn: lambda *a: tuple(fn(*a).unbind(1))
     ops = {
         "ss2d_image_block": (ss2d_mod.ss2d_image_block, ss2d_mod.ss2d_image_block_plain),
         "attn_block": (attn_mod.attn_block, attn_mod.attn_block_plain),
@@ -1871,7 +1912,7 @@ def main() -> int:
     failed += bounds_only_failed
     record = dict(card=card, build_seconds=built["seconds"], ptxas=built["logs"],
                   kernel_cases=rows, fused_h_bounds=bounds, bounds_only=bounds_only,
-                  attn_on_c64=attn_on_summary(rows), split=launch_split(ops, card),
+                  attn_on_c64=attn_on_summary(rows), split=gn_split(card),
                   units=unit_totals(rows, card))
     if failed:
         _write_record(record)

@@ -9,44 +9,43 @@ a commit unpacked into a directory that git ignores); ``--change`` defaults
 to the tree this script lies in.  The trees run in turns, parent, change,
 change, parent (``--turns 2``), each turn a worker process started from its
 tree, so that each imports its own ``founddiff_tpu_torch`` and
-``chip_smoke.py`` and builds its own kernels.  A worker measures, with
-CUDA events (median of 7 after 2 warm-ups) on inputs made from a seed by
-its tree's ``chip_smoke.py`` case functions:
+``chip_smoke.py`` and builds its own kernels.  A worker measures, on inputs
+made from a seed here (the same in both trees):
 
-- the redesigned kernels, ``scan_fused_forward`` and ``merge_ln_gate``,
-  event and device time (``torch.profiler``) of one call and the device
-  time of each of its launches by kernel, at each shape of their units
-  (``unfused_cases``): ``scan_fused_forward`` at the three 45^2 MambaBlocks
-  of a bs1 and of a bs4 bf16 360^2 UNet forward and of the fp32 360^2
-  train step (2 slices a microbatch, 6 calls a step), ``merge_ln_gate`` at
-  the three 2x2 MambaBlocks of a bs1 and of a bs4 bf16 16^2 UNet forward;
-  and ``scan_image_forward``, which shares the scan's chunk passes, at the
-  five image-route shapes of the fp32 512^2 train step (``train_cases``,
-  10 calls a step); and their sums over each unit;
-- ``share``: where the device time of one bs4 bf16 360^2 DDIM-2 request
-  goes (``profile_device``): the fused scan's launches, named by the
-  kernel rows above, against the other port kernels, cuDNN/cuBLAS and the
-  other PyTorch kernels;
-- the fp32 train step of ``Config()`` at 512^2 and 360^2 (chip_smoke's
-  ``train_full_width`` without its bf16 steps: a warm-up step, then the
-  median of 3, host clock around work that ends in
-  ``torch.cuda.synchronize()``), with its launch counts checked;
-- DDIM-2 serving of ``Config()`` in bf16 at 512^2 and 360^2: slices/s at bs1
-  (median of 4 requests) and bs4 (median of 2 batches).
+- ``kernels``: the redesigned GroupNorm pair at the epilogue level, one
+  ``group_norm_silu`` call with ``FOUNDDIFF_GN=pallas`` in fp32 at each
+  (H, C) of chip_smoke's ``GN_BLOCKS``, at bs1 and bs4, as block1 calls it
+  (the time scale/shift, passed as the ``.chunk`` views of one [B, 2C]
+  tensor, as the time MLP's output) and as block2 calls it (the residual):
+  its event time (CUDA events, median of 7 after 2 warm-ups), and from
+  ``torch.profiler`` over 10 calls its device time and, by kernel, the
+  device time and the launches of one call; and their sums over the 38
+  epilogues of a bs1 (and bs4) fp32 vanilla UNet forward;
+- ``share``: those 38 epilogues of a bs1 fp32 vanilla forward in one
+  profiled run on each route (``FOUNDDIFF_GN`` unset, then ``pallas``):
+  wall and device-busy ms, and the launches, the port's and PyTorch's;
+- ``vanilla``: UNet forwards/s of the vanilla path (``Config()`` with
+  ``original_ddim_ddpm``, 512^2, fp32) at bs1 and bs4 on each route (median
+  of 5 after a warm-up, host clock around work that ends in a synchronize);
+- ``train``: the fp32 train step of ``Config()`` at 512^2 and 360^2
+  (chip_smoke's ``train_full_width`` without its bf16 steps: a warm-up
+  step, then the median of 3), with its launch counts checked;
+- ``serving``: DDIM-2 serving of ``Config()`` in bf16 at 512^2 and 360^2:
+  slices/s at bs1 (median of 4 requests) and bs4 (median of 2 batches).
 
-In its first turn each tree also hashes (sha256) the outputs of every
-phase-2 case of the kernels listed in ``UNTOUCHED``, fp32 and bf16, at
+In its first turn each tree also hashes (``hash``: sha256) the outputs of
+every phase-2 case of the kernels listed in ``UNTOUCHED``, fp32 and bf16, at
 inputs seeded by the case's name, so that the two trees' bits can be
-compared.  ``--parts`` picks what a worker measures (``hash``,
-``kernels``, ``share``, ``train``, ``serving``; all by default; ``share``
-needs ``kernels``).  Needs one CUDA card.
-Writes ``chiprun_out/port_ab.json`` under the working directory and prints a
-table.
+compared.  ``--parts`` picks what a worker measures (all by default).
+Needs one CUDA card.  Writes ``chiprun_out/port_ab.json`` under the
+working directory and prints a table.  ``--worker DIR --out FILE`` runs one
+tree alone (DIR an absolute path).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -57,13 +56,12 @@ import time
 import zlib
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REDESIGNED = ("scan_fused_forward", "merge_ln_gate")
-# scan_image_forward is timed beside them (it shares their chunk passes) and
-# hashed as untouched (its bits must not move)
+REDESIGNED = ("gn_stats", "gn_apply")
 UNTOUCHED = ("ss2d_image_block", "attn_block", "layer_norm_modulated", "scan_forward",
-             "scan_backward", "scan_image_forward", "layer_norm", "gn_stats", "gn_apply",
-             "ss2d_mamba_block", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-PARTS = ("hash", "kernels", "share", "train", "serving")
+             "scan_backward", "scan_image_forward", "layer_norm", "ss2d_mamba_block",
+             "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "scan_fused_forward",
+             "merge_ln_gate")
+PARTS = ("hash", "kernels", "share", "vanilla", "train", "serving")
 # the modules of the kernels whose launches a train step counts
 WRAPPED = (("ss2d_image_block", "ss2d_block"), ("attn_block", "attn_block"),
            ("layer_norm_modulated", "norm"), ("scan_forward", "scan"),
@@ -73,14 +71,15 @@ WRAPPED = (("ss2d_image_block", "ss2d_block"), ("attn_block", "attn_block"),
            ("gn_stats", "groupnorm"), ("gn_apply", "groupnorm"),
            ("ss2d_mamba_block", "experimental_unified"), ("scan_fused_forward", "scan"),
            ("layer_norm", "norm"), ("merge_ln_gate", "ss2d_fused"))
+GN_ROUTE = {"FOUNDDIFF_GN": "pallas"}
 
 
 def _ops():
-    """kernel name -> wrapper, as chip_smoke.py calls them in phase 2."""
+    """kernel name -> wrapper, as chip_smoke.py calls them in phase 2 (the
+    kernels of UNTOUCHED)."""
     from founddiff_tpu_torch.ops import attn_block as attn_mod
     from founddiff_tpu_torch.ops import experimental_unified as unified_mod
     from founddiff_tpu_torch.ops import flash_attention as flash_mod
-    from founddiff_tpu_torch.ops import groupnorm as gn_mod
     from founddiff_tpu_torch.ops import norm as norm_mod
     from founddiff_tpu_torch.ops import scan as scan_mod
     from founddiff_tpu_torch.ops import ss2d_block as ss2d_mod
@@ -92,7 +91,6 @@ def _ops():
         "scan_forward": scan_mod.scan_forward, "scan_backward": scan_mod.scan_backward,
         "scan_image_forward": scan_mod.scan_image_forward, "flash_fwd": flash_mod.flash_fwd,
         "flash_bwd_dq": flash_mod.flash_bwd_dq, "flash_bwd_dkv": flash_mod.flash_bwd_dkv,
-        "gn_stats": gn_mod.gn_stats, "gn_apply": gn_mod.gn_apply,
         "ss2d_mamba_block": unified_mod.ss2d_mamba_block,
         "scan_fused_forward": scan_mod.scan_fused_forward, "layer_norm": norm_mod.layer_norm,
         "merge_ln_gate": lambda *a, split, **k: (fused_mod.merge_ln_gate_split if split
@@ -126,6 +124,25 @@ def _digest(out) -> str:
     return h.hexdigest()
 
 
+@contextlib.contextmanager
+def _env(values):
+    """``os.environ`` with ``values`` set (None: unset) for the block."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def _serve(cs, size: int, card: str):
     import numpy as np
     import torch
@@ -157,114 +174,149 @@ def _serve(cs, size: int, card: str):
 
 def _kernel_name(key: str) -> str:
     """A profiler kernel name without namespaces or parameters, with its
-    template arguments, which tell the launches of one template apart:
-    ``gemm_kernel<float, RowStrided<float>, EpiGated<float> >``."""
+    template arguments, which tell the launches of one template apart."""
     for drop in ("void ", "(anonymous namespace)::", "fd::"):
         key = key.replace(drop, "")
     return key.split("(")[0]
 
 
-def _device_split(fn, n: int = 10) -> dict:
-    """Device ms of one call by kernel, from ``torch.profiler`` over n calls
-    (the rest of its event-timed time is the host's)."""
+def _is_port(name: str) -> bool:
+    """A kernel of the port (namespace fd or a file's anonymous namespace),
+    as chip_smoke's PROFILE_GROUPS tells them apart."""
+    return name.startswith(("void fd::", "void (anonymous namespace)::", "fd::",
+                            "(anonymous namespace)::"))
+
+
+def _device_split(fn, n: int = 10):
+    """Device ms and launches of one call by kernel, from ``torch.profiler``
+    over n calls (the rest of its event-timed time is the host's)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type.name == "CUDA":
-            k = _kernel_name(e.key)
-            out[k] = out.get(k, 0.0) + e.self_device_time_total / 1e3 / n
-    return out
+    for _ in range(3):  # a profile now and then comes back without its device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        if events:
+            break
+    # a kernel's launches a call rounded, times its mean: the profiler now
+    # and then drops an event
+    ms, launches = {}, {}
+    for e in events:
+        k = ("port " if _is_port(e.key) else "torch ") + _kernel_name(e.key)
+        per_call = max(1, round(e.count / n))
+        ms[k] = ms.get(k, 0.0) + e.self_device_time_total / 1e3 / e.count * per_call
+        launches[k] = launches.get(k, 0) + per_call
+    return ms, launches
 
 
-def _redesigned_cases(cs):
-    """(kernel, unit, calls per unit, label, dtype, make) of the redesigned
-    kernels at each shape of their units."""
+def _epilogue(B, H, C, res, gen, dev):
+    """One Block's GroupNorm epilogue at [B, H, H, C] fp32: with the residual
+    (block2) or the time scale/shift as the chunks of one [B, 2C] tensor
+    (block1); the GroupNorm affine [C]."""
     import torch
 
-    cases = []
-    for kname, B, unit, dtype, per in (
-            ("scan_fused_forward", 1, "bs1 bf16 360^2 forward", torch.bfloat16, 1),
-            ("scan_fused_forward", 4, "bs4 bf16 360^2 forward", torch.bfloat16, 1),
-            ("scan_fused_forward", cs.TRAIN_BATCH, "fp32 360^2 step", torch.float32, 2),
-            ("merge_ln_gate", 1, "bs1 bf16 16^2 forward", torch.bfloat16, 1),
-            ("merge_ln_gate", 4, "bs4 bf16 16^2 forward", torch.bfloat16, 1)):
-        cases += [(k, unit, per * n, label, dtype, make)
-                  for k, label, n, make in cs.unfused_cases(B) if k == kname and n]
-    # row 6 runs the chunk passes it shares with scan_fused_forward
-    cases += [(k, "fp32 512^2 step", n, label, torch.float32, make)
-              for k, label, n, make in cs.train_cases() if k == "scan_image_forward"]
-    return cases
+    from founddiff_tpu_torch.ops.groupnorm import group_norm_silu
+
+    n = lambda *s: torch.randn(s, generator=gen).to(dev)
+    x = n(B, H, H, C) * 1.5 + 0.3
+    g, b = n(C) * 0.1 + 1.0, n(C) * 0.1
+    if res:
+        r = n(B, H, H, C)
+        return lambda: group_norm_silu(x, g, b, residual=r, groups=8)
+    ss = (n(B, 2 * C) * 0.2).chunk(2, dim=-1)
+    return lambda: group_norm_silu(x, g, b, scale_shift=ss, groups=8)
+
+
+def _epilogue_calls(cs, B, dev):
+    """The 38 epilogues of one vanilla UNet forward at batch B (per (H, C)
+    of GN_BLOCKS, n block1 and n block2 calls), as zero-argument calls."""
+    calls = []
+    for (H, C), n in cs.GN_BLOCKS.items():
+        for res in (False, True):
+            calls += [_epilogue(B, H, C, res, _gen(f"share {B} {H} {C} {res}"), dev)] * n
+    return calls
 
 
 def _kernel_rows(cs) -> dict:
-    """One call's event ms, device ms and device split by launch, with its
-    calls per unit, at each case of :func:`_redesigned_cases`."""
+    """Event ms, device ms, and device ms and launches by kernel of one
+    epilogue call on the kernel route, at each (H, C), batch and variant."""
     import torch
 
-    ops = _ops()
+    dev = torch.device("cuda")
     rows = {}
-    for kname, unit, count, label, dtype, make in _redesigned_cases(cs):
-        key = f"{kname} | {unit} | {label}"
-        args, kw = make(dtype, _gen(key), torch.device("cuda"))[:2]
-        fn = lambda: ops[kname](*args, **kw)
-        split = _device_split(fn)
-        rows[key] = dict(kernel=kname, unit=unit, per_unit=count, ms=cs.cuda_ms(fn),
-                         device_ms=sum(split.values()), split=split)
-        del args, kw
-        torch.cuda.empty_cache()
+    with _env(GN_ROUTE):
+        for B in (1, 4):
+            for (H, C), n in cs.GN_BLOCKS.items():
+                for res in (False, True):
+                    key = f"bs{B} {H}^2 C={C} {'res' if res else 'scale/shift'}"
+                    fn = _epilogue(B, H, C, res, _gen(key), dev)
+                    split, launches = _device_split(fn)
+                    rows[key] = dict(batch=B, per_forward=n, ms=cs.cuda_ms(fn),
+                                     device_ms=sum(split.values()), split=split,
+                                     launches=launches)
+                    del fn
+                    torch.cuda.empty_cache()
     return rows
 
 
-def _fused_scan_launch(name: str, mine) -> bool:
-    """Whether a profiled kernel is one of the fused scan's: a name of its
-    rows, or one only its calls launch (the serving call writes no h_bounds,
-    so its pass 2 is another template than its rows' in the newer tree):
-    the projection GEMM on strided rows, its chunk passes and its carry."""
-    n = _kernel_name(name)
-    return (n in mine or ("RowStrided" in n and ("EpiProj" in n or "chunk_pass_kernel" in n))
-            or n.startswith("fused_chunk_kernel") or n in ("carry_kernel",
-                                                           "carry_scan_kernel<false, 4>"))
-
-
-def _share(cs, rows) -> dict:
-    """Device ms of one bs4 bf16 360^2 DDIM-2 request by group: the fused
-    scan's launches (:func:`_fused_scan_launch`), the other port kernels,
-    cuDNN/cuBLAS and the other PyTorch kernels; and the device's busy ms."""
-    import numpy as np
+def _share(cs) -> dict:
+    """The 38 epilogues of a bs1 fp32 vanilla forward in one profiled run on
+    each route: wall and busy ms, and launches by group."""
     import torch
-    from founddiff_tpu_torch.config import Config
-    from founddiff_tpu_torch.factory import build
-    from founddiff_tpu_torch.pipeline import make_hoisted_sampler
 
-    mine = {k for r in rows.values() if r["kernel"] == "scan_fused_forward" for k in r["split"]}
-    cfg = Config()
-    cfg.diffusion.image_size = cs.ODD_SIZE
-    diffusion, model = build(cfg, device="cuda", seed=0)
-    cs.perturb_gates(model, seed=0)
-    sampler = make_hoisted_sampler(model, diffusion, compute_dtype=torch.bfloat16)
-    x = torch.from_numpy(np.random.default_rng(1).random(
-        (4, cs.ODD_SIZE, cs.ODD_SIZE, 1), dtype=np.float32)).cuda()
-    run = lambda: sampler(x, generator=torch.Generator().manual_seed(9))
-    run()
-    torch.cuda.synchronize()
-    prof = cs.profile_device(run, "ab share 360 bs4", top=0)
-    groups = {"scan_fused_forward": 0.0}
-    for r in prof["kernels"]:
-        g = ("scan_fused_forward" if _fused_scan_launch(r["name"], mine) else
-             next((n for n, match in cs.PROFILE_GROUPS if match(r["name"])),
-                  "other PyTorch kernels"))
-        groups[g] = groups.get(g, 0.0) + r["ms"]
-    del model, diffusion, sampler
+    dev = torch.device("cuda")
+    calls = _epilogue_calls(cs, 1, dev)
+    out = {}
+    for route, env in (("default", {"FOUNDDIFF_GN": None}), ("kernels", GN_ROUTE)):
+        with _env(env):
+            for f in calls:
+                f()
+            prof = cs.profile_device(lambda: [f() for f in calls], f"ab epilogues {route}",
+                                     top=0)
+        out[route] = dict(wall_ms=prof["wall_ms"], busy_ms=prof["busy_ms"],
+                          launches={g: c for g, (c, _) in prof["groups"].items()},
+                          epilogues=len(calls))
+    del calls
     torch.cuda.empty_cache()
-    return dict(wall_ms=prof["wall_ms"], busy_ms=prof["busy_ms"], groups=groups)
+    return out
+
+
+def _vanilla(cs) -> dict:
+    """Vanilla UNet forwards/s at bs1 and bs4 on each GroupNorm route."""
+    import torch
+    from founddiff_tpu_torch.factory import build
+
+    cfg = cs.vanilla_config()
+    _, model = build(cfg, device="cuda", seed=0)
+    S = cfg.diffusion.image_size
+    out = {}
+    for route, env in (("default", {"FOUNDDIFF_GN": None}), ("kernels", GN_ROUTE)):
+        with _env(env):
+            for B in (1, 4):
+                x = torch.randn((B, S, S, 1), generator=torch.Generator().manual_seed(B)).cuda()
+                t = torch.full((B,), 500, device="cuda")
+
+                def run():
+                    with torch.no_grad():
+                        model(x, t)
+                    torch.cuda.synchronize()
+
+                run()
+                times = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    run()
+                    times.append(time.perf_counter() - t0)
+                out[f"{route} bs{B}"] = dict(forwards_per_s=1.0 / statistics.median(times),
+                                             s=times)
+    del model
+    torch.cuda.empty_cache()
+    return out
 
 
 def _train(cs, card: str) -> dict:
@@ -295,6 +347,8 @@ def worker(tree: str, out_path: str, parts) -> None:
     import chip_smoke as cs
     from founddiff_tpu_torch.ops import _build
 
+    for k in cs.ROUTES:  # every part but the GroupNorm timings runs the default routes
+        os.environ.pop(k, None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -304,7 +358,7 @@ def worker(tree: str, out_path: str, parts) -> None:
     ops = _ops()
     dev = torch.device("cuda")
     rec = dict(tree=tree, card=card, build_s=built["seconds"], hashes={}, rows={}, share={},
-               train={}, serving={})
+               vanilla={}, train={}, serving={})
     if "hash" in parts:
         for batch, kname, label, count, make in _cases(cs):
             if kname not in UNTOUCHED:
@@ -318,7 +372,9 @@ def worker(tree: str, out_path: str, parts) -> None:
     if "kernels" in parts:
         rec["rows"] = _kernel_rows(cs)
     if "share" in parts:
-        rec["share"] = _share(cs, rec["rows"])
+        rec["share"] = _share(cs)
+    if "vanilla" in parts:
+        rec["vanilla"] = _vanilla(cs)
     if "train" in parts:
         rec["train"] = _train(cs, card)
     if "serving" in parts:
@@ -327,21 +383,17 @@ def worker(tree: str, out_path: str, parts) -> None:
         json.dump(rec, f, indent=1)
 
 
-def _units(rows):
-    return sorted({(r["kernel"], r["unit"]) for r in rows.values()})
+def _per_forward(rows, batch, key):
+    """A row field summed over the 38 epilogues of one forward at ``batch``."""
+    return sum(r[key] * r["per_forward"] for r in rows.values() if r["batch"] == batch)
 
 
-def _per_unit(rows, kname, unit, key="ms"):
-    return sum(r[key] * r["per_unit"] for r in rows.values()
-               if (r["kernel"], r["unit"]) == (kname, unit))
-
-
-def _split_per_unit(rows, kname, unit):
+def _by_kernel_per_forward(rows, batch, field):
     out = {}
     for r in rows.values():
-        if (r["kernel"], r["unit"]) == (kname, unit):
-            for k, v in r["split"].items():
-                out[k] = out.get(k, 0.0) + v * r["per_unit"]
+        if r["batch"] == batch:
+            for k, v in r[field].items():
+                out[k] = out.get(k, 0.0) + v * r["per_forward"]
     return out
 
 
@@ -378,20 +430,23 @@ def main() -> int:
             runs[name].append(json.load(f))
         print(f"[turn {i}] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
     card = runs["change"][0]["card"]
-    summary = dict(card=card, order=order, kernels={}, split={}, share={}, train={},
-                   serving={}, bits={})
-    for kname, unit in _units(runs["change"][0]["rows"]):
+    summary = dict(card=card, order=order, epilogues={}, split={}, share={}, vanilla={},
+                   train={}, serving={}, bits={})
+    for B in (1, 4):
         for key in ("ms", "device_ms"):
-            summary["kernels"][f"{kname} per {unit} {key}"] = {
-                n: [_per_unit(r["rows"], kname, unit, key) for r in runs[n]] for n in runs}
+            summary["epilogues"][f"38 epilogues bs{B} fp32 {key}"] = {
+                n: [_per_forward(r["rows"], B, key) for r in runs[n] if r["rows"]]
+                for n in runs}
     for n in runs:
-        summary["split"][n] = {f"{k} per {u}": [_split_per_unit(r["rows"], k, u)
-                                                for r in runs[n]]
-                               for k, u in _units(runs["change"][0]["rows"])}
-        summary["share"][n] = [r["share"] for r in runs[n]]
-        summary["train"][n] = [r["train"] for r in runs[n]]
+        summary["split"][n] = [
+            {f"bs{B} {field}": _by_kernel_per_forward(r["rows"], B, field)
+             for B in (1, 4) for field in ("split", "launches")} for r in runs[n] if r["rows"]]
+        summary["share"][n] = [r["share"] for r in runs[n] if r["share"]]
+        summary["vanilla"][n] = [r["vanilla"] for r in runs[n] if r["vanilla"]]
+        summary["train"][n] = [r["train"] for r in runs[n] if r["train"]]
         summary["serving"][n] = [{s: {k: v for k, v in d.items() if k.endswith("per_s")}
-                                  for s, d in r["serving"].items()} for r in runs[n]]
+                                  for s, d in r["serving"].items()}
+                                 for r in runs[n] if r["serving"]]
     hp, hc = runs["parent"][0]["hashes"], runs["change"][0]["hashes"]
     same = sorted(k for k in hp if hc.get(k) == hp[k])
     differ = sorted(k for k in hp if k in hc and hc[k] != hp[k])
@@ -400,19 +455,21 @@ def main() -> int:
     with open(os.path.join(os.getcwd(), "chiprun_out", "port_ab.json"), "w") as f:
         json.dump(dict(summary=summary, runs=runs), f, indent=1)
     print(card)
-    for k, vals in summary["kernels"].items():
-        print(f"[ab] {k:52s} parent {[round(v, 4) for v in vals['parent']]}  "
+    for k, vals in summary["epilogues"].items():
+        print(f"[ab] {k:40s} parent {[round(v, 4) for v in vals['parent']]}  "
               f"change {[round(v, 4) for v in vals['change']]}")
     for n in runs:
-        for kname, turns in summary["split"][n].items():
-            for r in turns:
-                print(f"[ab split] {n} {kname}: " + ", ".join(
-                    f"{k} {v:.3f}" for k, v in sorted(r.items(), key=lambda x: -x[1])) + " ms")
+        for turn in summary["split"][n]:
+            for what, d in turn.items():
+                print(f"[ab split] {n} per 38 epilogues {what}: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in sorted(d.items(), key=lambda x: -x[1])))
         for r in summary["share"][n]:
-            if r:
-                print(f"[ab share 360^2 bs4 request] {n}: busy {r['busy_ms']:.3f} of "
-                      f"{r['wall_ms']:.3f} ms: " + ", ".join(
-                          f"{g} {v:.3f}" for g, v in r["groups"].items()) + " ms")
+            print(f"[ab share] {n}: " + "; ".join(
+                f"{route} busy {d['busy_ms']:.3f} of {d['wall_ms']:.3f} ms, launches "
+                f"{d['launches']} over {d['epilogues']} epilogues" for route, d in r.items()))
+        for r in summary["vanilla"][n]:
+            print(f"[ab vanilla forwards/s] {n}: " + ", ".join(
+                f"{k} {d['forwards_per_s']:.3f}" for k, d in r.items()))
         for r in summary["train"][n]:
             print(f"[ab train fp32 step] {n}: " + ", ".join(
                 f"{s}^2 {t:.4f} s" for s, t in r.items()))

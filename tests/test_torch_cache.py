@@ -53,6 +53,7 @@ def test_views_of_one_parameter_keep_their_own_values():
 def test_derived_values_go_with_their_tensor():
     w = torch.randn(5, generator=_g(3)).to(torch.bfloat16)
     _cache.f32(w)
+    gc.collect()  # entries of tensors that earlier tests left in reference cycles go first
     n = len(_cache._STORE)
     del w
     gc.collect()

@@ -360,24 +360,77 @@ def test_flash_refuses_what_the_kernels_do_not_take(dev):
         flash_mod.flash_fwd(q.half(), q.half(), q.half(), 1.0)
 
 
+def _gn_inputs(g, B, H, W, C, dtype, dev, ss):
+    """x [B, H, W, C] at dtype, the GroupNorm affine [C] fp32 and, with ss,
+    the time scale/shift as the ``.chunk`` views of one [B, 2C] tensor."""
+    x = (_n(g, (B, H, W, C), 1.5, dev) + 0.3).to(dtype)
+    gam, bet = _n(g, (C,), 0.1, dev) + 1, _n(g, (C,), 0.1, dev)
+    ms, mt = _n(g, (B, 2 * C), 0.2, dev).chunk(2, dim=-1) if ss else (None, None)
+    return x, gam, bet, ms, mt
+
+
+def _gn_units(x, gam, bet, ms, mt, r, groups, dtype):
+    """gn_stats and gn_apply each against its plain version, one launch each."""
+    B, H, W, C = x.shape
+    x3 = x.reshape(B, H * W, C)
+    r3 = None if r is None else r.reshape(B, H * W, C)
+    before = (gn_mod.gn_stats.launches, gn_mod.gn_apply.launches)
+    table = gn_mod.gn_stats(x3, gam, bet, ms, mt, groups, 1e-5)
+    want = gn_mod.gn_stats_plain(x3, gam, bet, ms, mt, groups, 1e-5)
+    _close(table[:, 0], want[:, 0], torch.float32)
+    _close(table[:, 1], want[:, 1], torch.float32)
+    _close(gn_mod.gn_apply(x3, want, r3), gn_mod.gn_apply_plain(x3, want, r3), dtype, base=r3)
+    assert (gn_mod.gn_stats.launches, gn_mod.gn_apply.launches) == tuple(n + 1 for n in before)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("C,res", [(64, True), (128, False)])
 def test_group_norm_kernels(dev, dtype, C, res):
     g = _gen(C + res)
-    B, R = 2, 12 * 20
-    x = (_n(g, (B, R, C), 1.5, dev) + 0.3).to(dtype)
-    r = _n(g, (B, R, C), 1.0, dev).to(dtype) if res else None
-    gam, bet = _n(g, (B, C), 0.1, dev) + 1, _n(g, (B, C), 0.1, dev)
+    x, gam, bet, ms, mt = _gn_inputs(g, 2, 12, 20, C, dtype, dev, not res)
+    r = _n(g, x.shape, 1.0, dev).to(dtype) if res else None
+    _gn_units(x, gam, bet, ms, mt, r, 8, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,W,C,groups", [(12, 20, 40, 5), (24, 10, 96, 4), (128, 96, 64, 8),
+                                          (45, 45, 1024, 8)])
+def test_group_norm_kernel_edges(dev, dtype, H, W, C, groups):
+    """A row of C / 8 vectors that does not divide the block (C 40), groups
+    4 and 5, many stats blocks an image (128 x 96), and the widest C."""
+    g = _gen(C + groups)
+    x, gam, bet, ms, mt = _gn_inputs(g, 2, H, W, C, dtype, dev, True)
+    _gn_units(x, gam, bet, ms, mt, None, groups, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("res", [True, False])
+def test_group_norm_silu_entry(dev, dtype, res, monkeypatch):
+    """The epilogue's one C call against the two plain versions: one launch
+    of each unit, the same bits on a repeated call and on a second stream."""
+    monkeypatch.setenv("FOUNDDIFF_GN", "pallas")
+    g = _gen(11 + res)
+    B, H, W, C = 2, 128, 96, 64
+    x, gam, bet, ms, mt = _gn_inputs(g, B, H, W, C, dtype, dev, not res)
+    r = _n(g, x.shape, 1.0, dev).to(dtype) if res else None
+    call = lambda: gn_mod.group_norm_silu(x, gam, bet, residual=r,
+                                          scale_shift=None if res else (ms, mt))
     before = (gn_mod.gn_stats.launches, gn_mod.gn_apply.launches)
-    sums = gn_mod.gn_stats(x)
-    want = gn_mod.gn_stats_plain(x)
-    _close(sums[:, 0], want[:, 0], torch.float32)
-    _close(sums[:, 1], want[:, 1], torch.float32)
-    mean, rstd = gn_mod.group_stats(want, R, 8, 1e-5)
-    _close(gn_mod.gn_apply(x, mean, rstd, gam, bet, r),
-           gn_mod.gn_apply_plain(x, mean, rstd, gam, bet, r), dtype, base=r)
+    got = call()
     assert (gn_mod.gn_stats.launches, gn_mod.gn_apply.launches) == tuple(n + 1 for n in before)
+    x3, r3 = x.reshape(B, H * W, C), None if r is None else r.reshape(B, H * W, C)
+    want = gn_mod.gn_apply_plain(x3, gn_mod.gn_stats_plain(x3, gam, bet, ms, mt, 8, 1e-5), r3)
+    _close(got, want.reshape(x.shape), dtype, base=r)
+    assert torch.equal(call(), got)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        again = call()
+    side.synchronize()
+    assert torch.equal(again, got)
 
 
 @pytest.mark.gpu
@@ -431,7 +484,7 @@ def test_ss2d_mamba_block_fn_grads(dev, H, C0, N):
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros(2, 16, 12, device=dev)  # C % 8 != 0
     with pytest.raises(ValueError):
-        gn_mod.gn_stats(x)
+        gn_mod.gn_stats(x, torch.ones(12, device=dev), torch.zeros(12, device=dev), groups=4)
     args = _mamba_args(_gen(1), 1, 6, 10, 32, 4, torch.float32, dev)
     args["x"] = torch.zeros(1, 7, 10, 32, device=dev)  # odd H
     with pytest.raises(ValueError):
@@ -443,8 +496,11 @@ def test_vector_kernels_refuse_misaligned_tensors(dev):
     """The GroupNorm and flash kernels load 16 bytes at a time: a contiguous
     view that starts one element into its storage is refused, not read."""
     shifted = lambda *s: torch.ones(math.prod(s) + 1, device=dev)[1:].view(*s)
+    ones, zeros = torch.ones(64, device=dev), torch.zeros(64, device=dev)
     with pytest.raises(RuntimeError):
-        gn_mod.gn_stats(shifted(2, 16, 64))
+        gn_mod.gn_stats(shifted(2, 16, 64), ones, zeros)
+    with pytest.raises(RuntimeError):
+        gn_mod.gn_apply(shifted(2, 16, 64), torch.zeros(2, 2, 64, device=dev))
     q = torch.zeros(1, 1, 8, 32, device=dev)
     with pytest.raises(RuntimeError):
         flash_mod.flash_fwd(shifted(1, 1, 8, 32), q, q, 1.0)
