@@ -27,7 +27,8 @@ Phases (any failure exits non-zero before the last line is printed):
    tolerance (the scan backward's seven gradients each); prints the errors,
    the kernel's and the plain version's times (CUDA events, warmed up,
    median of 7), the bound (the largest of bytes / 3.35 TB/s, operations /
-   the peak rate of their unit, and for the flash kernels the exponentials /
+   the peak rate of their unit, fp32 products as three TF32 products on the
+   tensor cores, and for the flash kernels the exponentials /
    the SFU rate, 16 per SM per clock at the card's maximum SM clock) and,
    for the flash kernels, the time of ``scaled_dot_product_attention`` (its
    forward; its backward through autograd for the two backward kernels),
@@ -196,9 +197,15 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA H100 SXM data sheet (dense): device memory rate and peak rates
+# NVIDIA H100 SXM data sheet (dense): device memory rate and peak rates.
+# A product's operations count at the peak of the unit that can take them:
+# bf16 on the tensor cores; fp32 as three TF32 products on the tensor cores
+# (the split the port's fp32 kernels use, about fp32's accuracy), so at a
+# third of the TF32 rate.  fp32 work that is not a product (scans, norms,
+# softmax arithmetic) counts at the CUDA cores' rate.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # tensor bf16; fp32 CUDA cores
+TF32_FLOPS = 494.7e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: TF32_FLOPS / 3}
 FP32_FLOPS = 67e12
 # exponentials per SM per clock of the special function units (CUDA
 # Programming Guide, arithmetic instruction throughput, compute capability
@@ -379,7 +386,8 @@ def cuda_ms(fn, reps: int = 7, warm: int = 2) -> float:
 
 def bound_ms(nbytes: float, ops) -> tuple:
     """``ops``: [(count, rate)]; a rate names its unit (989e12: tensor cores
-    in bf16, 67e12: fp32 CUDA cores, ``SFU_EXP_PER_S``: exponentials).  Work
+    in bf16, TF32_FLOPS / 3: fp32 products on the tensor cores, 67e12: fp32
+    CUDA cores, ``SFU_EXP_PER_S``: exponentials).  Work
     on one unit adds up; the units and the memory run at once, so the least
     time in ms is the largest of bytes over the memory rate and each unit's
     operations over its peak rate.  Returns it and its two parts."""
@@ -972,8 +980,9 @@ def train_cases():
 def flash_case(kname, B, Lq, Lk, dtype, gen, dev):
     """The flash kernels' operands at the bottleneck's 4 heads of 32; the
     backward's lse and D from the plain forward.  Operations: 4d per (i, j)
-    forward, 6d for dq and 8d for dk/dv (the products, at the peak rate of
-    the io dtype's unit) and one exponential per (i, j) on the SFUs."""
+    forward, 6d for dq and 8d for dk/dv (the products, at PEAK_FLOPS of the
+    io dtype: bf16 on the tensor cores, fp32 as three TF32 products) and one
+    exponential per (i, j) on the SFUs."""
     from founddiff_tpu_torch.ops.flash_attention import flash_fwd_plain
 
     H, d = FLASH_HEADS, FLASH_D

@@ -1,9 +1,9 @@
 // Shared device code of the port's kernels: dtype conversion, 16-byte
-// vector loads and stores, warp reductions, two LayerNorm+modulation row
-// kernels, GEMMs with a gathered A operand and a fused epilogue (the fp32
+// vector loads and stores, warp reductions, the LayerNorm+modulation row
+// kernel, GEMMs with a gathered A operand and a fused epilogue (the fp32
 // CUDA cores, bf16 tensor cores, and fp32 on the tensor cores as three TF32
-// products), the warp-level tensor-core product they and the fused kernels
-// share, and the depthwise 3x3.
+// products), and the warp-level tensor-core product they and the fused
+// kernels share.
 //
 // Element types: float or __nv_bfloat16 activations ("io" dtype); every sum
 // and every piece of arithmetic runs in fp32, and values are rounded to the
@@ -84,63 +84,7 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// ---------------------------------------------------------------------------
-// One warp per row of x [B*R, C]: fp32 mean and one-pass variance
-// E[x^2] - mean^2 (as _ln_mod_kernel), optional affine g/b [C], then
-// * (1 + ms[b]) + mt[b] with ms/mt [B, C].  ms == nullptr skips the
-// modulation; out == nullptr writes (mean, rstd) pairs to stats instead.
-// The first row kernel of the port, kept for the LN centring of
-// mamba_block.cu so that its output keeps its bits; ln_rows_vec below
-// serves the LayerNorm entries, the SS2D tail and attn_block.cu.
-// ---------------------------------------------------------------------------
 constexpr int LN_THREADS = 256;
-
-template <typename T, typename Y>
-__global__ void __launch_bounds__(LN_THREADS)
-ln_rows_kernel(const Y* __restrict__ x, const float* __restrict__ g,
-               const float* __restrict__ b, const float* __restrict__ ms,
-               const float* __restrict__ mt, T* __restrict__ out,
-               float* __restrict__ stats, long long rows, int R, int C, float eps) {
-  const long long row = (long long)blockIdx.x * (LN_THREADS / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const Y* xr = x + row * C;
-  float s = 0.f, ss = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float v = to_f<Y>(xr[c]);
-    s += v;
-    ss += v * v;
-  }
-  s = warp_sum(s);
-  ss = warp_sum(ss);
-  const float mean = s / C;
-  const float rstd = rsqrtf(ss / C - mean * mean + eps);
-  if (out == nullptr) {
-    if (lane == 0) {
-      stats[2 * row] = mean;
-      stats[2 * row + 1] = rstd;
-    }
-    return;
-  }
-  const long long bi = row / R;
-  for (int c = lane; c < C; c += 32) {
-    float y = (to_f<Y>(xr[c]) - mean) * rstd;
-    if (g != nullptr) y = y * g[c] + b[c];
-    if (ms != nullptr) y = y * (1.f + ms[bi * C + c]) + mt[bi * C + c];
-    out[row * C + c] = from_f<T>(y);
-  }
-}
-
-template <typename T, typename Y>
-cudaError_t ln_rows(const Y* x, const float* g, const float* b, const float* ms,
-                    const float* mt, T* out, float* stats, long long rows, int R, int C,
-                    float eps, cudaStream_t s) {
-  const int rows_per_block = LN_THREADS / 32;
-  const unsigned grid = (unsigned)((rows + rows_per_block - 1) / rows_per_block);
-  ln_rows_kernel<T, Y><<<grid, LN_THREADS, 0, s>>>(x, g, b, ms, mt, out, stats, rows, R,
-                                                   C, eps);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // The row LayerNorm of layer_norm, layer_norm_modulated and the SS2D tail's
@@ -522,7 +466,9 @@ cudaError_t launch(Kernel kern, dim3 grid, int threads, size_t smem, cudaStream_
 // 2^-22 of the product, is dropped), with fp32 sums: about the accuracy
 // of an fp32 product at three TF32 rates (495 TFLOP/s dense).  Used where
 // an fp32 kernel holds the fp32 tolerance this way (attn_block.cu,
-// scan_image.cu); the other kernels keep fp32 on the CUDA cores.
+// scan_image.cu, scan.cu's fused-projection scan, ss2d_epilogue.cu and
+// mamba_block.cu's front half; flash_attention.cu splits its own operands);
+// the SS2D tail and the scan kernels' other sums stay on the CUDA cores.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ unsigned tf32_bits(float v) {
   unsigned r;
@@ -686,7 +632,7 @@ inline bool gemm_x3_ok(int N, int K, int lda, int ldb, long long strideBz, const
          aligned16(A, B);
 }
 
-// The products of attn_block.cu and scan_image.cu: on the tensor cores
+// The products of the redesigned kernels: on the tensor cores
 // where the operands allow (bf16: gemm_tc; fp32: gemm_x3), else gemm.
 // lda and A (the first row) are only checked.
 template <typename T, class RowA, class Epi>
@@ -702,51 +648,6 @@ cudaError_t gemm_mma(int Z, int M, int N, int K, RowA rowA, int lda, const T* A,
   }
   return gemm_io<T>(gemm_tc_ok(N, K, lda, ldb, strideBz, A, B), Z, M, N, K, rowA, B, strideBz,
                     zmod, ldb, epi, s);
-}
-
-// ---------------------------------------------------------------------------
-// Depthwise 3x3 with a zero halo (SAME padding) over u [B, H, W, K], taps
-// [9, K] at 3 * dr + dc, one thread per (pixel, channel), channels
-// innermost: fp32 products of the io values, then epi(idx, k, acc) writes
-// output element idx.  The taps add up in the unified MambaBlock kernels'
-// order: each column's three rows first, then the columns (attn_block.cu
-// sums its own 3x3 row by row, as _attn_block_kernel does).
-// ---------------------------------------------------------------------------
-constexpr int DW_THREADS = 256;
-
-template <typename T, class Epi>
-__global__ void __launch_bounds__(DW_THREADS)
-dwconv3x3_kernel(const T* __restrict__ u, const T* __restrict__ taps, int H, int W, int K,
-                 long long total, Epi epi) {
-  const long long idx = (long long)blockIdx.x * DW_THREADS + threadIdx.x;
-  if (idx >= total) return;
-  const int k = (int)(idx % K);
-  const long long pix = idx / K;
-  const int x = (int)(pix % W), y = (int)((pix / W) % H);
-  const long long img = pix / ((long long)H * W);
-  float acc = 0.f;
-#pragma unroll
-  for (int dc = 0; dc < 3; ++dc) {
-    float part = 0.f;  // column dc's three rows
-#pragma unroll
-    for (int dr = 0; dr < 3; ++dr) {
-      const int yy = y + dr - 1, xx = x + dc - 1;
-      if (yy < 0 || yy >= H || xx < 0 || xx >= W) continue;
-      const float v = to_f<T>(u[((img * H + yy) * W + xx) * K + k]);
-      part += v * to_f<T>(taps[(dr * 3 + dc) * K + k]);
-    }
-    acc += part;
-  }
-  epi(idx, k, acc);
-}
-
-template <typename T, class Epi>
-cudaError_t dwconv3x3(const T* u, const T* taps, int H, int W, int K, long long total, Epi epi,
-                      cudaStream_t s) {
-  dwconv3x3_kernel<T, Epi>
-      <<<(unsigned)((total + DW_THREADS - 1) / DW_THREADS), DW_THREADS, 0, s>>>(u, taps, H, W, K,
-                                                                                total, epi);
-  return cudaGetLastError();
 }
 
 }  // namespace fd

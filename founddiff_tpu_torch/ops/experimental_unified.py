@@ -38,7 +38,7 @@ import os
 import torch
 import torch.nn.functional as F
 
-from founddiff_tpu_torch.ops import _build
+from founddiff_tpu_torch.ops import _build, _cache
 from founddiff_tpu_torch.ops.remat import remat_grads
 from founddiff_tpu_torch.ops.scan import _GROUP, pad_states
 from founddiff_tpu_torch.ops.ss2d_block import (
@@ -106,53 +106,87 @@ def _mamba_block_plain(x, geff, beff, wx, wz, dwt, dwb, w_delta, w_b, w_c, A, Ds
                             local, proj_w, gate, eps)
 
 
-def _mamba_block_cuda(x, geff, beff, wx, wz, dwt, dwb, w_delta, w_b, w_c, A, Dskip,
-                      delta_bias, ln_g, ln_b, local, proj_w, gate, eps_ln, eps):
-    B, H, W, C0 = x.shape
+def _kernel_weights(wx, wz, dwt, dwb, w_delta, w_b, w_c, A, Dskip, delta_bias, ln_g, ln_b,
+                    proj_w, io):
+    """The kernel's weight operands, which depend on parameters only: in_proj's
+    halves at the io dtype and widened, stacked [2, C0, D] (the fold's
+    operand), the taps and the product weights at the io dtype, the rest in
+    fp32; A, w_b, w_c padded to the kernel's state count."""
     A, w_b, w_c = pad_states(A, w_b, w_c)
-    D, N = wx.shape[-1], A.shape[-1]
+    f32 = lambda t: t.detach().float().contiguous()
+    w = dict(wf=torch.stack([wx.detach().to(io).float(), wz.detach().to(io).float()]),
+             taps=dwt.detach().to(io).contiguous(), dwb=f32(dwb),
+             wproj=torch.cat([w_delta, w_b, w_c], dim=-1).detach().to(io).contiguous(),
+             pw=proj_w.detach().to(io).contiguous(), A=f32(A), Ds=f32(Dskip),
+             bias=f32(delta_bias), g=f32(ln_g), b=f32(ln_b))
+    C0, D = w["wf"].shape[1:]
+    N = w["A"].shape[-1]
+    if C0 % 8 or D % 8:  # the front kernel's 16-byte vectors
+        raise ValueError(f"ss2d_mamba_block's kernel takes C0 and D multiples of 8, got "
+                         f"{C0} and {D}")
+    _build.expect(w["wf"].device, wf=(w["wf"], (2, C0, D)), taps=(w["taps"], (9, D)),
+                  dw_bias=(w["dwb"], (D,)), wproj=(w["wproj"], (4, D, D + 2 * N)),
+                  A=(w["A"], (4, D, N)), Dskip=(w["Ds"], (4, D)),
+                  delta_bias=(w["bias"], (4, D)), ln_g=(w["g"], (D,)), ln_b=(w["b"], (D,)),
+                  proj_w=(w["pw"], (D, C0)))
+    return w
+
+
+def _launch(x, geff, beff, w, local, gate, eps_ln, eps):
+    """One ``mamba_block_forward`` launch: the LN affine and the modulation
+    folded into in_proj per image (``fold_affine``'s arithmetic, both halves
+    at once), the scratch carved from one allocation."""
+    B, H, W, C0 = x.shape
+    D, N = w["wf"].shape[-1], w["A"].shape[-1]
     io = x.dtype
     if not mamba_block_ok(H, W):
         raise ValueError(f"ss2d_mamba_block needs even H, W >= 4, got {H}x{W}")
-    _build.dtype_code(x)
+    code = _build.dtype_code(x)
     x = x.contiguous()
-    f32 = lambda t: t.detach().float().contiguous()
-    wxg, bx = (t.detach().contiguous() for t in fold_affine(wx, geff, beff, io))
-    wzg, bz = (t.detach().contiguous() for t in fold_affine(wz, geff, beff, io))
-    taps = dwt.detach().to(io).contiguous()
-    wproj = torch.cat([w_delta, w_b, w_c], dim=-1).detach().to(io).contiguous()
-    pw = proj_w.detach().to(io).contiguous()
-    dwb32, A32, Ds32, bias32 = f32(dwb), f32(A), f32(Dskip), f32(delta_bias)
-    g32, b32 = f32(ln_g), f32(ln_b)
-    loc32 = None if local is None else f32(local)
+    if w["wf"].shape[1] != C0 or w["wf"].device != x.device:
+        raise ValueError(f"in_proj [{w['wf'].shape[1]}, {D}] on {w['wf'].device} does not "
+                         f"take x [..., {C0}] on {x.device}")
+    # round_io(W * geff_b) for both halves in one launch: the fp32 product
+    # rounded as it is stored; bx_b and bz_b = beff_b W
+    wg = torch.empty((2, B, C0, D), dtype=io, device=x.device)
+    torch.mul(w["wf"][:, None], geff[None, :, :, None], out=wg)
+    bxz = beff @ w["wf"]  # [2, B, D]
+    loc32 = None if local is None else local.detach().float().contiguous()
     gate32 = gate.detach().to(io).float().contiguous()
-    dev = x.device
-    _build.expect(dev, wxg=(wxg, (B, C0, D)), bx=(bx, (B, D)), wzg=(wzg, (B, C0, D)),
-                  bz=(bz, (B, D)), taps=(taps, (9, D)), dw_bias=(dwb32, (D,)),
-                  wproj=(wproj, (4, D, D + 2 * N)), A=(A32, (4, D, N)),
-                  Dskip=(Ds32, (4, D)), delta_bias=(bias32, (4, D)), ln_g=(g32, (D,)),
-                  ln_b=(b32, (D,)), local=(loc32, (B, D)), proj_w=(pw, (D, C0)),
-                  gate=(gate32, (B, C0)))
-    L = (H // 2) * (W // 2)
+    _build.expect(x.device, local=(loc32, (B, D)), gate=(gate32, (B, C0)))
+    P, L = B * H * W, (H // 2) * (W // 2)
     NC = -(-L // _CHUNK)
-    act = lambda c: torch.empty(B, H, W, c, device=dev, dtype=io)
-    xc, u, xs, og = act(C0), act(D), act(D), act(D)
-    proj_buf = torch.empty(B * 4 * L * (D + 2 * N), device=dev)
-    chunk_sum = torch.empty(B * 4 * NC * D, device=dev)
-    chunk_state = torch.empty(B * 4 * NC * D * N, device=dev)
-    ybuf = torch.empty(B * H * W * D, device=dev)
-    yacc = torch.empty(B * 4 * L * D, device=dev) if N > _GROUP else None
-    stats = torch.empty(B * H * W * 2, device=dev)
+    isz = x.element_size()
+    # bytes of the scratch: xc, xs, og at the io dtype; the tail's fp32 buffers
+    sizes = [P * C0 * isz, P * D * isz, P * D * isz, B * 4 * L * (D + 2 * N) * 4,
+             B * 4 * NC * D * 4, B * 4 * NC * D * N * 4, P * D * 4,
+             B * 4 * L * D * 4 if N > _GROUP else 0, P * 2 * 4]
+    offsets, total = [], 0
+    for n in sizes:
+        offsets.append(total)
+        total += -(-n // 256) * 256
+    scratch = torch.empty(total, dtype=torch.uint8, device=x.device)
+    base = scratch.data_ptr()
+    xc, xs, og, proj, csum, cstate, ybuf, yacc, stats = (
+        base + o if n else None for o, n in zip(offsets, sizes))
     out = torch.empty_like(x)
-    fn = _build.kernel("mamba_block", "mamba_block_forward", 27,
+    fn = _build.kernel("mamba_block", "mamba_block_forward", 26,
                        [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float, ctypes.c_int])
-    rc = fn(*map(_build.ptr, (x, wxg, bx, wzg, bz, taps, dwb32, wproj, A32, Ds32, bias32, g32,
-                              b32, loc32, pw, gate32, out, xc, u, xs, proj_buf, chunk_sum,
-                              chunk_state, ybuf, yacc, stats, og)),
-            B, H, W, C0, D, N, _CHUNK, eps_ln, eps, _build.dtype_code(x), _build.stream())
+    rc = fn(*map(_build.ptr, (x, wg[0], bxz[0], wg[1], bxz[1], w["taps"], w["dwb"], w["wproj"],
+                              w["A"], w["Ds"], w["bias"], w["g"], w["b"], loc32, w["pw"],
+                              gate32, out)),
+            xc, xs, proj, csum, cstate, ybuf, yacc, stats, og,
+            B, H, W, C0, D, N, _CHUNK, eps_ln, eps, code, _build.stream())
     _build.check(rc, "mamba_block_forward")
     ss2d_mamba_block.launches += 1
     return out
+
+
+def _mamba_block_cuda(x, geff, beff, wx, wz, dwt, dwb, w_delta, w_b, w_c, A, Dskip,
+                      delta_bias, ln_g, ln_b, local, proj_w, gate, eps_ln, eps):
+    w = _kernel_weights(wx, wz, dwt, dwb, w_delta, w_b, w_c, A, Dskip, delta_bias, ln_g, ln_b,
+                        proj_w, x.dtype)
+    return _launch(x, geff, beff, w, local, gate, eps_ln, eps)
 
 
 def mamba_compose(x, geff, beff, wx, wz, dwt, dwb, w_delta, w_b, w_c, A, Dskip, delta_bias,
@@ -193,25 +227,38 @@ class _MambaBlockFn(torch.autograd.Function):
                                          ctx.saved_tensors, ctx.needs_input_grad[2:], g))
 
 
+def _modulation(ln_scale, ln_bias, mod_scale, mod_shift):
+    """geff and beff [B, C0] in fp32 (experimental_unified.py:694-717)."""
+    B, C0 = mod_scale.shape[0], ln_scale.shape[-1]
+    ms1 = 1.0 + mod_scale.float().reshape(B, C0)
+    return (ln_scale.float()[None] * ms1,
+            ln_bias.float()[None] * ms1 + mod_shift.float().reshape(B, C0))
+
+
+def _weights(in_proj_w, dw_kernel, x_proj_weight, dt_projs_weight, d_inner, dt_rank, d_state,
+             io):
+    """The in_proj halves [C0, D] and the folded scan projections at the io
+    dtype, the taps [9, D]."""
+    w_delta, w_b, w_c = _derive_weights(x_proj_weight, dt_projs_weight, dt_rank, d_state)
+    dwt = dw_kernel[:, 0].reshape(d_inner, 9).t()
+    return (in_proj_w[:d_inner].t().to(io), in_proj_w[d_inner:].t().to(io), dwt,
+            w_delta.to(io), w_b.to(io), w_c.to(io))
+
+
 def _split_args(x, ln_scale, ln_bias, mod_scale, mod_shift, in_proj_w, dw_kernel, dw_bias,
                 x_proj_weight, dt_projs_weight, A, Dskip, delta_bias, out_ln_g, out_ln_b,
                 local, proj_w, gate, d_inner, dt_rank, d_state):
     """The op's operands as ``ss2d_mamba_block`` (:694-717) forms them: geff
     and beff in fp32, the in_proj halves and the folded scan projections at
     the io dtype, the taps [9, D]."""
-    B, C0 = x.shape[0], x.shape[-1]
-    io = x.dtype
-    w_delta, w_b, w_c = _derive_weights(x_proj_weight, dt_projs_weight, dt_rank, d_state)
-    ms = mod_scale.float().reshape(B, C0)
-    mt = mod_shift.float().reshape(B, C0)
-    geff = ln_scale.float()[None] * (1.0 + ms)
-    beff = ln_bias.float()[None] * (1.0 + ms) + mt
-    dwt = dw_kernel[:, 0].reshape(d_inner, 9).t()
+    geff, beff = _modulation(ln_scale, ln_bias, mod_scale, mod_shift)
+    wx, wz, dwt, w_delta, w_b, w_c = _weights(in_proj_w, dw_kernel, x_proj_weight,
+                                              dt_projs_weight, d_inner, dt_rank, d_state,
+                                              x.dtype)
     if dw_bias is None:  # as the JAX op: zeros, and adding them is exact
         dw_bias = x.new_zeros(d_inner, dtype=torch.float32)
-    return (x, geff, beff, in_proj_w[:d_inner].t().to(io), in_proj_w[d_inner:].t().to(io), dwt,
-            dw_bias, w_delta.to(io), w_b.to(io), w_c.to(io), A, Dskip, delta_bias, out_ln_g,
-            out_ln_b, local, proj_w.t(), gate)
+    return (x, geff, beff, wx, wz, dwt, dw_bias, w_delta, w_b, w_c, A, Dskip, delta_bias,
+            out_ln_g, out_ln_b, local, proj_w.t(), gate)
 
 
 def ss2d_mamba_block(x, ln_scale, ln_bias, mod_scale, mod_shift, in_proj_w, dw_kernel, dw_bias,
@@ -225,7 +272,29 @@ def ss2d_mamba_block(x, ln_scale, ln_bias, mod_scale, mod_shift, in_proj_w, dw_k
     (negative); Dskip, delta_bias [4, D]; out_ln_g, out_ln_b [D]; local
     [B, D] or None; proj_w [C0, D].  Requires :func:`mamba_block_ok`.
     CUDA tensors launch the kernel; CPU tensors take the plain version.
-    Differentiable in every tensor argument."""
+    Differentiable in every tensor argument.  When no input needs a
+    gradient, a CUDA call skips autograd and the weight operands are
+    derived once per parameter version (:func:`._cache.derived`); the fold
+    of the modulation runs at every call."""
+    weights = tuple(t for t in (in_proj_w, dw_kernel, dw_bias, x_proj_weight, dt_projs_weight,
+                                A, Dskip, delta_bias, out_ln_g, out_ln_b, proj_w)
+                    if t is not None)
+    if x.is_cuda and not _cache.needs_grad(x, ln_scale, ln_bias, mod_scale, mod_shift, local,
+                                           gate, *weights):
+        io = x.dtype
+
+        def make():
+            wx, wz, dwt, w_delta, w_b, w_c = _weights(in_proj_w, dw_kernel, x_proj_weight,
+                                                      dt_projs_weight, d_inner, dt_rank,
+                                                      d_state, io)
+            dwb = x.new_zeros(d_inner, dtype=torch.float32) if dw_bias is None else dw_bias
+            return _kernel_weights(wx, wz, dwt, dwb, w_delta, w_b, w_c, A, Dskip, delta_bias,
+                                   out_ln_g, out_ln_b, proj_w.t(), io)
+
+        w = _cache.derived(("mamba_block", io, d_inner, dt_rank, d_state, dw_bias is None),
+                           weights, make)
+        geff, beff = _modulation(ln_scale, ln_bias, mod_scale, mod_shift)
+        return _launch(x, geff, beff, w, local, gate, eps_ln, eps)
     return _MambaBlockFn.apply(eps_ln, eps, *_split_args(
         x, ln_scale, ln_bias, mod_scale, mod_shift, in_proj_w, dw_kernel, dw_bias,
         x_proj_weight, dt_projs_weight, A, Dskip, delta_bias, out_ln_g, out_ln_b, local, proj_w,

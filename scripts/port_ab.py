@@ -12,26 +12,25 @@ tree, so that each imports its own ``founddiff_tpu_torch`` and
 ``chip_smoke.py`` and builds its own kernels.  A worker measures, on inputs
 made from a seed here (the same in both trees):
 
-- ``kernels``: the redesigned GroupNorm pair at the epilogue level, one
-  ``group_norm_silu`` call with ``FOUNDDIFF_GN=pallas`` in fp32 at each
-  (H, C) of chip_smoke's ``GN_BLOCKS``, at bs1 and bs4, as block1 calls it
-  (the time scale/shift, passed as the ``.chunk`` views of one [B, 2C]
-  tensor, as the time MLP's output) and as block2 calls it (the residual):
-  its event time (CUDA events, median of 7 after 2 warm-ups), and from
-  ``torch.profiler`` over 10 calls its device time and, by kernel, the
-  device time and the launches of one call; and their sums over the 38
-  epilogues of a bs1 (and bs4) fp32 vanilla UNet forward;
-- ``share``: those 38 epilogues of a bs1 fp32 vanilla forward in one
-  profiled run on each route (``FOUNDDIFF_GN`` unset, then ``pallas``):
-  wall and device-busy ms, and the launches, the port's and PyTorch's;
+- ``kernels``: the two kernels redesigned last, each call timed alone:
+  ``ss2d_mamba_block`` at each MambaBlock shape of chip_smoke's ``BLOCKS``
+  (``mamba_case``) in bf16 at bs1 and bs4 and in fp32 at the training
+  microbatch, and ``flash_fwd`` at the vanilla bottleneck (``flash_case``,
+  L 4,096) at bs1 and at the microbatch in fp32 and bf16, beside
+  ``scaled_dot_product_attention``: event time (CUDA events, median of 7
+  after 2 warm-ups) and, from ``torch.profiler`` over 10 calls, device time
+  and by kernel the device time and launches of one call; and their sums
+  over the calls of one UNet forward (nine MambaBlocks, one attention);
 - ``vanilla``: UNet forwards/s of the vanilla path (``Config()`` with
   ``original_ddim_ddpm``, 512^2, fp32) at bs1 and bs4 on each route (median
   of 5 after a warm-up, host clock around work that ends in a synchronize);
 - ``train``: the fp32 train step of ``Config()`` at 512^2 and 360^2
   (chip_smoke's ``train_full_width`` without its bf16 steps: a warm-up
   step, then the median of 3), with its launch counts checked;
-- ``serving``: DDIM-2 serving of ``Config()`` in bf16 at 512^2 and 360^2:
-  slices/s at bs1 (median of 4 requests) and bs4 (median of 2 batches).
+- ``serving``: DDIM-2 serving of ``Config()`` in bf16 at 512^2 and 360^2,
+  and at 512^2 with both opt-in routes on (chip_smoke's ``ROUTES``, as in
+  its phase 10): slices/s at bs1 (median of 4 requests) and bs4 (median of
+  2 batches).
 
 In its first turn each tree also hashes (``hash``: sha256) the outputs of
 every phase-2 case of the kernels listed in ``UNTOUCHED``, fp32 and bf16, at
@@ -56,12 +55,10 @@ import time
 import zlib
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REDESIGNED = ("gn_stats", "gn_apply")
 UNTOUCHED = ("ss2d_image_block", "attn_block", "layer_norm_modulated", "scan_forward",
-             "scan_backward", "scan_image_forward", "layer_norm", "ss2d_mamba_block",
-             "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "scan_fused_forward",
-             "merge_ln_gate")
-PARTS = ("hash", "kernels", "share", "vanilla", "train", "serving")
+             "scan_backward", "scan_image_forward", "layer_norm", "gn_stats", "gn_apply",
+             "flash_bwd_dq", "flash_bwd_dkv", "scan_fused_forward", "merge_ln_gate")
+PARTS = ("hash", "kernels", "vanilla", "train", "serving")
 # the modules of the kernels whose launches a train step counts
 WRAPPED = (("ss2d_image_block", "ss2d_block"), ("attn_block", "attn_block"),
            ("layer_norm_modulated", "norm"), ("scan_forward", "scan"),
@@ -78,8 +75,8 @@ def _ops():
     """kernel name -> wrapper, as chip_smoke.py calls them in phase 2 (the
     kernels of UNTOUCHED)."""
     from founddiff_tpu_torch.ops import attn_block as attn_mod
-    from founddiff_tpu_torch.ops import experimental_unified as unified_mod
     from founddiff_tpu_torch.ops import flash_attention as flash_mod
+    from founddiff_tpu_torch.ops import groupnorm as gn_mod
     from founddiff_tpu_torch.ops import norm as norm_mod
     from founddiff_tpu_torch.ops import scan as scan_mod
     from founddiff_tpu_torch.ops import ss2d_block as ss2d_mod
@@ -89,9 +86,9 @@ def _ops():
         "ss2d_image_block": ss2d_mod.ss2d_image_block, "attn_block": attn_mod.attn_block,
         "layer_norm_modulated": norm_mod.layer_norm_modulated,
         "scan_forward": scan_mod.scan_forward, "scan_backward": scan_mod.scan_backward,
-        "scan_image_forward": scan_mod.scan_image_forward, "flash_fwd": flash_mod.flash_fwd,
+        "scan_image_forward": scan_mod.scan_image_forward,
         "flash_bwd_dq": flash_mod.flash_bwd_dq, "flash_bwd_dkv": flash_mod.flash_bwd_dkv,
-        "ss2d_mamba_block": unified_mod.ss2d_mamba_block,
+        "gn_stats": gn_mod.gn_stats, "gn_apply": gn_mod.gn_apply,
         "scan_fused_forward": scan_mod.scan_fused_forward, "layer_norm": norm_mod.layer_norm,
         "merge_ln_gate": lambda *a, split, **k: (fused_mod.merge_ln_gate_split if split
                                                  else fused_mod.merge_ln_gate)(*a, **k),
@@ -143,7 +140,7 @@ def _env(values):
                 os.environ[k] = v
 
 
-def _serve(cs, size: int, card: str):
+def _serve(cs, size: int, card: str, routes: bool = False):
     import numpy as np
     import torch
     from founddiff_tpu_torch.config import Config
@@ -164,10 +161,13 @@ def _serve(cs, size: int, card: str):
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    request(x[:1], 0)
-    request(x, 0)
-    bs1 = [request(x[i:i + 1], 100 + i) for i in range(4)]
-    bs4 = [request(x, 200 + i) for i in range(2)]
+    with _env(cs.ROUTES if routes else {}):
+        request(x[:1], 0)
+        request(x, 0)
+        bs1 = [request(x[i:i + 1], 100 + i) for i in range(4)]
+        bs4 = [request(x, 200 + i) for i in range(2)]
+    del model, sampler
+    torch.cuda.empty_cache()
     return dict(bs1_slices_per_s=1 / statistics.median(bs1),
                 bs4_slices_per_s=4 / statistics.median(bs4), bs1_request_s=bs1, bs4_batch_s=bs4)
 
@@ -214,76 +214,51 @@ def _device_split(fn, n: int = 10):
     return ms, launches
 
 
-def _epilogue(B, H, C, res, gen, dev):
-    """One Block's GroupNorm epilogue at [B, H, H, C] fp32: with the residual
-    (block2) or the time scale/shift as the chunks of one [B, 2C] tensor
-    (block1); the GroupNorm affine [C]."""
+def _unit_calls(cs):
+    """(unit, case label, calls per UNet forward, zero-argument call, library
+    call or None) of the two kernels redesigned last: ``ss2d_mamba_block``
+    at each MambaBlock shape of BLOCKS, bs1 and bs4 bf16 and the microbatch
+    fp32 (a train step runs each forward twice, one per microbatch), and
+    ``flash_fwd`` at the vanilla bottleneck, once per forward."""
     import torch
 
-    from founddiff_tpu_torch.ops.groupnorm import group_norm_silu
+    from founddiff_tpu_torch.ops.experimental_unified import ss2d_mamba_block
+    from founddiff_tpu_torch.ops.flash_attention import flash_fwd
 
-    n = lambda *s: torch.randn(s, generator=gen).to(dev)
-    x = n(B, H, H, C) * 1.5 + 0.3
-    g, b = n(C) * 0.1 + 1.0, n(C) * 0.1
-    if res:
-        r = n(B, H, H, C)
-        return lambda: group_norm_silu(x, g, b, residual=r, groups=8)
-    ss = (n(B, 2 * C) * 0.2).chunk(2, dim=-1)
-    return lambda: group_norm_silu(x, g, b, scale_shift=ss, groups=8)
-
-
-def _epilogue_calls(cs, B, dev):
-    """The 38 epilogues of one vanilla UNet forward at batch B (per (H, C)
-    of GN_BLOCKS, n block1 and n block2 calls), as zero-argument calls."""
-    calls = []
-    for (H, C), n in cs.GN_BLOCKS.items():
-        for res in (False, True):
-            calls += [_epilogue(B, H, C, res, _gen(f"share {B} {H} {C} {res}"), dev)] * n
-    return calls
+    dev = torch.device("cuda")
+    shapes = {}
+    for H, C, N in cs.BLOCKS.values():
+        shapes[(H, C, N)] = shapes.get((H, C, N), 0) + 1
+    for B, dtype in ((1, torch.bfloat16), (4, torch.bfloat16), (cs.TRAIN_BATCH, torch.float32)):
+        unit = f"ss2d_mamba_block bs{B} {str(dtype)[6:]}"
+        for (H, C, N), n in shapes.items():
+            label = f"{unit} {H}^2 C0={C} N={N}"
+            kw = cs.mamba_case(B, H, C, N, dtype, _gen(label), dev)[1]
+            yield unit, label, n, lambda kw=kw: ss2d_mamba_block(**kw), None
+    L = cs.FLASH_L
+    for B in (1, cs.TRAIN_BATCH):
+        for dtype in (torch.float32, torch.bfloat16):
+            unit = f"flash_fwd bs{B} {str(dtype)[6:]}"
+            label = f"{unit} L={L}"
+            args, _, _, _, _, library = cs.flash_case("flash_fwd", B, L, L, dtype, _gen(label),
+                                                       dev)
+            yield unit, label, 1, lambda args=args: flash_fwd(*args), library
 
 
 def _kernel_rows(cs) -> dict:
-    """Event ms, device ms, and device ms and launches by kernel of one
-    epilogue call on the kernel route, at each (H, C), batch and variant."""
+    """Event ms, device ms, and device ms and launches by kernel of one call
+    of each of _unit_calls, with the library call's event ms beside it."""
     import torch
 
-    dev = torch.device("cuda")
     rows = {}
-    with _env(GN_ROUTE):
-        for B in (1, 4):
-            for (H, C), n in cs.GN_BLOCKS.items():
-                for res in (False, True):
-                    key = f"bs{B} {H}^2 C={C} {'res' if res else 'scale/shift'}"
-                    fn = _epilogue(B, H, C, res, _gen(key), dev)
-                    split, launches = _device_split(fn)
-                    rows[key] = dict(batch=B, per_forward=n, ms=cs.cuda_ms(fn),
-                                     device_ms=sum(split.values()), split=split,
-                                     launches=launches)
-                    del fn
-                    torch.cuda.empty_cache()
+    for unit, label, n, fn, library in _unit_calls(cs):
+        split, launches = _device_split(fn)
+        rows[label] = dict(unit=unit, per_forward=n, ms=cs.cuda_ms(fn),
+                           device_ms=sum(split.values()), split=split, launches=launches,
+                           library_ms=None if library is None else cs.cuda_ms(library))
+        del fn, library
+        torch.cuda.empty_cache()
     return rows
-
-
-def _share(cs) -> dict:
-    """The 38 epilogues of a bs1 fp32 vanilla forward in one profiled run on
-    each route: wall and busy ms, and launches by group."""
-    import torch
-
-    dev = torch.device("cuda")
-    calls = _epilogue_calls(cs, 1, dev)
-    out = {}
-    for route, env in (("default", {"FOUNDDIFF_GN": None}), ("kernels", GN_ROUTE)):
-        with _env(env):
-            for f in calls:
-                f()
-            prof = cs.profile_device(lambda: [f() for f in calls], f"ab epilogues {route}",
-                                     top=0)
-        out[route] = dict(wall_ms=prof["wall_ms"], busy_ms=prof["busy_ms"],
-                          launches={g: c for g, (c, _) in prof["groups"].items()},
-                          epilogues=len(calls))
-    del calls
-    torch.cuda.empty_cache()
-    return out
 
 
 def _vanilla(cs) -> dict:
@@ -340,6 +315,7 @@ def _train(cs, card: str) -> dict:
 
 
 def worker(tree: str, out_path: str, parts) -> None:
+    out_path = os.path.abspath(out_path)  # before the chdir into the tree
     os.chdir(tree)
     sys.path.insert(0, tree)
     import torch
@@ -347,7 +323,7 @@ def worker(tree: str, out_path: str, parts) -> None:
     import chip_smoke as cs
     from founddiff_tpu_torch.ops import _build
 
-    for k in cs.ROUTES:  # every part but the GroupNorm timings runs the default routes
+    for k in cs.ROUTES:  # the default routes, but where a part sets its own
         os.environ.pop(k, None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -357,8 +333,8 @@ def worker(tree: str, out_path: str, parts) -> None:
     built = _build.build_all()
     ops = _ops()
     dev = torch.device("cuda")
-    rec = dict(tree=tree, card=card, build_s=built["seconds"], hashes={}, rows={}, share={},
-               vanilla={}, train={}, serving={})
+    rec = dict(tree=tree, card=card, build_s=built["seconds"], hashes={}, rows={}, vanilla={},
+               train={}, serving={})
     if "hash" in parts:
         for batch, kname, label, count, make in _cases(cs):
             if kname not in UNTOUCHED:
@@ -371,30 +347,48 @@ def worker(tree: str, out_path: str, parts) -> None:
             torch.cuda.empty_cache()
     if "kernels" in parts:
         rec["rows"] = _kernel_rows(cs)
-    if "share" in parts:
-        rec["share"] = _share(cs)
+        _print_units(rec["rows"], card, os.path.basename(tree))
     if "vanilla" in parts:
         rec["vanilla"] = _vanilla(cs)
     if "train" in parts:
         rec["train"] = _train(cs, card)
     if "serving" in parts:
         rec["serving"] = {str(size): _serve(cs, size, card) for size in (512, cs.ODD_SIZE)}
+        rec["serving"]["512 routes"] = _serve(cs, 512, card, routes=True)
     with open(out_path, "w") as f:
         json.dump(rec, f, indent=1)
 
 
-def _per_forward(rows, batch, key):
-    """A row field summed over the 38 epilogues of one forward at ``batch``."""
-    return sum(r[key] * r["per_forward"] for r in rows.values() if r["batch"] == batch)
-
-
-def _by_kernel_per_forward(rows, batch, field):
+def _units(rows, field):
+    """A row field summed over the calls of one UNet forward, by unit; for a
+    dict field (split, launches), by kernel within each unit."""
     out = {}
     for r in rows.values():
-        if r["batch"] == batch:
+        if isinstance(r[field], dict):
+            d = out.setdefault(r["unit"], {})
             for k, v in r[field].items():
-                out[k] = out.get(k, 0.0) + v * r["per_forward"]
+                d[k] = d.get(k, 0.0) + v * r["per_forward"]
+        elif r[field] is not None:
+            out[r["unit"]] = out.get(r["unit"], 0.0) + r[field] * r["per_forward"]
     return out
+
+
+def _print_units(rows, card, tag) -> None:
+    """Each unit's event, device and library ms per UNet forward, its device
+    ms and launches by kernel, and each call's device split."""
+    ms, dev, lib = _units(rows, "ms"), _units(rows, "device_ms"), _units(rows, "library_ms")
+    split, launches = _units(rows, "split"), _units(rows, "launches")
+    for u in ms:
+        extra = f", library {lib[u]:.4f}" if u in lib else ""
+        print(f"[ab unit] {tag} {u} per forward: event {ms[u]:.4f} ms, device {dev[u]:.4f}"
+              f"{extra} [{card}]")
+        print(f"[ab unit split] {tag} {u}: " + ", ".join(
+            f"{k} {v:.4f} ms in {launches[u][k]:.0f}"
+            for k, v in sorted(split[u].items(), key=lambda x: -x[1])))
+    for label, r in rows.items():
+        print(f"[ab call] {tag} {label}: event {r['ms']:.4f} ms, device {r['device_ms']:.4f}: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(r["split"].items(),
+                                                            key=lambda x: -x[1])))
 
 
 def main() -> int:
@@ -430,18 +424,16 @@ def main() -> int:
             runs[name].append(json.load(f))
         print(f"[turn {i}] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
     card = runs["change"][0]["card"]
-    summary = dict(card=card, order=order, epilogues={}, split={}, share={}, vanilla={},
-                   train={}, serving={}, bits={})
-    for B in (1, 4):
-        for key in ("ms", "device_ms"):
-            summary["epilogues"][f"38 epilogues bs{B} fp32 {key}"] = {
-                n: [_per_forward(r["rows"], B, key) for r in runs[n] if r["rows"]]
-                for n in runs}
+    summary = dict(card=card, order=order, units={}, split={}, vanilla={}, train={},
+                   serving={}, bits={})
+    for key in ("ms", "device_ms"):
+        for n in runs:
+            for r in runs[n]:
+                for u, v in _units(r["rows"], key).items():
+                    summary["units"].setdefault(f"{u} {key}", {"parent": [], "change": []})
+                    summary["units"][f"{u} {key}"][n].append(v)
     for n in runs:
-        summary["split"][n] = [
-            {f"bs{B} {field}": _by_kernel_per_forward(r["rows"], B, field)
-             for B in (1, 4) for field in ("split", "launches")} for r in runs[n] if r["rows"]]
-        summary["share"][n] = [r["share"] for r in runs[n] if r["share"]]
+        summary["split"][n] = [_units(r["rows"], "split") for r in runs[n] if r["rows"]]
         summary["vanilla"][n] = [r["vanilla"] for r in runs[n] if r["vanilla"]]
         summary["train"][n] = [r["train"] for r in runs[n] if r["train"]]
         summary["serving"][n] = [{s: {k: v for k, v in d.items() if k.endswith("per_s")}
@@ -455,18 +447,14 @@ def main() -> int:
     with open(os.path.join(os.getcwd(), "chiprun_out", "port_ab.json"), "w") as f:
         json.dump(dict(summary=summary, runs=runs), f, indent=1)
     print(card)
-    for k, vals in summary["epilogues"].items():
-        print(f"[ab] {k:40s} parent {[round(v, 4) for v in vals['parent']]}  "
+    for k, vals in summary["units"].items():
+        print(f"[ab] {k} per forward: parent {[round(v, 4) for v in vals['parent']]}  "
               f"change {[round(v, 4) for v in vals['change']]}")
     for n in runs:
         for turn in summary["split"][n]:
-            for what, d in turn.items():
-                print(f"[ab split] {n} per 38 epilogues {what}: " + ", ".join(
+            for u, d in turn.items():
+                print(f"[ab split] {n} {u} per forward: " + ", ".join(
                     f"{k} {v:.4f}" for k, v in sorted(d.items(), key=lambda x: -x[1])))
-        for r in summary["share"][n]:
-            print(f"[ab share] {n}: " + "; ".join(
-                f"{route} busy {d['busy_ms']:.3f} of {d['wall_ms']:.3f} ms, launches "
-                f"{d['launches']} over {d['epilogues']} epilogues" for route, d in r.items()))
         for r in summary["vanilla"][n]:
             print(f"[ab vanilla forwards/s] {n}: " + ", ".join(
                 f"{k} {d['forwards_per_s']:.3f}" for k, d in r.items()))
@@ -475,7 +463,7 @@ def main() -> int:
                 f"{s}^2 {t:.4f} s" for s, t in r.items()))
         for r in summary["serving"][n]:
             print(f"[ab serving] {n}: " + ", ".join(
-                f"{s}^2 bs1 {d['bs1_slices_per_s']:.3f} bs4 {d['bs4_slices_per_s']:.3f}"
+                f"{s}: bs1 {d['bs1_slices_per_s']:.3f} bs4 {d['bs4_slices_per_s']:.3f}"
                 for s, d in r.items()) + " slices/s")
     print(f"[ab bits] {len(same)} of {summary['bits']['compared']} untouched-kernel outputs "
           f"identical; differ: {differ[:10]}")

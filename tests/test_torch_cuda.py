@@ -342,6 +342,43 @@ def test_flash_kernels(dev, dtype, B, H, Lq, Lk, d):
             flash_mod.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
 
 
+# (Lq, Lk) where the tensor-core forward cuts its 16-row warps and 64-key
+# tiles, the ragged case of chip_smoke and the bottleneck's 4,096
+FLASH_FWD_LENGTHS = [(1, 1), (15, 17), (16, 16), (17, 63), (63, 65), (65, 1), (1000, 777),
+                     (4096, 4096)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H", [(1, 1), (1, 4), (2, 4)])  # G of 1, 4 and 8
+@pytest.mark.parametrize("Lq,Lk", FLASH_FWD_LENGTHS)
+def test_flash_forward_kernel(dev, dtype, B, H, Lq, Lk):
+    """flash_fwd (both products on the tensor cores, the keys split into
+    parts where the query rows alone do not fill the card) against its
+    plain version: o and the logsumexp."""
+    q, k, v, _ = _flash_inputs(_gen(Lq * 7 + Lk + H), B, H, Lq, Lk, 32, dtype, dev)
+    o, lse = flash_mod.flash_fwd(q, k, v, 32 ** -0.5)
+    o_p, lse_p = flash_mod.flash_fwd_plain(q, k, v, 32 ** -0.5)
+    _close(o, o_p, dtype)
+    _close(lse, lse_p, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Lq,Lk", [(1, 4096, 4096), (2, 1000, 777)])
+def test_flash_forward_same_bits_on_two_streams(dev, dtype, B, Lq, Lk):
+    """Two launches, the second on another stream, give the same bits: the
+    key parts are combined in a fixed order, with no atomics."""
+    q, k, v, _ = _flash_inputs(_gen(Lq + Lk), B, 4, Lq, Lk, 32, dtype, dev)
+    o1, lse1 = flash_mod.flash_fwd(q, k, v, 32 ** -0.5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        o2, lse2 = flash_mod.flash_fwd(q, k, v, 32 ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+
+
 @pytest.mark.gpu
 def test_flash_attention_fn_grads(dev):
     q, k, v, _ = _flash_inputs(_gen(8), 2, 2, 150, 90, 32, torch.float32, dev)
@@ -470,6 +507,50 @@ def test_ss2d_mamba_block_kernel(dev, dtype, H, W, C0, N, local):
     _close(got, unified_mod.ss2d_mamba_block_plain(**args), dtype, base=args["x"])
 
 
+# (H = W, C0, d_state) of the nine MambaBlocks of Config() at 512^2
+UNET_BLOCKS = [(512, 64, 4), (256, 64, 8), (128, 128, 16), (64, 256, 32), (64, 512, 32),
+               (128, 256, 16), (256, 128, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,C0,N", UNET_BLOCKS)
+def test_ss2d_mamba_block_kernel_at_the_unet_shapes(dev, dtype, H, C0, N):
+    """The unified op (the front half with U on chip, then the SS2D tail) at
+    the MambaBlock shapes of a 512^2 slice, bs1, against its plain version."""
+    args = _mamba_args(_gen(H + C0 + N), 1, H, H, C0, N, dtype, dev)
+    _close(unified_mod.ss2d_mamba_block(**args), unified_mod.ss2d_mamba_block_plain(**args),
+           dtype, base=args["x"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("local", [True, False])
+@pytest.mark.parametrize("B,H,W,C0,N", [(2, 4, 4, 32, 4), (2, 6, 10, 64, 8),
+                                        (1, 12, 20, 32, 16)])
+def test_ss2d_mamba_block_kernel_edge_grids(dev, dtype, local, B, H, W, C0, N):
+    """Grids the 8 x 16 pixel tiles do not divide, whose halo lands on the
+    image border on every side."""
+    args = _mamba_args(_gen(B * H * W + C0), B, H, W, C0, N, dtype, dev, local)
+    _close(unified_mod.ss2d_mamba_block(**args), unified_mod.ss2d_mamba_block_plain(**args),
+           dtype, base=args["x"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ss2d_mamba_block_direct_and_autograd_paths_agree(dev, dtype):
+    """A call that needs no gradient launches with weight operands derived
+    once per parameter version; one under autograd derives them at the call:
+    the same kernel on the same operands gives the same bits."""
+    args = _mamba_args(_gen(77), 2, 12, 20, 64, 8, dtype, dev)
+    direct = unified_mod.ss2d_mamba_block(**args)
+    again = unified_mod.ss2d_mamba_block(**args)  # the derived operands, reused
+    args["gate"] = args["gate"].clone().requires_grad_(True)
+    tracked = unified_mod.ss2d_mamba_block(**args)
+    assert tracked.requires_grad
+    assert torch.equal(direct, again) and torch.equal(direct, tracked.detach())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("H,C0,N", [(16, 32, 4), (8, 128, 32)])
 def test_ss2d_mamba_block_fn_grads(dev, H, C0, N):
@@ -487,6 +568,9 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
         gn_mod.gn_stats(x, torch.ones(12, device=dev), torch.zeros(12, device=dev), groups=4)
     args = _mamba_args(_gen(1), 1, 6, 10, 32, 4, torch.float32, dev)
     args["x"] = torch.zeros(1, 7, 10, 32, device=dev)  # odd H
+    with pytest.raises(ValueError):
+        unified_mod.ss2d_mamba_block(**args)
+    args = _mamba_args(_gen(1), 1, 6, 10, 36, 4, torch.float32, dev)  # C0 % 8 != 0
     with pytest.raises(ValueError):
         unified_mod.ss2d_mamba_block(**args)
 

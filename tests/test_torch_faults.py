@@ -146,7 +146,7 @@ _LAUNCHES = [
     (_launch_fused, "scan", "scan_fused_forward", 3, 9),
     (_launch_image, "scan_image", "scan_image_forward", 4, 9),
     (_launch_block, "ss2d_block", "ss2d_block_forward", 5, 18),
-    (_launch_mamba, "mamba_block", "mamba_block_forward", 5, 24),
+    (_launch_mamba, "mamba_block", "mamba_block_forward", 5, 23),
 ]
 _RUNTIME_N = ("scan_forward", "scan_backward")  # N as the caller gives it
 # every counter a recorder launch raises

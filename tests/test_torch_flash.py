@@ -10,7 +10,10 @@ Pallas flash attention, run in interpret mode on the CPU as
   ``flash_fwd_plain`` (o and the logsumexp) against ``_flash_fwd_impl``,
   ``flash_bwd_dq_plain`` and ``flash_bwd_dkv_plain`` against
   ``_flash_bwd_impl`` at the forward's own lse;
-- large logits (online softmax without overflow).
+- large logits (online softmax without overflow);
+- ``flash_fwd_plain`` against ``_flash_fwd_impl`` at the lengths where the
+  CUDA forward's tiles are cut (its warps take 16 query rows and its tiles
+  64 keys): 1, 15, 16, 17, 63 and 65, against JAX blocks of 32.
 
 Inputs from numpy seeds; fp32; rtol 1e-3 / atol 1e-4.
 """
@@ -77,6 +80,18 @@ def test_plain_versions_against_the_jax_kernels(lq, lk):
     dk, dv = fa.flash_bwd_dkv_plain(*args)
     _close(dk, dk_j, "dk")
     _close(dv, dv_j, "dv")
+
+
+@pytest.mark.parametrize("lq,lk", [(1, 1), (15, 17), (16, 16), (17, 63), (63, 65), (65, 1)])
+def test_plain_forward_at_the_kernel_tile_edges(lq, lk):
+    q, k, v, _ = _qkvo(3 * lq + lk, lq, lk)
+    o_j, lse_blocks = _flash_fwd_impl(*map(jnp.asarray, (q, k, v)), SCALE, 32, 32)
+    G = q.shape[0] * q.shape[1]
+    lse_j = np.asarray(lse_blocks)[:, :, 0, :].reshape(G, -1)[:, :lq]
+    o, lse = fa.flash_fwd_plain(t_(q), t_(k), t_(v), SCALE)
+    assert o.shape == (2, 2, lq, 32) and lse.shape == (G, lq)
+    _close(o, o_j, "o")
+    _close(lse, lse_j, "lse")
 
 
 def test_large_logits_stay_finite():

@@ -9,6 +9,9 @@ package's ``ops/experimental_unified.py``.
   ``_mamba_xla_compose``, at the same tolerance;
 - gradients of x, in_proj, the depthwise conv and out_proj against
   ``jax.grad`` of the JAX op, ||g_port - g_jax|| <= 1e-4 ||g_jax||;
+- the plain version against the JAX op on the grids where the CUDA front
+  half's 8 x 16 pixel tiles do not divide the image and their halo lands on
+  its border (4 x 4, 6 x 10, 12 x 20), with and without ``local``.
 The MambaBlock on this route, and the micro models with the routes on, are
 in ``tests/test_torch_routes.py``.
 
@@ -106,6 +109,17 @@ def test_mamba_block_op(B, H, W, C0, D, N, local):
     _close(got, _jax_compose(i, D, R, N, local))
     _close(_port_op(tun.ss2d_mamba_block_plain, i, D, R, N, local), got, 0, 0)
     assert tun.ss2d_mamba_block.launches == before  # CPU never launches
+
+
+@pytest.mark.parametrize("B,H,W,C0,D,N,local", [(2, 4, 4, 32, 64, 4, True),
+                                                  (1, 6, 10, 32, 64, 8, False),
+                                                  (1, 12, 20, 32, 64, 4, True),
+                                                  (2, 12, 20, 64, 128, 4, False)])
+def test_mamba_block_op_edge_grids(B, H, W, C0, D, N, local):
+    R, i = _inputs(B, H, W, C0, D, N, seed=H * W + C0)
+    got = _port_op(tun.ss2d_mamba_block_plain, i, D, R, N, local)
+    assert got.shape == (B, H, W, C0)
+    _close(got, _jax_op_jit(i, D, R, N, local))  # Pallas, interpret mode
 
 
 @pytest.mark.parametrize("local", [True, False])
