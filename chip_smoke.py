@@ -65,9 +65,12 @@ Phases (any failure exits non-zero before the last line is printed):
    the default runs the plain composition, timed beside that composition;
    the device time of each launch of the GroupNorm pair, redesigned last
    (``torch.profiler``), over the 38 epilogues of a bs1 fp32 vanilla UNet
-   forward on the kernel route, and the launches of one epilogue; and the
+   forward on the kernel route, and the launches of one epilogue; the
    summed times and bounds of ``scan_fused_forward`` and ``merge_ln_gate``
-   per bs4 forward and (``scan_fused_forward``) per fp32 step.
+   per bs4 forward and (``scan_fused_forward``) per fp32 step, and of the
+   two flash backward kernels per bf16 step beside SDPA's backward; and the
+   key (``flash_bwd_dq``) or query (``flash_bwd_dkv``) parts each phase-2
+   backward launch splits the other side into (``[parts]`` lines).
 3. Main path at full width: ``build(Config())`` on the card (dim 64 x
    (1, 2, 4, 8), full RN50 CLIPIQA tower, seeded random weights with
    non-zero adaLN and prompt), ``make_hoisted_sampler(...,
@@ -174,9 +177,11 @@ summed times of the calls of one bs1 bf16 UNet forward (serving kernels and
 360^2, ``merge_ln_gate`` at 16^2), one bs1 fp32 vanilla UNet forward (``flash_fwd``, the
 GroupNorm pair) or one fp32 train step (the scan and flash backward
 kernels); ``d_state``, the state sizes phase 2 held it at, where it has
-one; and for ``scan_fused_forward`` and ``merge_ln_gate`` ``units``, their
-time and bound summed over a bs4 bf16 forward and, for the scan, an fp32
-360^2 train step); the last is ``{"ok": true, "device": {...}}``.
+one; and for ``scan_fused_forward``, ``merge_ln_gate`` and the two flash
+backward kernels ``units``, their time and bound summed over a bs4 bf16
+forward, for the scan also over an fp32 360^2 train step, for the flash
+backward over a bf16 train step with SDPA's backward beside them); the
+last is ``{"ok": true, "device": {...}}``.
 A longer record goes to ``chiprun_out/chip_smoke.json``.
 """
 
@@ -936,21 +941,26 @@ def gn_split(card):
 # batch, dtype, calls of a phase-2 row's count per unit)
 UNITS = (("scan_fused_forward", "bs4 bf16 forward", 4, "bfloat16", 1),
          ("scan_fused_forward", "fp32 step", TRAIN_BATCH, "float32", 2),
-         ("merge_ln_gate", "bs4 bf16 forward", 4, "bfloat16", 1))
+         ("merge_ln_gate", "bs4 bf16 forward", 4, "bfloat16", 1),
+         ("flash_bwd_dq", "bf16 step", TRAIN_BATCH, "bfloat16", 1),
+         ("flash_bwd_dkv", "bf16 step", TRAIN_BATCH, "bfloat16", 1))
 
 
 def unit_totals(rows, card):
     """Time, bound and plain time of the redesigned kernels summed over the
-    calls of each of UNITS (phase-2 rows at their main-path shapes)."""
+    calls of each of UNITS (phase-2 rows at their main-path shapes), and the
+    library call's time where the rows have one."""
     out = {}
     for k, unit, batch, dtype, per in UNITS:
         mine = [r for r in rows if (r["kernel"], r["batch"], r["dtype"]) == (k, batch, dtype)
                 and r["per_forward"]]
-        tot = {key: sum(r[key] * r["per_forward"] * per for r in mine)
-               for key in ("ms", "bound_ms", "plain_ms")}
+        keys = ("ms", "bound_ms", "plain_ms") + (
+            ("library_ms",) if mine[0]["library_ms"] is not None else ())
+        tot = {key: sum(r[key] * r["per_forward"] * per for r in mine) for key in keys}
         out.setdefault(k, {})[unit] = tot
+        lib = f", library {tot['library_ms']:.4f} ms" if "library_ms" in tot else ""
         log(f"[unit] {k} per {unit}: kernel {tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} "
-            f"ms, plain {tot['plain_ms']:.4f} ms [{card}]")
+            f"ms, plain {tot['plain_ms']:.4f} ms{lib} [{card}]")
     return out
 
 
@@ -1011,19 +1021,47 @@ def flash_case(kname, B, Lq, Lk, dtype, gen, dev):
     return args, {}, None, moved, work, library
 
 
-def flash_cases():
-    """(batch, kernel, label, calls per forward or step, builder) of the
-    flash kernels: the forward at bs1 (one call per vanilla UNet forward when
+def _flash_spec():
+    """(batch, kernel, Lq, Lk, calls per forward or step) of the flash
+    kernels: the forward at bs1 (one call per vanilla UNet forward when
     serving) and at the training microbatch of 2, the backward at 2 (two
     calls per train step), and all three at a ragged Lq 1000 / Lk 777 that
     the main path does not run (0 calls)."""
     L = FLASH_L
     spec = [(1, "flash_fwd", L, L, 1), (TRAIN_BATCH, "flash_fwd", L, L, 0)]
     spec += [(TRAIN_BATCH, k, L, L, 2) for k in FLASH_BWD]
-    spec += [(TRAIN_BATCH, k, 1000, 777, 0) for k in ("flash_fwd",) + FLASH_BWD]
+    return spec + [(TRAIN_BATCH, k, 1000, 777, 0) for k in ("flash_fwd",) + FLASH_BWD]
+
+
+def flash_cases():
+    """(batch, kernel, label, calls per forward or step, case function) of
+    _flash_spec."""
     return [(B, k, f"B{B} H{FLASH_HEADS} Lq={Lq} Lk={Lk} d={FLASH_D}", n,
              lambda dt, g, d, k=k, B=B, Lq=Lq, Lk=Lk: flash_case(k, B, Lq, Lk, dt, g, d))
-            for B, k, Lq, Lk, n in spec]
+            for B, k, Lq, Lk, n in _flash_spec()]
+
+
+def flash_bwd_parts():
+    """The parts each phase-2 launch of the backward kernels splits the
+    other side into (dq: the keys, dk/dv: the queries), as the library
+    chooses them on this card."""
+    import ctypes
+
+    from founddiff_tpu_torch.ops import _build
+
+    fn = _build.load("flash_attention").flash_bwd_parts
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    out = {}
+    for B, k, Lq, Lk, _ in _flash_spec():
+        if k not in FLASH_BWD:
+            continue
+        for dtype, code in (("float32", 0), ("bfloat16", 1)):
+            dkv = k == "flash_bwd_dkv"
+            n = fn(B * FLASH_HEADS, Lk if dkv else Lq, code)
+            label = f"{k} B{B} H{FLASH_HEADS} Lq={Lq} Lk={Lk} {dtype}"
+            out[label] = n
+            log(f"[parts] {label}: {n} {'query' if dkv else 'key'} parts a block")
+    return out
 
 
 def _group_norm_library(x4, gen, dev):
@@ -1922,7 +1960,7 @@ def main() -> int:
     record = dict(card=card, build_seconds=built["seconds"], ptxas=built["logs"],
                   kernel_cases=rows, fused_h_bounds=bounds, bounds_only=bounds_only,
                   attn_on_c64=attn_on_summary(rows), split=gn_split(card),
-                  units=unit_totals(rows, card))
+                  units=unit_totals(rows, card), flash_bwd_parts=flash_bwd_parts())
     if failed:
         _write_record(record)
         raise AssertionError(f"kernels disagree with their plain versions: {failed}")

@@ -14,44 +14,50 @@
 //             dv_j = sum_i p_ij do_i,  with D_i = rowsum(do_i * o_i) given.
 //
 // Bound on the H100: operations.  At d = 32 each (i, j) pair costs 4d
-// forward and 14d backward flops against 4 * d * (Lq + Lk) bytes per
-// sequence: hundreds of flops per byte, and one exponential per pair.
+// forward and 14d backward flops (6d in dq, 8d in dk/dv) against 4 * d *
+// (Lq + Lk) bytes per sequence: hundreds of flops per byte, and one
+// exponential per pair in each kernel.
 //
-// The forward (fwd_kernel) runs both products on the tensor cores with
-// mma.sync, in the FlashAttention-2 shape: a warp owns 16 query rows, S =
-// Q K^T of a 64-key tile stays in its accumulator registers, the row max
-// and row sum are taken across each quad by shuffles, and the accumulator
-// fragment of P is the A operand of P V, so S and P never touch shared
-// memory.  K and V tiles are staged at the io dtype by cp.async in two
-// buffers, the next tile's copy in flight during this tile's products, and
-// shared by the block's WQ warps of query rows.  Each operand keeps the
-// plain version's precision: q * scale is formed in fp32 (as
-// attention_pallas.py:61) and p in fp32, then
-//   bf16: q * scale and p each split into bf16 hi + lo (k and v are exact
-//         in bf16), two bf16 MMAs a product (m16n8k16);
+// All three kernels run every product on the tensor cores with mma.sync,
+// in the FlashAttention-2 shape: a warp owns 16 rows of the side it writes
+// (query rows in fwd_kernel and dq_kernel, key rows in dkv_kernel), holds
+// them as A fragments loaded once, and walks the other side in tiles of 64
+// rows staged at the io dtype by cp.async in two buffers (the next tile's
+// copy in flight during this tile's products), shared by the block's WQ
+// warps.  Each product of a tile stays in accumulator registers, and an
+// accumulator fragment is the A operand of the next product as it lies, so
+// no score ever touches shared memory:
+//   fwd_kernel  S = Q K^T, the row max and sum across each quad by
+//               shuffles, O += P V;
+//   dq_kernel   S = Q K^T, dP = dO V^T, P = exp2(S scale log2e - lse log2e)
+//               (one FMA a pair), dS = P (dP - D), dQ += dS K;
+//   dkv_kernel  S^T = K Q^T, dP^T = V dO^T, the same P^T and dS^T with lse_i
+//               and D_i read by the accumulator's column (the query) from
+//               shared memory, staged with the tile, dV += P^T dO and
+//               dK += dS^T Q.
+// The backward holds a 64-row tile in two steps of 32 (SUB) so that S and
+// dP of a step and both kernels' fp32 operands fit in registers.  Each
+// operand keeps the plain version's precision:
+//   bf16: q, k, v and do are exact in bf16, so the backward's S and dP are
+//         one bf16 MMA a step (m16n8k16); the forward's q * scale (formed
+//         in fp32 as attention_pallas.py:61) and every P or dS (formed in
+//         fp32) split into bf16 hi + lo, two MMAs a step;
 //   fp32: every operand split into a TF32 hi (its leading bits, one mask)
-//         and lo = v - hi, three TF32 MMAs a product (m16n8k8: lo*hi +
-//         hi*lo + hi*hi), as fd::warp_mma sums them.
+//         and lo = v - hi, three TF32 MMAs a step (m16n8k8: lo*hi + hi*lo +
+//         hi*hi), as fd::warp_mma sums them.  The backward's S and dP round
+//         hi to nearest and sum the cross terms apart (RowFrag), and its
+//         gradient products sum each 32-row step from zero (pv_step): dP -
+//         D and the sums over thousands of rows hold the fp32 tolerance.
 // exp2 with log2 e folded into one FMA per pair replaces expf.  To fill the
-// 132 SMs at bs1 (G = 4: 1,024 warps of 16 rows) a block also splits the
-// keys into KS interleaved parts, one per group of WQ warps; the parts'
-// (m, l, o) are combined in shared memory in a fixed order at the end, so
-// there are no atomics and every run gives the same bits.  Ragged Lq and
-// Lk are cut inside the kernel: rows past Lq are not stored, keys past Lk
-// get weight exp2(-inf) = 0 exactly.  lse is [G, Lq] fp32, natural log
-// (the TPU keeps 8 sublane copies per q block).
-//
-// The backward kernels (dq_kernel, dkv_kernel) are the first version,
-// unchanged: each row of the side a kernel writes (a query row for dq, a
-// key row for dkv) is owned by D / 16 neighbouring threads of a warp, each
-// holding 16 of the row's d values and their fp32 accumulators in
-// registers; a dot product is summed over the 16 values by each thread and
-// then over the row's threads by shuffles.  A block of 64 rows walks the
-// other side in tiles of 64 rows staged in shared memory as fp32, all
-// threads reading the same staged row at once (a broadcast); bf16 inputs
-// are widened at the load and every product runs on the fp32 CUDA cores.
-// A block loops over all tiles of the other side itself, so dk/dv (summed
-// over q on the TPU's sequential grid axis) and dq need no atomics.
+// 132 SMs where the rows alone do not (G = 4 at bs1: 1,024 warps of 16
+// rows) a block also splits the other side into KS interleaved parts, one
+// per group of WQ warps (fwd_kernel and dq_kernel the keys, dkv_kernel the
+// queries); the parts' sums ((m, l, o) forward, dQ or dK and dV backward)
+// are combined in shared memory in part order at the end, so there are no
+// atomics and every run gives the same bits.  Ragged Lq and Lk are cut
+// inside the kernels: rows past the end are not stored, keys past Lk (and,
+// in dkv_kernel, queries past Lq) get weight exactly 0.  lse is [G, Lq]
+// fp32, natural log (the TPU keeps 8 sublane copies per q block).
 #include <cmath>
 #include <type_traits>
 
@@ -59,100 +65,16 @@
 
 namespace {
 
-constexpr int ROWS = 64;    // rows owned by a block
-constexpr int TILE = 64;    // rows of the other side staged per step
-constexpr int D = 32;       // head dim: the vanilla UNet's Attention runs 4 heads of 32
-constexpr int DT = 16;      // d values per thread: a row spans D / DT threads
-constexpr int BWD_KC = 8;   // rows of the other side per step (backward)
-
-constexpr int THREADS = ROWS * (D / DT);
-
-using fd::load_vec;
-
-// This thread's DT values of a row (zeros for a row past the end).
-template <typename T>
-__device__ __forceinline__ void load_part(const T* __restrict__ p, bool live, float (&r)[DT]) {
-  constexpr int VEC = 16 / sizeof(T);
-#pragma unroll
-  for (int c = 0; c < DT; c += VEC) {
-    if (live) {
-      load_vec<T>(p + c, &r[c]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) r[c + e] = 0.f;
-    }
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store_part(T* __restrict__ p, const float (&r)[DT], float mul) {
-#pragma unroll
-  for (int c = 0; c < DT; ++c) p[c] = fd::from_f<T>(r[c] * mul);
-}
-
-// Rows [r0, r0 + TILE) of a row-major [L, D] matrix into dst [TILE][D] fp32,
-// rows at or past L as zeros; coalesced 16-byte loads over the whole block.
-template <typename T>
-__device__ __forceinline__ void stage(const T* __restrict__ src, int L, int r0,
-                                      float* __restrict__ dst) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int PER_ROW = D / VEC;
-  for (int i = threadIdx.x; i < TILE * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
-    float* out = dst + r * D + c;
-    if (r0 + r < L) {
-      load_vec<T>(src + (long long)(r0 + r) * D + c, out);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) out[e] = 0.f;
-    }
-  }
-}
-
-// The sum of v over the D / DT neighbouring threads that share a row.
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = D / DT / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// This thread's partial dot product of its DT values r with the staged row at p.
-__device__ __forceinline__ float dot_part(const float* p, const float (&r)[DT]) {
-  float acc = 0.f;
-#pragma unroll
-  for (int d = 0; d < DT; d += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p + d);
-    acc = fmaf(r[d], x.x, acc);
-    acc = fmaf(r[d + 1], x.y, acc);
-    acc = fmaf(r[d + 2], x.z, acc);
-    acc = fmaf(r[d + 3], x.w, acc);
-  }
-  return acc;
-}
-
-// y += a * (the staged row at p), over this thread's DT values.
-__device__ __forceinline__ void axpy_part(float a, const float* p, float (&y)[DT]) {
-#pragma unroll
-  for (int d = 0; d < DT; d += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p + d);
-    y[d] = fmaf(a, x.x, y[d]);
-    y[d + 1] = fmaf(a, x.y, y[d + 1]);
-    y[d + 2] = fmaf(a, x.z, y[d + 2]);
-    y[d + 3] = fmaf(a, x.w, y[d + 3]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// forward on the tensor cores: a warp per 16 query rows (see the header)
-// ---------------------------------------------------------------------------
-constexpr int WQ = 4;          // warps of query rows in a block: 64 rows
-constexpr int KT = 64;         // keys of a staged tile
+constexpr int D = 32;          // head dim: the vanilla UNet's Attention runs 4 heads of 32
+constexpr int WQ = 4;          // warps of 16 rows in a block: 64 rows
+constexpr int KT = 64;         // rows of the other side in a staged tile
+constexpr int SUB = 32;        // of which the backward holds in registers at once
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Row length of a staged K or V tile in shared memory (elements): bf16 rows
-// of 80 bytes keep ldmatrix free of bank conflicts; fp32 rows of 36 words
-// keep the scalar fragment loads of K (key 8j + g, d t) and of V (key 2t,
-// d g) free of them.
+// Row length of a staged tile in shared memory (elements): bf16 rows of 80
+// bytes keep ldmatrix free of bank conflicts; fp32 rows of 36 words keep
+// the scalar fragment loads of a B operand read by row (row 8j + g, d t)
+// and of one read by column (row 2t, d g) free of them.
 template <typename T> struct Lds;
 template <> struct Lds<float> { static constexpr int N = D + 4; };
 template <> struct Lds<__nv_bfloat16> { static constexpr int N = D + 8; };
@@ -166,12 +88,31 @@ constexpr size_t fwd_smem() {
   return tiles > swap ? tiles : swap;
 }
 
+// The dynamic shared memory of a backward kernel: two stages of KS tile
+// pairs, with ROWS fp32 values of each staged row beside them (dkv_kernel's
+// lse and D), reused at the end for the parts' N accumulators (D / 2
+// floats a thread each).
+template <typename T, int KS, int ROWS, int N>
+constexpr size_t bwd_smem() {
+  constexpr size_t tiles = 2ull * KS * (2 * KT * Lds<T>::N * sizeof(T) + ROWS * KT * 4);
+  constexpr size_t swap = (size_t)(KS - 1) * WQ * N * (D / 2) * 32 * sizeof(float);
+  return tiles > swap ? tiles : swap;
+}
+
 // fp32 operand of a 3xTF32 product in two instructions: hi = v cut to a
 // TF32 (its 10 leading mantissa bits), lo = v - hi (exact), of which the
 // tensor cores take a TF32's worth: each part within 2^-10 of its value,
 // about 2^-20 of the product in all.
 __device__ __forceinline__ void split_x3(float v, unsigned& hi, unsigned& lo) {
   hi = __float_as_uint(v) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// The same split with hi rounded to the nearest TF32 (ties away from zero,
+// on the bits), so that |lo| is half as large and the tensor cores' cut of
+// lo costs half as much: the backward's exact operands take it.
+__device__ __forceinline__ void split_rn(float v, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(v - __uint_as_float(hi));
 }
 
@@ -184,9 +125,38 @@ __device__ __forceinline__ void split_bf16x2(float x, float y, unsigned& hi, uns
   lo = *reinterpret_cast<const unsigned*>(&l);
 }
 
-// Q (scaled in fp32) as the A operand of S = Q K^T, hi and lo parts: bf16
+template <int N>
+__device__ __forceinline__ void zero(float (&a)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[j][e] = 0.f;
+}
+
+// a += b, fragment by fragment
+template <int N>
+__device__ __forceinline__ void add(float (&a)[N][4], const float (&b)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[j][e] += b[j][e];
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int bytes) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(a), "l"(gmem),
+               "r"(bytes));
+}
+
+// The A operand of S = A B^T over d, a warp's 16 rows, as fragments: bf16
 // m16n8k16 fragments for d 16 ks .. 16 ks + 15 (2 steps); fp32 m16n8k8
-// fragments for d 8 ks .. 8 ks + 7 (4 steps).  Rows past Lq are zeros.
+// fragments for d 8 ks .. 8 ks + 7 (4 steps).  qk_tile takes a step's
+// fragments through mma (bf16) or split (fp32); in fp32 the fragment type
+// also picks how qk_tile splits B (split_b) and whether it sums the two
+// cross terms (lo x hi) apart from hi x hi (APART).
+//
+// QFrag: the forward's Q, scaled in fp32 and so held as hi and lo parts.
+// Rows past Lq are zeros.
 template <typename T> struct QFrag;
 template <> struct QFrag<__nv_bfloat16> {
   unsigned h[2][4], l[2][4];
@@ -203,6 +173,10 @@ template <> struct QFrag<__nv_bfloat16> {
         split_bf16x2(at(r, d), at(r, d + 1), h[ks][i], l[ks][i]);
       }
   }
+  __device__ __forceinline__ void mma(float (&c)[4], int ks, unsigned b0, unsigned b1) const {
+    fd::mma_bf16(c, l[ks], b0, b1);
+    fd::mma_bf16(c, h[ks], b0, b1);
+  }
 };
 template <> struct QFrag<float> {
   unsigned h[4][4], l[4][4];
@@ -217,54 +191,124 @@ template <> struct QFrag<float> {
         split_x3(v, h[ks][i], l[ks][i]);
       }
   }
+  __device__ __forceinline__ void split(int ks, unsigned (&ah)[4], unsigned (&al)[4]) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      ah[i] = h[ks][i];
+      al[i] = l[ks][i];
+    }
+  }
+  static constexpr bool APART = false;
+  __device__ static __forceinline__ void split_b(float v, unsigned& hi, unsigned& lo) {
+    split_x3(v, hi, lo);
+  }
 };
 
-// s[j] (keys 8j .. 8j + 7 of the tile) += Q K^T over d
-__device__ __forceinline__ void qk_tile(float (&s)[KT / 8][4], const QFrag<__nv_bfloat16>& q,
-                                        const __nv_bfloat16* Ks, int lane) {
+// RowFrag: an operand exact at the io dtype (the backward's q, do, k, v,
+// unscaled), its warp's 16 rows from p: bf16 pairs as they lie (one MMA a
+// step, no lo part), fp32 values split at each step (so that the split
+// parts of both of a kernel's operands need not stay in registers).  In
+// fp32 both operands split with hi rounded to nearest, and qk_tile sums
+// the cross terms apart from hi x hi.  dP - D cancels to rounding noise
+// where a row has few keys (dS is 0 at Lk = 1), and the tensor cores cut
+// each sum toward zero at the running total's scale; with both measures dP
+// keeps about fp32's accuracy, which dK and dQ need there.  Rows at or
+// past n are zeros.
+template <typename T> struct RowFrag;
+template <> struct RowFrag<__nv_bfloat16> {
+  unsigned a[2][4];
+  __device__ __forceinline__ void load(const __nv_bfloat16* p, int n, int g, int t) {
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = g + 8 * (i & 1), d = 16 * ks + 2 * t + 8 * (i >> 1);
+        a[ks][i] = r < n ? *reinterpret_cast<const unsigned*>(p + r * D + d) : 0u;
+      }
+  }
+  __device__ __forceinline__ void mma(float (&c)[4], int ks, unsigned b0, unsigned b1) const {
+    fd::mma_bf16(c, a[ks], b0, b1);
+  }
+};
+template <> struct RowFrag<float> {
+  float a[4][4];
+  __device__ __forceinline__ void load(const float* p, int n, int g, int t) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = g + 8 * (i & 1), d = 8 * ks + t + 4 * (i >> 1);
+        a[ks][i] = r < n ? p[r * D + d] : 0.f;
+      }
+  }
+  __device__ __forceinline__ void split(int ks, unsigned (&ah)[4], unsigned (&al)[4]) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_rn(a[ks][i], ah[i], al[i]);
+  }
+  static constexpr bool APART = true;
+  __device__ static __forceinline__ void split_b(float v, unsigned& hi, unsigned& lo) {
+    split_rn(v, hi, lo);
+  }
+};
+
+// s[j] (columns 8j .. 8j + 7: rows of the staged tile at Bs) += A B^T over d
+template <int NJ, class F>
+__device__ __forceinline__ void qk_tile(float (&s)[NJ][4], const F& a, const __nv_bfloat16* Bs,
+                                        int lane) {
   constexpr int L = Lds<__nv_bfloat16>::N;
 #pragma unroll
   for (int ks = 0; ks < 2; ++ks)
 #pragma unroll
-    for (int jj = 0; jj < KT / 16; ++jj) {
+    for (int jj = 0; jj < NJ / 2; ++jj) {
       unsigned b[4];  // n-tiles 2 jj and 2 jj + 1: b0, b1 each
-      fd::ldmatrix_x4(b, Ks + (16 * jj + (lane & 7) + ((lane >> 4) << 3)) * L + 16 * ks +
+      fd::ldmatrix_x4(b, Bs + (16 * jj + (lane & 7) + ((lane >> 4) << 3)) * L + 16 * ks +
                              ((lane >> 3) & 1) * 8);
-      fd::mma_bf16(s[2 * jj], q.l[ks], b[0], b[1]);
-      fd::mma_bf16(s[2 * jj], q.h[ks], b[0], b[1]);
-      fd::mma_bf16(s[2 * jj + 1], q.l[ks], b[2], b[3]);
-      fd::mma_bf16(s[2 * jj + 1], q.h[ks], b[2], b[3]);
+      a.mma(s[2 * jj], ks, b[0], b[1]);
+      a.mma(s[2 * jj + 1], ks, b[2], b[3]);
     }
 }
-__device__ __forceinline__ void qk_tile(float (&s)[KT / 8][4], const QFrag<float>& q,
-                                        const float* Ks, int lane) {
+template <int NJ, class F>
+__device__ __forceinline__ void qk_tile(float (&s)[NJ][4], const F& a, const float* Bs,
+                                        int lane) {
   constexpr int L = Lds<float>::N;
   const int g = lane >> 2, t = lane & 3;
+  float c[NJ][4];  // the cross terms, where F sums them apart
+  if constexpr (F::APART) zero(c);
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
+  for (int ks = 0; ks < 4; ++ks) {
+    unsigned ah[4], al[4];
+    a.split(ks, ah, al);
 #pragma unroll
-    for (int j = 0; j < KT / 8; ++j) {
-      const float* k = Ks + (8 * j + g) * L + 8 * ks + t;
+    for (int j = 0; j < NJ; ++j) {
+      const float* k = Bs + (8 * j + g) * L + 8 * ks + t;
       unsigned bh[2], bl[2];
-      split_x3(k[0], bh[0], bl[0]);
-      split_x3(k[4], bh[1], bl[1]);
-      fd::mma_tf32(s[j], q.l[ks], bh[0], bh[1]);
-      fd::mma_tf32(s[j], q.h[ks], bl[0], bl[1]);
-      fd::mma_tf32(s[j], q.h[ks], bh[0], bh[1]);
+      F::split_b(k[0], bh[0], bl[0]);
+      F::split_b(k[4], bh[1], bl[1]);
+      if constexpr (F::APART) {
+        fd::mma_tf32(c[j], al, bh[0], bh[1]);
+        fd::mma_tf32(c[j], ah, bl[0], bl[1]);
+      } else {
+        fd::mma_tf32(s[j], al, bh[0], bh[1]);
+        fd::mma_tf32(s[j], ah, bl[0], bl[1]);
+      }
+      fd::mma_tf32(s[j], ah, bh[0], bh[1]);
     }
+  }
+  if constexpr (F::APART) add(s, c);
 }
 
-// o[jd] (d 8 jd .. 8 jd + 7) += P V over the tile's keys, P in the
-// accumulator layout of qk_tile.  bf16: the A fragment of keys 16 kk ..
-// 16 kk + 15 is n-tiles 2 kk and 2 kk + 1 of P as they lie.  fp32: the
-// k-step of n-tile j takes key 8 j + 2 t as its column t and 8 j + 2 t + 1
-// as column t + 4 (the order of the sum over keys is free), so P's
-// fragment is used as it lies and V's rows are read in that order.
-__device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const float (&p)[KT / 8][4],
+// o[jd] (d 8 jd .. 8 jd + 7) += P V over the NJ n-tiles' rows of the
+// staged tile at Vs, P in the accumulator layout of qk_tile.  bf16: the A
+// fragment of rows 16 kk .. 16 kk + 15 is n-tiles 2 kk and 2 kk + 1 of P as
+// they lie.  fp32: the k-step of n-tile j takes row 8 j + 2 t as its column
+// t and 8 j + 2 t + 1 as column t + 4 (the order of the sum is free), so
+// P's fragment is used as it lies and V's rows are read in that order.
+template <int NJ>
+__device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const float (&p)[NJ][4],
                                         const __nv_bfloat16* Vs, int lane) {
   constexpr int L = Lds<__nv_bfloat16>::N;
 #pragma unroll
-  for (int kk = 0; kk < KT / 16; ++kk) {
+  for (int kk = 0; kk < NJ / 2; ++kk) {
     unsigned ah[4], al[4];
     split_bf16x2(p[2 * kk][0], p[2 * kk][1], ah[0], al[0]);
     split_bf16x2(p[2 * kk][2], p[2 * kk][3], ah[1], al[1]);
@@ -281,17 +325,18 @@ __device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const float (&p)[K
     }
   }
 }
-__device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const float (&p)[KT / 8][4],
+template <int NJ>
+__device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const float (&p)[NJ][4],
                                         const float* Vs, int lane) {
   constexpr int L = Lds<float>::N;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < KT / 8; ++j) {
+  for (int j = 0; j < NJ; ++j) {
     unsigned ah[4], al[4];
-    split_x3(p[j][0], ah[0], al[0]);  // (g, key 2t)
-    split_x3(p[j][2], ah[1], al[1]);  // (g + 8, key 2t)
-    split_x3(p[j][1], ah[2], al[2]);  // (g, key 2t + 1)
-    split_x3(p[j][3], ah[3], al[3]);  // (g + 8, key 2t + 1)
+    split_x3(p[j][0], ah[0], al[0]);  // (g, row 2t)
+    split_x3(p[j][2], ah[1], al[1]);  // (g + 8, row 2t)
+    split_x3(p[j][1], ah[2], al[2]);  // (g, row 2t + 1)
+    split_x3(p[j][3], ah[3], al[3]);  // (g + 8, row 2t + 1)
 #pragma unroll
     for (int jd = 0; jd < D / 8; ++jd) {
       const float* v = Vs + (8 * j + 2 * t) * L + 8 * jd + g;
@@ -305,6 +350,48 @@ __device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const float (&p)[K
   }
 }
 
+// o += P V as pv_tile; in fp32 summed from zero first: the tensor cores
+// cut each sum toward zero at the running total's scale, so the backward's
+// chains over thousands of rows would drift past the fp32 tolerance, and
+// their steps' totals add in fp32 instead (bf16 rounds far above that).
+template <int NJ, typename T>
+__device__ __forceinline__ void pv_step(float (&o)[D / 8][4], const float (&p)[NJ][4],
+                                        const T* Vs, int lane) {
+  if constexpr (std::is_same<T, float>::value) {
+    float t[D / 8][4];
+    zero(t);
+    pv_tile(t, p, Vs, lane);
+    add(o, t);
+  } else {
+    pv_tile(o, p, Vs, lane);
+  }
+}
+
+// Tile it of every part (rows (it KS + p) KT .. + KT of a and of b, each
+// [n, D] at the io dtype) into stage st of tiles [2][KS][a, b][KT][L] by
+// cp.async, rows at or past n as zeros.
+template <typename T, int KS, int NT>
+__device__ __forceinline__ void stage_tiles(T* tiles, int st, int it, const T* a, const T* b,
+                                            int n, int tid) {
+  constexpr int L = Lds<T>::N;
+  constexpr int TILE_ELEMS = KT * L;
+  constexpr int VN = 16 / (int)sizeof(T);
+  constexpr int CPR = D / VN;  // 16-byte chunks of a row
+  for (int c = tid; c < KS * 2 * KT * CPR; c += NT) {
+    const int p = c / (2 * KT * CPR), rem = c % (2 * KT * CPR);
+    const int which = rem / (KT * CPR), r = (rem % (KT * CPR)) / CPR, ch = rem % CPR;
+    const int row = (it * KS + p) * KT + r;
+    const T* src = (which ? b : a) + (long long)row * D + ch * VN;
+    T* dst = tiles + ((st * KS + p) * 2 + which) * TILE_ELEMS + r * L + ch * VN;
+    const bool ok = row < n;
+    fd::cp_async16(dst, ok ? src : a, ok ? 16 : 0);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward on the tensor cores: a warp per 16 query rows (see the header)
+// ---------------------------------------------------------------------------
+
 // grid (ceil(Lq / 64), G), 32 * WQ * KS threads: warp w takes query rows
 // 16 (w % WQ) of the block's 64 and key tiles w / WQ, w / WQ + KS, ...
 template <typename T, int KS>
@@ -314,7 +401,6 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   constexpr int L = Lds<T>::N;
   constexpr int TILE_ELEMS = KT * L;
   constexpr int NT = 32 * WQ * KS;
-  constexpr int CPR = D * (int)sizeof(T) / 16;  // 16-byte chunks of a row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* tiles = reinterpret_cast<T*>(smem_raw);  // [2 stages][KS parts][K, V][KT][L]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -326,20 +412,6 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const T* kg = k + (long long)gs * Lk * D;
   const T* vg = v + (long long)gs * Lk * D;
 
-  // every part's K and V tiles of iteration it into stage st, zeros past Lk
-  auto stage = [&](int st, int it) {
-    for (int c = tid; c < KS * 2 * KT * CPR; c += NT) {
-      const int p = c / (2 * KT * CPR), rem = c % (2 * KT * CPR);
-      const int which = rem / (KT * CPR), r = (rem % (KT * CPR)) / CPR, ch = rem % CPR;
-      const int key = (it * KS + p) * KT + r;
-      const T* src = (which ? vg : kg) + (long long)key * D + ch * (16 / (int)sizeof(T));
-      T* dst = tiles + ((st * KS + p) * 2 + which) * TILE_ELEMS + r * L +
-               ch * (16 / (int)sizeof(T));
-      const bool ok = key < Lk;
-      fd::cp_async16(dst, ok ? src : kg, ok ? 16 : 0);
-    }
-  };
-
   QFrag<T> qf;
   qf.load(q, r0, Lq, row, scale, g, t);
   float acc[D / 8][4];
@@ -350,10 +422,10 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g + 8
 
   const int iters = ((Lk + KT - 1) / KT + KS - 1) / KS;
-  stage(0, 0);
+  stage_tiles<T, KS, NT>(tiles, 0, 0, kg, vg, Lk, tid);
   fd::cp_async_commit();
   for (int it = 0; it < iters; ++it) {
-    if (it + 1 < iters) stage((it + 1) & 1, it + 1);
+    if (it + 1 < iters) stage_tiles<T, KS, NT>(tiles, (it + 1) & 1, it + 1, kg, vg, Lk, tid);
     fd::cp_async_commit();
     fd::cp_async_wait<1>();
     __syncthreads();  // iteration it's tiles have landed
@@ -481,111 +553,243 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 }
 
 // ---------------------------------------------------------------------------
-// dq: D / DT threads per query row
+// backward on the tensor cores: a warp per 16 query rows (dq) or 16 key
+// rows (dk, dv), the other side in staged tiles (see the header)
 // ---------------------------------------------------------------------------
+
+// The parts' accumulators (N sets of D / 8 fragments a thread) summed in
+// part order into part 0's, through shared memory; the other parts return
+// false.  Called by every thread of the block once its tiles are done.
+template <int KS, int N>
+__device__ __forceinline__ bool sum_parts(float (&acc)[N][D / 8][4], unsigned char* smem,
+                                          int part, int wq, int lane) {
+  if constexpr (KS > 1) {
+    constexpr int NV = N * D / 2;  // floats a thread
+    float* swap = reinterpret_cast<float*>(smem);  // [KS - 1][WQ][NV][32]
+    auto slot = [&](int p, int i) { return swap + (((p - 1) * WQ + wq) * NV + i) * 32 + lane; };
+    if (part > 0) {
+#pragma unroll
+      for (int a = 0; a < N; ++a)
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) *slot(part, (a * D / 8 + j) * 4 + e) = acc[a][j][e];
+    }
+    __syncthreads();
+    if (part > 0) return false;
+    for (int p = 1; p < KS; ++p)
+#pragma unroll
+      for (int a = 0; a < N; ++a)
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[a][j][e] += *slot(p, (a * D / 8 + j) * 4 + e);
+  }
+  return true;
+}
+
+// rows g and g + 8 of a warp's accumulator times mul into out (the warp's
+// first row), rows at or past n not stored
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          const T* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ dcap, T* __restrict__ dq, int Lq, int Lk, float scale) {
-  __shared__ __align__(16) float ks[TILE * D];
-  __shared__ __align__(16) float vs[TILE * D];
-  const int g = blockIdx.y;
-  const int row = blockIdx.x * ROWS + threadIdx.x / (D / DT);
-  const int d0 = threadIdx.x % (D / DT) * DT;
-  const bool live = row < Lq;
-  const long long qrow = (long long)g * Lq + row;
-  const T* kg = k + (long long)g * Lk * D;
-  const T* vg = v + (long long)g * Lk * D;
-  float qr[DT], dor[DT], acc[DT];
-  load_part<T>(q + qrow * D + d0, live, qr);
-  load_part<T>(dout + qrow * D + d0, live, dor);
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[D / 8][4], float mul,
+                                           int n, int g, int t) {
 #pragma unroll
-  for (int d = 0; d < DT; ++d) acc[d] = 0.f;
-  const float li = live ? lse[qrow] : 0.f;
-  const float Di = live ? dcap[qrow] : 0.f;
-  for (int k0 = 0; k0 < Lk; k0 += TILE) {
-    __syncthreads();
-    stage<T>(kg, Lk, k0, ks);
-    stage<T>(vg, Lk, k0, vs);
-    __syncthreads();
-    const int n = min(TILE, Lk - k0);
-    for (int c0 = 0; c0 < n; c0 += BWD_KC) {
-      float s[BWD_KC], dov[BWD_KC];
+  for (int h = 0; h < 2; ++h) {
+    if (g + 8 * h >= n) continue;
+    T* orow = out + (g + 8 * h) * D + 2 * t;
 #pragma unroll
-      for (int c = 0; c < BWD_KC; ++c) {
-        s[c] = dot_part(&ks[(c0 + c) * D + d0], qr);
-        dov[c] = dot_part(&vs[(c0 + c) * D + d0], dor);
-      }
-#pragma unroll
-      for (int c = 0; c < BWD_KC; ++c) {
-        // the product scaled, then exp(s - lse) (attention_pallas.py:179-187)
-        const float sc = row_sum(s[c]), dv = row_sum(dov[c]);
-        const float p = c0 + c < n ? expf(scale * sc - li) : 0.f;
-        axpy_part(p * (dv - Di), &ks[(c0 + c) * D + d0], acc);
+    for (int j = 0; j < D / 8; ++j) {
+      const float x = acc[j][2 * h] * mul, y = acc[j][2 * h + 1] * mul;
+      if constexpr (std::is_same<T, float>::value) {
+        *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(x, y);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(x, y);
       }
     }
   }
-  if (live) store_part<T>(dq + qrow * D + d0, acc, scale);
 }
 
-// ---------------------------------------------------------------------------
-// dk, dv: D / DT threads per key row
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+
+// grid (ceil(Lq / 64), G), 32 * WQ * KS threads: warp w takes query rows
+// 16 (w % WQ) of the block's 64 and key tiles w / WQ, w / WQ + KS, ...
+template <typename T, int KS>
+__global__ void __launch_bounds__(32 * WQ * KS)
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+          const T* __restrict__ dout, const float* __restrict__ lse,
+          const float* __restrict__ dcap, T* __restrict__ dq, int Lq, int Lk, float scale) {
+  constexpr int L = Lds<T>::N;
+  constexpr int TILE_ELEMS = KT * L;
+  constexpr int NT = 32 * WQ * KS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tiles = reinterpret_cast<T*>(smem_raw);  // [2 stages][KS parts][K, V][KT][L]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wq = warp % WQ, part = warp / WQ;
+  const int g = lane >> 2, t = lane & 3;
+  const int gs = blockIdx.y;
+  const int row = blockIdx.x * 16 * WQ + 16 * wq;  // the warp's first query row
+  const long long r0 = (long long)gs * Lq + row;
+  const T* kg = k + (long long)gs * Lk * D;
+  const T* vg = v + (long long)gs * Lk * D;
+
+  RowFrag<T> qf, df;
+  qf.load(q + r0 * D, Lq - row, g, t);
+  df.load(dout + r0 * D, Lq - row, g, t);
+  float ml[2], dc[2];  // lse log2 e and D of rows g and g + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool in = row + g + 8 * h < Lq;
+    ml[h] = in ? lse[r0 + g + 8 * h] * LOG2E : 0.f;
+    dc[h] = in ? dcap[r0 + g + 8 * h] : 0.f;
+  }
+  const float sl = scale * LOG2E;
+  float acc[1][D / 8][4];
+  zero(acc[0]);
+
+  const int iters = ((Lk + KT - 1) / KT + KS - 1) / KS;
+  stage_tiles<T, KS, NT>(tiles, 0, 0, kg, vg, Lk, tid);
+  fd::cp_async_commit();
+  for (int it = 0; it < iters; ++it) {
+    if (it + 1 < iters) stage_tiles<T, KS, NT>(tiles, (it + 1) & 1, it + 1, kg, vg, Lk, tid);
+    fd::cp_async_commit();
+    fd::cp_async_wait<1>();
+    __syncthreads();  // iteration it's tiles have landed
+    const int k0 = (it * KS + part) * KT;
+    if (k0 < Lk && row < Lq) {  // warp-uniform
+      const T* Ks = tiles + (((it & 1) * KS + part) * 2) * TILE_ELEMS;
+      const T* Vs = Ks + TILE_ELEMS;
+#pragma unroll
+      for (int c0 = 0; c0 < KT; c0 += SUB) {
+        if (k0 + c0 >= Lk) continue;  // warp-uniform: keys past Lk only
+        float s[SUB / 8][4], dp[SUB / 8][4];
+        zero(s);
+        zero(dp);
+        qk_tile(s, qf, Ks + c0 * L, lane);   // S = Q K^T
+        qk_tile(dp, df, Vs + c0 * L, lane);  // dP = dO V^T
+        const bool ragged = k0 + c0 + SUB > Lk;
+#pragma unroll
+        for (int j = 0; j < SUB / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = exp2f(fmaf(s[j][e], sl, -ml[e >> 1]));
+            if (ragged && k0 + c0 + 8 * j + 2 * t + (e & 1) >= Lk) p = 0.f;
+            s[j][e] = p * (dp[j][e] - dc[e >> 1]);  // dS
+          }
+        pv_step(acc[0], s, Ks + c0 * L, lane);  // dQ += dS K
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  fd::cp_async_wait<0>();
+  if (!sum_parts<KS>(acc, smem_raw, part, wq, lane)) return;
+  store_rows<T>(dq + r0 * D, acc[0], scale, Lq - row, g, t);
+}
+
+// grid (ceil(Lk / 64), G), 32 * WQ * KS threads: warp w takes key rows
+// 16 (w % WQ) of the block's 64 and query tiles w / WQ, w / WQ + KS, ...
+template <typename T, int KS>
+__global__ void __launch_bounds__(32 * WQ * KS)
 dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
            const T* __restrict__ dout, const float* __restrict__ lse,
            const float* __restrict__ dcap, T* __restrict__ dk, T* __restrict__ dv, int Lq,
            int Lk, float scale) {
-  __shared__ __align__(16) float qs[TILE * D];
-  __shared__ __align__(16) float dos[TILE * D];
-  __shared__ float ls[TILE], Ds[TILE];
-  const int g = blockIdx.y;
-  const int col = blockIdx.x * ROWS + threadIdx.x / (D / DT);
-  const int d0 = threadIdx.x % (D / DT) * DT;
-  const bool live = col < Lk;
-  const long long krow = (long long)g * Lk + col;
-  const T* qg = q + (long long)g * Lq * D;
-  const T* dg = dout + (long long)g * Lq * D;
-  float kr[DT], vr[DT], dka[DT], dva[DT];
-  load_part<T>(k + krow * D + d0, live, kr);
-  load_part<T>(v + krow * D + d0, live, vr);
-#pragma unroll
-  for (int d = 0; d < DT; ++d) dka[d] = dva[d] = 0.f;
-  for (int q0 = 0; q0 < Lq; q0 += TILE) {
-    __syncthreads();
-    stage<T>(qg, Lq, q0, qs);
-    stage<T>(dg, Lq, q0, dos);
-    for (int i = threadIdx.x; i < TILE; i += THREADS) {
-      const bool in = q0 + i < Lq;
-      ls[i] = in ? lse[(long long)g * Lq + q0 + i] : 0.f;
-      Ds[i] = in ? dcap[(long long)g * Lq + q0 + i] : 0.f;
+  constexpr int L = Lds<T>::N;
+  constexpr int TILE_ELEMS = KT * L;
+  constexpr int NT = 32 * WQ * KS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* tiles = reinterpret_cast<T*>(smem_raw);  // [2 stages][KS parts][Q, dO][KT][L]
+  float* rows =  // [2 stages][KS parts][lse, D][KT]
+      reinterpret_cast<float*>(smem_raw + 2ull * KS * 2 * TILE_ELEMS * sizeof(T));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wq = warp % WQ, part = warp / WQ;
+  const int g = lane >> 2, t = lane & 3;
+  const int gs = blockIdx.y;
+  const int col = blockIdx.x * 16 * WQ + 16 * wq;  // the warp's first key row
+  const long long c0g = (long long)gs * Lk + col;
+  const T* qg = q + (long long)gs * Lq * D;
+  const T* og = dout + (long long)gs * Lq * D;
+  const float* lg = lse + (long long)gs * Lq;
+  const float* dg = dcap + (long long)gs * Lq;
+
+  // the Q and dO tiles of iteration it, and their queries' lse and D, into
+  // stage st; zeros past Lq
+  auto stage = [&](int st, int it) {
+    stage_tiles<T, KS, NT>(tiles, st, it, qg, og, Lq, tid);
+    for (int c = tid; c < KS * 2 * KT; c += NT) {
+      const int p = c / (2 * KT), which = (c / KT) & 1, r = c % KT;
+      const int qi = (it * KS + p) * KT + r;
+      const bool ok = qi < Lq;
+      cp_async4(rows + ((st * KS + p) * 2 + which) * KT + r, ok ? (which ? dg : lg) + qi : lg,
+                ok ? 4 : 0);
     }
-    __syncthreads();
-    const int n = min(TILE, Lq - q0);
-    for (int c0 = 0; c0 < n; c0 += BWD_KC) {
-      float s[BWD_KC], dov[BWD_KC];
+  };
+
+  RowFrag<T> kf, vf;
+  kf.load(k + c0g * D, Lk - col, g, t);
+  vf.load(v + c0g * D, Lk - col, g, t);
+  const float sl = scale * LOG2E;
+  float acc[2][D / 8][4];  // dK, dV
+  zero(acc[0]);
+  zero(acc[1]);
+
+  const int iters = ((Lq + KT - 1) / KT + KS - 1) / KS;
+  stage(0, 0);
+  fd::cp_async_commit();
+  for (int it = 0; it < iters; ++it) {
+    if (it + 1 < iters) stage((it + 1) & 1, it + 1);
+    fd::cp_async_commit();
+    fd::cp_async_wait<1>();
+    __syncthreads();  // iteration it's tiles have landed
+    const int q0 = (it * KS + part) * KT;
+    if (q0 < Lq && col < Lk) {  // warp-uniform
+      const T* Qs = tiles + (((it & 1) * KS + part) * 2) * TILE_ELEMS;
+      const T* Os = Qs + TILE_ELEMS;
+      const float* ls = rows + ((it & 1) * KS + part) * 2 * KT;
+      const float* ds = ls + KT;
 #pragma unroll
-      for (int c = 0; c < BWD_KC; ++c) {
-        s[c] = dot_part(&qs[(c0 + c) * D + d0], kr);
-        dov[c] = dot_part(&dos[(c0 + c) * D + d0], vr);
-      }
+      for (int c0 = 0; c0 < KT; c0 += SUB) {
+        if (q0 + c0 >= Lq) continue;  // warp-uniform: queries past Lq only
+        float s[SUB / 8][4], dp[SUB / 8][4];
+        zero(s);
+        zero(dp);
+        qk_tile(s, kf, Qs + c0 * L, lane);   // S^T = K Q^T
+        qk_tile(dp, vf, Os + c0 * L, lane);  // dP^T = V dO^T
+        const bool ragged = q0 + c0 + SUB > Lq;
 #pragma unroll
-      for (int c = 0; c < BWD_KC; ++c) {
-        const float sc = row_sum(s[c]), dpc = row_sum(dov[c]);
-        const float p = c0 + c < n ? expf(scale * sc - ls[c0 + c]) : 0.f;
-        axpy_part(p, &dos[(c0 + c) * D + d0], dva);
-        axpy_part(p * (dpc - Ds[c0 + c]), &qs[(c0 + c) * D + d0], dka);
+        for (int j = 0; j < SUB / 8; ++j) {
+          const int c = c0 + 8 * j + 2 * t;  // this thread's two queries: c, c + 1
+          const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
+          const float2 d2 = *reinterpret_cast<const float2*>(ds + c);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float lq = (e & 1) ? l2.y : l2.x, dd = (e & 1) ? d2.y : d2.x;
+            float p = exp2f(fmaf(s[j][e], sl, -lq * LOG2E));
+            if (ragged && q0 + c + (e & 1) >= Lq) p = 0.f;
+            s[j][e] = p;                       // P^T
+            dp[j][e] = p * (dp[j][e] - dd);    // dS^T
+          }
+        }
+        pv_step(acc[1], s, Os + c0 * L, lane);   // dV += P^T dO
+        pv_step(acc[0], dp, Qs + c0 * L, lane);  // dK += dS^T Q
       }
     }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
-  if (!live) return;
-  store_part<T>(dk + krow * D + d0, dka, scale);
-  store_part<T>(dv + krow * D + d0, dva, 1.f);
+  fd::cp_async_wait<0>();
+  if (!sum_parts<KS>(acc, smem_raw, part, wq, lane)) return;
+  store_rows<T>(dk + c0g * D, acc[0], scale, Lk - col, g, t);
+  store_rows<T>(dv + c0g * D, acc[1], 1.f, Lk - col, g, t);
 }
 
-dim3 grid_of(int rows, int G) { return dim3((unsigned)((rows + ROWS - 1) / ROWS), (unsigned)G); }
+// The SMs of the current device, read once.
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
 
 template <typename T, int KS>
 int fwd_parts(const void* q, const void* k, const void* v, void* o, float* lse, int G, int Lq,
@@ -601,12 +805,7 @@ int fwd_parts(const void* q, const void* k, const void* v, void* o, float* lse, 
 // ran fastest in 4 parts (its split operands and three MMAs a product want
 // more warps in flight), bf16 in one (PERF.md section 6).
 int fwd_key_parts(bool fp32, int G, int Lq) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+  const int sms = sm_count();
   const long long warps = (long long)G * ((Lq + 16 * WQ - 1) / (16 * WQ)) * WQ;
   if (fp32) return warps <= 16LL * sms ? 4 : warps <= 32LL * sms ? 2 : 1;
   return warps >= 4LL * sms ? 1 : warps >= 2LL * sms ? 2 : 4;
@@ -623,26 +822,63 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int G,
   }
 }
 
+template <typename T, int KS>
+int dq_parts(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+             const float* dcap, void* dq, int G, int Lq, int Lk, float scale, cudaStream_t s) {
+  const dim3 grid((unsigned)((Lq + 16 * WQ - 1) / (16 * WQ)), (unsigned)G);
+  return (int)fd::launch(dq_kernel<T, KS>, grid, 32 * WQ * KS, bwd_smem<T, KS, 0, 1>(), s,
+                         static_cast<const T*>(q), static_cast<const T*>(k),
+                         static_cast<const T*>(v), static_cast<const T*>(dout), lse, dcap,
+                         static_cast<T*>(dq), Lq, Lk, scale);
+}
+
+template <typename T, int KS>
+int dkv_parts(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+              const float* dcap, void* dk, void* dv, int G, int Lq, int Lk, float scale,
+              cudaStream_t s) {
+  const dim3 grid((unsigned)((Lk + 16 * WQ - 1) / (16 * WQ)), (unsigned)G);
+  return (int)fd::launch(dkv_kernel<T, KS>, grid, 32 * WQ * KS, bwd_smem<T, KS, 2, 2>(), s,
+                         static_cast<const T*>(q), static_cast<const T*>(k),
+                         static_cast<const T*>(v), static_cast<const T*>(dout), lse, dcap,
+                         static_cast<T*>(dk), static_cast<T*>(dv), Lq, Lk, scale);
+}
+
+// Parts a backward block splits the other side into (dq_kernel the keys,
+// dkv_kernel the queries), from the warps of rows it writes (16 rows each,
+// rows = Lq for dq, Lk for dk/dv) against the SMs.  Measured on the H100
+// at B2 H4 (G 8) and B1 (G 4), L 4,096, and at B2 Lq 1,000 / Lk 777, both
+// kernels with 1, 2 and 4 parts (PERF.md section 6): fp32 runs fastest in
+// one part from 4 warps an SM up (its split operands take 198 and 246
+// registers, so 4 parts spill) and in two below; bf16 in two parts from
+// there up (one part within 1% for dq at G 8) and in four below.
+int bwd_parts(bool fp32, int G, int rows) {
+  const int sms = sm_count();
+  const long long warps = (long long)G * ((rows + 16 * WQ - 1) / (16 * WQ)) * WQ;
+  if (fp32) return warps >= 4LL * sms ? 1 : 2;
+  return warps >= 4LL * sms ? 2 : 4;
+}
+
 template <typename T>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
            const float* dcap, void* dq, int G, int Lq, int Lk, float scale, cudaStream_t s) {
-  if (!fd::aligned16(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
-  dq_kernel<T><<<grid_of(Lq, G), THREADS, 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, dcap, static_cast<T*>(dq), Lq, Lk, scale);
-  return (int)cudaGetLastError();
+  if (!fd::aligned16(q, k, v, dout, dq)) return (int)cudaErrorMisalignedAddress;
+  switch (bwd_parts(std::is_same<T, float>::value, G, Lq)) {
+    case 4: return dq_parts<T, 4>(q, k, v, dout, lse, dcap, dq, G, Lq, Lk, scale, s);
+    case 2: return dq_parts<T, 2>(q, k, v, dout, lse, dcap, dq, G, Lq, Lk, scale, s);
+    default: return dq_parts<T, 1>(q, k, v, dout, lse, dcap, dq, G, Lq, Lk, scale, s);
+  }
 }
 
 template <typename T>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
             const float* dcap, void* dk, void* dv, int G, int Lq, int Lk, float scale,
             cudaStream_t s) {
-  if (!fd::aligned16(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
-  dkv_kernel<T><<<grid_of(Lk, G), THREADS, 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, dcap, static_cast<T*>(dk), static_cast<T*>(dv), Lq,
-      Lk, scale);
-  return (int)cudaGetLastError();
+  if (!fd::aligned16(q, k, v, dout, dk, dv)) return (int)cudaErrorMisalignedAddress;
+  switch (bwd_parts(std::is_same<T, float>::value, G, Lk)) {
+    case 4: return dkv_parts<T, 4>(q, k, v, dout, lse, dcap, dk, dv, G, Lq, Lk, scale, s);
+    case 2: return dkv_parts<T, 2>(q, k, v, dout, lse, dcap, dk, dv, G, Lq, Lk, scale, s);
+    default: return dkv_parts<T, 1>(q, k, v, dout, lse, dcap, dk, dv, G, Lq, Lk, scale, s);
+  }
 }
 
 // Returns FN<T>(args...) for the io dtype code; the head dim d must be D.
@@ -679,4 +915,10 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              int Lq, int Lk, int d, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FD_DISPATCH(bwd_dkv, q, k, v, dout, lse, dcap, dk, dv, G, Lq, Lk, scale, s);
+}
+
+// The parts a launch of flash_bwd_dq (rows Lq) or flash_bwd_dkv (rows Lk)
+// splits the other side into, on the current device.
+extern "C" int flash_bwd_parts(int G, int rows, int dtype) {
+  return bwd_parts(dtype == 0, G, rows);
 }

@@ -13,14 +13,14 @@ tree, so that each imports its own ``founddiff_tpu_torch`` and
 made from a seed here (the same in both trees):
 
 - ``kernels``: the two kernels redesigned last, each call timed alone:
-  ``ss2d_mamba_block`` at each MambaBlock shape of chip_smoke's ``BLOCKS``
-  (``mamba_case``) in bf16 at bs1 and bs4 and in fp32 at the training
-  microbatch, and ``flash_fwd`` at the vanilla bottleneck (``flash_case``,
-  L 4,096) at bs1 and at the microbatch in fp32 and bf16, beside
-  ``scaled_dot_product_attention``: event time (CUDA events, median of 7
-  after 2 warm-ups) and, from ``torch.profiler`` over 10 calls, device time
-  and by kernel the device time and launches of one call; and their sums
-  over the calls of one UNet forward (nine MambaBlocks, one attention);
+  ``flash_bwd_dq`` and ``flash_bwd_dkv`` at the vanilla bottleneck
+  (chip_smoke's ``flash_case``, the training microbatch of 2, L 4,096) in
+  fp32 and bf16, beside the backward of ``scaled_dot_product_attention``
+  (dq, dk and dv in one call): event time (CUDA events, median of 7 after 2
+  warm-ups) and, from ``torch.profiler`` over 10 calls, device time and by
+  kernel the device time and launches of one call; and their sums over a
+  unit: an fp32 train step (two calls, one per microbatch) or one bf16
+  call;
 - ``vanilla``: UNet forwards/s of the vanilla path (``Config()`` with
   ``original_ddim_ddpm``, 512^2, fp32) at bs1 and bs4 on each route (median
   of 5 after a warm-up, host clock around work that ends in a synchronize);
@@ -57,7 +57,7 @@ import zlib
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 UNTOUCHED = ("ss2d_image_block", "attn_block", "layer_norm_modulated", "scan_forward",
              "scan_backward", "scan_image_forward", "layer_norm", "gn_stats", "gn_apply",
-             "flash_bwd_dq", "flash_bwd_dkv", "scan_fused_forward", "merge_ln_gate")
+             "flash_fwd", "ss2d_mamba_block", "scan_fused_forward", "merge_ln_gate")
 PARTS = ("hash", "kernels", "vanilla", "train", "serving")
 # the modules of the kernels whose launches a train step counts
 WRAPPED = (("ss2d_image_block", "ss2d_block"), ("attn_block", "attn_block"),
@@ -75,6 +75,7 @@ def _ops():
     """kernel name -> wrapper, as chip_smoke.py calls them in phase 2 (the
     kernels of UNTOUCHED)."""
     from founddiff_tpu_torch.ops import attn_block as attn_mod
+    from founddiff_tpu_torch.ops import experimental_unified as unified_mod
     from founddiff_tpu_torch.ops import flash_attention as flash_mod
     from founddiff_tpu_torch.ops import groupnorm as gn_mod
     from founddiff_tpu_torch.ops import norm as norm_mod
@@ -87,7 +88,7 @@ def _ops():
         "layer_norm_modulated": norm_mod.layer_norm_modulated,
         "scan_forward": scan_mod.scan_forward, "scan_backward": scan_mod.scan_backward,
         "scan_image_forward": scan_mod.scan_image_forward,
-        "flash_bwd_dq": flash_mod.flash_bwd_dq, "flash_bwd_dkv": flash_mod.flash_bwd_dkv,
+        "flash_fwd": flash_mod.flash_fwd, "ss2d_mamba_block": unified_mod.ss2d_mamba_block,
         "gn_stats": gn_mod.gn_stats, "gn_apply": gn_mod.gn_apply,
         "scan_fused_forward": scan_mod.scan_fused_forward, "layer_norm": norm_mod.layer_norm,
         "merge_ln_gate": lambda *a, split, **k: (fused_mod.merge_ln_gate_split if split
@@ -215,34 +216,24 @@ def _device_split(fn, n: int = 10):
 
 
 def _unit_calls(cs):
-    """(unit, case label, calls per UNet forward, zero-argument call, library
-    call or None) of the two kernels redesigned last: ``ss2d_mamba_block``
-    at each MambaBlock shape of BLOCKS, bs1 and bs4 bf16 and the microbatch
-    fp32 (a train step runs each forward twice, one per microbatch), and
-    ``flash_fwd`` at the vanilla bottleneck, once per forward."""
+    """(unit, case label, calls per unit, zero-argument call, library call)
+    of the two kernels redesigned last: ``flash_bwd_dq`` and
+    ``flash_bwd_dkv`` at the vanilla bottleneck and the training microbatch,
+    per fp32 train step (two calls, one per microbatch) and per bf16 call,
+    beside SDPA's backward."""
     import torch
 
-    from founddiff_tpu_torch.ops.experimental_unified import ss2d_mamba_block
-    from founddiff_tpu_torch.ops.flash_attention import flash_fwd
+    from founddiff_tpu_torch.ops import flash_attention as flash_mod
 
     dev = torch.device("cuda")
-    shapes = {}
-    for H, C, N in cs.BLOCKS.values():
-        shapes[(H, C, N)] = shapes.get((H, C, N), 0) + 1
-    for B, dtype in ((1, torch.bfloat16), (4, torch.bfloat16), (cs.TRAIN_BATCH, torch.float32)):
-        unit = f"ss2d_mamba_block bs{B} {str(dtype)[6:]}"
-        for (H, C, N), n in shapes.items():
-            label = f"{unit} {H}^2 C0={C} N={N}"
-            kw = cs.mamba_case(B, H, C, N, dtype, _gen(label), dev)[1]
-            yield unit, label, n, lambda kw=kw: ss2d_mamba_block(**kw), None
-    L = cs.FLASH_L
-    for B in (1, cs.TRAIN_BATCH):
-        for dtype in (torch.float32, torch.bfloat16):
-            unit = f"flash_fwd bs{B} {str(dtype)[6:]}"
-            label = f"{unit} L={L}"
-            args, _, _, _, _, library = cs.flash_case("flash_fwd", B, L, L, dtype, _gen(label),
-                                                       dev)
-            yield unit, label, 1, lambda args=args: flash_fwd(*args), library
+    B, L = cs.TRAIN_BATCH, cs.FLASH_L
+    for kname in cs.FLASH_BWD:
+        fn = getattr(flash_mod, kname)
+        for dtype, per, n in ((torch.float32, "fp32 step", 2), (torch.bfloat16, "bf16 call", 1)):
+            unit = f"{kname} {per}"
+            label = f"{unit} B{B} L={L}"
+            args, _, _, _, _, library = cs.flash_case(kname, B, L, L, dtype, _gen(label), dev)
+            yield unit, label, n, lambda args=args, fn=fn: fn(*args), library
 
 
 def _kernel_rows(cs) -> dict:
@@ -253,7 +244,7 @@ def _kernel_rows(cs) -> dict:
     rows = {}
     for unit, label, n, fn, library in _unit_calls(cs):
         split, launches = _device_split(fn)
-        rows[label] = dict(unit=unit, per_forward=n, ms=cs.cuda_ms(fn),
+        rows[label] = dict(unit=unit, per_unit=n, ms=cs.cuda_ms(fn),
                            device_ms=sum(split.values()), split=split, launches=launches,
                            library_ms=None if library is None else cs.cuda_ms(library))
         del fn, library
@@ -360,27 +351,27 @@ def worker(tree: str, out_path: str, parts) -> None:
 
 
 def _units(rows, field):
-    """A row field summed over the calls of one UNet forward, by unit; for a
-    dict field (split, launches), by kernel within each unit."""
+    """A row field summed over the calls of each unit; for a dict field
+    (split, launches), by kernel within each unit."""
     out = {}
     for r in rows.values():
         if isinstance(r[field], dict):
             d = out.setdefault(r["unit"], {})
             for k, v in r[field].items():
-                d[k] = d.get(k, 0.0) + v * r["per_forward"]
+                d[k] = d.get(k, 0.0) + v * r["per_unit"]
         elif r[field] is not None:
-            out[r["unit"]] = out.get(r["unit"], 0.0) + r[field] * r["per_forward"]
+            out[r["unit"]] = out.get(r["unit"], 0.0) + r[field] * r["per_unit"]
     return out
 
 
 def _print_units(rows, card, tag) -> None:
-    """Each unit's event, device and library ms per UNet forward, its device
-    ms and launches by kernel, and each call's device split."""
+    """Each unit's event, device and library ms, its device ms and launches
+    by kernel, and each call's device split."""
     ms, dev, lib = _units(rows, "ms"), _units(rows, "device_ms"), _units(rows, "library_ms")
     split, launches = _units(rows, "split"), _units(rows, "launches")
     for u in ms:
         extra = f", library {lib[u]:.4f}" if u in lib else ""
-        print(f"[ab unit] {tag} {u} per forward: event {ms[u]:.4f} ms, device {dev[u]:.4f}"
+        print(f"[ab unit] {tag} {u}: event {ms[u]:.4f} ms, device {dev[u]:.4f}"
               f"{extra} [{card}]")
         print(f"[ab unit split] {tag} {u}: " + ", ".join(
             f"{k} {v:.4f} ms in {launches[u][k]:.0f}"
@@ -448,12 +439,12 @@ def main() -> int:
         json.dump(dict(summary=summary, runs=runs), f, indent=1)
     print(card)
     for k, vals in summary["units"].items():
-        print(f"[ab] {k} per forward: parent {[round(v, 4) for v in vals['parent']]}  "
+        print(f"[ab] {k}: parent {[round(v, 4) for v in vals['parent']]}  "
               f"change {[round(v, 4) for v in vals['change']]}")
     for n in runs:
         for turn in summary["split"][n]:
             for u, d in turn.items():
-                print(f"[ab split] {n} {u} per forward: " + ", ".join(
+                print(f"[ab split] {n} {u}: " + ", ".join(
                     f"{k} {v:.4f}" for k, v in sorted(d.items(), key=lambda x: -x[1])))
         for r in summary["vanilla"][n]:
             print(f"[ab vanilla forwards/s] {n}: " + ", ".join(

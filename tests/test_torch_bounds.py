@@ -51,6 +51,33 @@ def test_flash_forward_bound(sfu, dtype, peak):
         assert 0.052 < ms < 0.0522
 
 
+@pytest.mark.parametrize("dtype,peak", [(torch.float32, 494.7e12 / 3),
+                                        (torch.bfloat16, 989e12)])
+@pytest.mark.parametrize("kname,per_pair", [("flash_bwd_dq", 6), ("flash_bwd_dkv", 8)])
+def test_flash_backward_bound(sfu, dtype, peak, kname, per_pair):
+    """The backward kernels at phase 2's ragged case, B2 H4 Lq 1,000 Lk 777
+    d 32: 6d flops a (query, key) pair for dq (S, dP, dQ), 8d for dk/dv (S,
+    dP, dV, dK) at the products' peak, one exponential a pair; q, k, v, do
+    and the fp32 lse and D read once, the gradients written once."""
+    B, Lq, Lk, d = 2, 1000, 777, 32
+    G = 4 * B
+    args, _, _, moved, work, _ = cs.flash_case(kname, B, Lq, Lk, dtype,
+                                               torch.Generator().manual_seed(0),
+                                               torch.device("cpu"))
+    assert [a.shape for a in args[:4]] == [(B, 4, Lq, d), (B, 4, Lk, d), (B, 4, Lk, d),
+                                           (B, 4, Lq, d)]
+    assert args[4].shape == args[5].shape == (G, Lq) and args[6] == d ** -0.5
+    isz = torch.tensor([], dtype=dtype).element_size()
+    written = G * Lq * d if kname == "flash_bwd_dq" else 2 * G * Lk * d
+    assert moved == (2 * G * Lq * d + 2 * G * Lk * d + written) * isz + 2 * 4 * G * Lq
+    flops = per_pair * G * Lq * Lk * d
+    assert work == [(flops, peak), (G * Lq * Lk, SFU)]
+    ms, t_bytes, t_ops = cs.bound_ms(moved, work)
+    assert t_ops == pytest.approx(max(flops / peak, G * Lq * Lk / SFU) * 1e3, rel=REL)
+    assert t_bytes == pytest.approx(moved / 3.35e12 * 1e3, rel=REL)
+    assert ms == max(t_ops, t_bytes) == t_ops  # operations bound both kernels
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mamba_block_bound(dtype):
     """ss2d_mamba_block at one MambaBlock of Config() at 512^2 (64^2, C0

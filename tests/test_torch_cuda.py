@@ -16,10 +16,10 @@ same arithmetic summed in another order; bf16 (1e-3, 8e-3), two bf16 ulps
 for an intermediate that rounds one ulp apart at an io-dtype rounding point.
 The scan backward's seven gradients and the flash kernels' outputs (o, lse,
 dq, dk, dv) are held by the same rule with no base.
-Each autograd Function is checked once in fp32: its gradients on the card
-(kernel forward, and a backward through the scan kernels) against the same
-Function on CPU copies (plain versions), per input ||g_card - g_cpu|| /
-||g_cpu|| <= 1e-3.
+Each autograd Function is checked once in fp32 (flash attention also in
+bf16): its gradients on the card (kernel forward, and a backward through
+the kernels) against the same Function on CPU copies (plain versions), per
+input ||g_card - g_cpu|| / ||g_cpu|| <= 1e-3.
 """
 
 import math
@@ -379,9 +379,52 @@ def test_flash_forward_same_bits_on_two_streams(dev, dtype, B, Lq, Lk):
     assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
 
 
+def _flash_bwd_args(g, B, H, Lq, Lk, dtype, dev):
+    """The backward's operands, lse and D from the plain forward."""
+    q, k, v, do = _flash_inputs(g, B, H, Lq, Lk, 32, dtype, dev)
+    o, lse = flash_mod.flash_fwd_plain(q, k, v, 32 ** -0.5)
+    dcap = (do.float() * o.float()).sum(-1).reshape(B * H, Lq)
+    return q, k, v, do, lse, dcap, 32 ** -0.5
+
+
 @pytest.mark.gpu
-def test_flash_attention_fn_grads(dev):
-    q, k, v, _ = _flash_inputs(_gen(8), 2, 2, 150, 90, 32, torch.float32, dev)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H", [(1, 1), (1, 4), (2, 4)])  # G of 1, 4 and 8
+@pytest.mark.parametrize("Lq,Lk", FLASH_FWD_LENGTHS)
+def test_flash_backward_kernels(dev, dtype, B, H, Lq, Lk):
+    """flash_bwd_dq and flash_bwd_dkv (every product on the tensor cores,
+    the other side split into parts where the rows alone do not fill the
+    card) against their plain versions: dq, dk and dv."""
+    args = _flash_bwd_args(_gen(Lq * 5 + Lk + H), B, H, Lq, Lk, dtype, dev)
+    before = (flash_mod.flash_bwd_dq.launches, flash_mod.flash_bwd_dkv.launches)
+    _close(flash_mod.flash_bwd_dq(*args), flash_mod.flash_bwd_dq_plain(*args), dtype)
+    for a, b in zip(flash_mod.flash_bwd_dkv(*args), flash_mod.flash_bwd_dkv_plain(*args)):
+        _close(a, b, dtype)
+    assert (flash_mod.flash_bwd_dq.launches,
+            flash_mod.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Lq,Lk", [(1, 4096, 4096), (2, 1000, 777)])
+def test_flash_backward_same_bits_on_two_streams(dev, dtype, B, Lq, Lk):
+    """Two launches of each backward kernel, the second on another stream,
+    give the same dq, dk and dv bits: the parts are combined in a fixed
+    order, with no atomics."""
+    args = _flash_bwd_args(_gen(Lq + 3 * Lk), B, 4, Lq, Lk, dtype, dev)
+    dq1, (dk1, dv1) = flash_mod.flash_bwd_dq(*args), flash_mod.flash_bwd_dkv(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dq2, (dk2, dv2) = flash_mod.flash_bwd_dq(*args), flash_mod.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(dq1, dq2) and torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_fn_grads(dev, dtype):
+    q, k, v, _ = _flash_inputs(_gen(8), 2, 2, 150, 90, 32, dtype, dev)
     _grad_check(flash_mod.flash_attention, (q, k, v), dev)
 
 
