@@ -164,6 +164,30 @@ Phases (any failure exits non-zero before the last line is printed):
    ``layer_norm_modulated`` launches per UNet forward, PSNR >= 40 dB against
    the plain path, and autograd as phase 6 on one MambaBlock at 32^2, C 512,
    d_state 64.
+16. The evaluation entry point, in process, in a working directory under
+   ``checkpoints/`` that it removes after: a synthetic Mayo-2020 ``test``
+   tree of 512^2 HU slices (``default_rng(16)``; ab, lung and head, doses 2,
+   4, 6 and 10 with the quarter-dose scan for 1/4 or 1/10, 32 LDCT slices,
+   ``eval_counts`` set to match), a ``model-1.pt`` of ``Config()`` written by
+   ``Trainer.save`` (seed 16, adaLN and prompt perturbed as in phase 3,
+   the tower's batch-norm statistics set from 8 of the tree's slices), then ``founddiff_tpu_torch.cli.main`` in test mode (``--torch_checkpoint``,
+   ``--dataset 2020_seen``): 32 predictions of 512 x 512, the per-anatomy
+   and per-dose log lines, a finite summary, phase 3's launches per UNet
+   forward over the 64 fp32 forwards; ``Trainer.test`` twice more (eval
+   slices/s: data, sampling and metrics, median of the 2; the native reader
+   must have decoded every file of both) and with ``fid=True``: the
+   Dose-CLIP features of its 32 predictions and NDCT slices on the card
+   within 1e-3 of the CPU's (relative to their largest magnitude), its
+   ``fid_doseclip`` within 1e-2 relative of the CPU's FID of the same
+   slices, above 100 times the eps offset, with a median feature spread
+   over the NDCT slices of at least 1e-2; 4 slices through the plain
+   path as phase 4 switches it, PSNR >= 40 dB against the kernel path, and
+   their PSNR/SSIM/RMSE on the card within 1e-4 of the CPU's; full-T
+   ``p_sample_loop`` (T = 50) of one slice with its launches; test mode
+   with ``--no_dose_encoder`` on 8 Mayo-2016 pairs (``ResidualDiffusion.sample``);
+   train mode (``--is_train --debug``, 4 steps of 2 slices at 512^2) with
+   ``train.log``, ``metrics.jsonl`` and the previews ``sample-1`` and
+   ``sample-2``.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches on
 its path, phase 3 for the serving kernels, phase 12's 360^2 requests for
@@ -1841,6 +1865,323 @@ def five_level(wrappers, plain, x, card):
                 autograd=grads)
 
 
+# phase 16: a synthetic Mayo-2020 tree (the reference's names, 512^2 HU
+# slices): (top directory, files per dose directory) of each anatomy; ab and
+# lung take every second file (stride 2), head every one, so 3 / 3 / 2 LDCT
+# slices a dose and 32 in all over doses (2, 4, 6, 10), the quarter-dose scan
+# standing in for 1/4 (ab, head) and 1/10 (lung)
+EVAL_TREE = {"ab": ("Mayo2020_ab_2d", 6), "lung": ("Mayo2020_lung_2d", 6),
+             "head": ("Mayo2020_head_2d_2", 2)}
+EVAL_COUNTS = (("ab", 3), ("lung", 3), ("head", 2))
+EVAL_DOSE_DIRS = {"full_1mm": 1.0, "sim-0.50": 2.0, "sim-0.25": 4.0, "sim-0.17": 6.0,
+                  "sim-0.10": 10.0, "quarter_1mm": 4.0}
+EVAL_SIZE = 512
+EVAL_NO_TOWER = 8  # Mayo-2016 pairs of the no-tower run
+EVAL_FULL_T = 50  # timesteps = sampling_timesteps of the full-T sample
+
+
+def write_eval_tree(root, phase, files, seed):
+    """Mayo-2020 ``phase`` tree at 512^2: per index a phantom (an ellipse of
+    soft tissue with four disks, raw HU + 1024, in air), its full-dose scan
+    with noise sigma 10 HU and each simulated dose with sigma 10 * sqrt(1 /
+    dose), from ``default_rng(seed)``; ``files`` overrides the files per dose
+    directory."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:EVAL_SIZE, :EVAL_SIZE] / EVAL_SIZE - 0.5
+    for anat, (top, n) in EVAL_TREE.items():
+        for i in range(files or n):
+            body = (xx / 0.42) ** 2 + (yy / 0.34) ** 2 < 1
+            hu = np.where(body, 40.0, -1000.0)
+            for _ in range(4):
+                cx, cy, r = rng.uniform(-0.25, 0.25), rng.uniform(-0.2, 0.2), rng.uniform(0.02, 0.08)
+                hu[(xx - cx) ** 2 + (yy - cy) ** 2 < r * r] = rng.uniform(-900.0, 1200.0)
+            for d, factor in EVAL_DOSE_DIRS.items():
+                path = os.path.join(root, top, phase, d)
+                os.makedirs(path, exist_ok=True)
+                name = (f"{anat}-{d}-{i}.npy" if not d.startswith("sim") else
+                        f"{anat}-sim-{d.split('-')[1]}-{i}.npy")
+                noisy = hu + 1024 + rng.standard_normal(hu.shape) * 10 * math.sqrt(factor)
+                np.save(os.path.join(path, name), noisy.astype(np.float32))
+
+
+def write_mayo16_tree(root, n, seed):
+    """Mayo-2016 ``test`` pairs (quarter / full dose) at 512^2."""
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        hu = 1024 + 40 + rng.standard_normal((EVAL_SIZE, EVAL_SIZE)) * 10
+        for sub, sigma in (("full_1mm", 0.0), ("quarter_1mm", 20.0)):
+            path = os.path.join(root, "Mayo2016_2d", "test", sub)
+            os.makedirs(path, exist_ok=True)
+            noisy = hu + rng.standard_normal(hu.shape) * sigma
+            np.save(os.path.join(path, f"L067-{sub}-{i}.npy"), noisy.astype(np.float32))
+
+
+def calibrate_tower(tower, slices) -> None:
+    """Each batch-norm's running statistics of the Dose-CLIP ``tower`` set
+    to those of its input over ``slices`` ([N, H, W, 1] in [0, 1]) on the
+    FID extractor's path, in one forward: a trained tower's statistics are
+    those of its data.  Left at the seeded init, every convolution shrinks
+    the signal, the features hardly move between slices and FID reads the
+    eps offset alone."""
+    from founddiff_tpu_torch.models.clip import FrozenBatchNorm
+    from founddiff_tpu_torch.utils.fid import make_clip_extractor
+
+    def set_stats(bn, args):
+        flat = args[0].reshape(-1, args[0].shape[-1]).double()
+        bn.running_mean.copy_(flat.mean(0))
+        bn.running_var.copy_(flat.var(0))
+
+    hooks = [m.register_forward_pre_hook(set_stats) for m in tower.modules()
+             if isinstance(m, FrozenBatchNorm)]
+    try:
+        make_clip_extractor(tower, batch_size=len(slices))(slices)
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+FID_FEATURE_RTOL = 1e-3  # card against CPU, relative to the largest |feature|
+FID_RTOL = 1e-2  # the card's fid_doseclip against the CPU's FID of the same slices
+FID_SPREAD_FLOOR = 1e-2  # median per-dimension std of the NDCT features
+
+
+def eval_entry(wrappers, plain, card):
+    """Phase 16: the evaluation entry point (``python -m founddiff_tpu_torch``,
+    in process) at full width on the card, in a working directory under
+    ``checkpoints/`` that it removes at the end.  Test mode of ``Config()``
+    from a ``model-1.pt`` written by ``Trainer.save`` (weights from seed 16,
+    adaLN and prompt perturbed) over the 32 slices of a 512^2 Mayo-2020
+    ``test`` tree, with ``eval_counts`` set to the tree; FID; 4 slices on
+    the plain path; the no-tower run on Mayo-2016; full-T sampling; train
+    mode."""
+    import copy
+    import shutil
+
+    from founddiff_tpu_torch import cli
+    from founddiff_tpu_torch.config import Config
+    from founddiff_tpu_torch.data import PDFDataset, native
+    from founddiff_tpu_torch.diffusion.residual import ResidualDiffusion
+    from founddiff_tpu_torch.factory import build
+    from founddiff_tpu_torch.ops.metrics import compute_psnr, compute_rmse, compute_ssim
+    from founddiff_tpu_torch.pipeline import make_hoisted_sampler
+    from founddiff_tpu_torch.train.trainer import Trainer
+    from founddiff_tpu_torch.utils.fid import fid_from_features, make_clip_extractor
+
+    work = os.path.join(REPO, "checkpoints", "chip_smoke_eval")
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, "mayo")
+    t0 = time.perf_counter()
+    write_eval_tree(root, "test", None, seed=16)
+    write_eval_tree(root, "train512", 2, seed=17)
+    write_mayo16_tree(root, EVAL_NO_TOWER, seed=18)
+    data_s = time.perf_counter() - t0
+
+    def checkpoint(tower, seed):
+        cfg = Config()
+        cfg.model.use_dose_encoder = tower
+        cfg.train.checkpoint_folder = os.path.join(work, f"seed{seed}")
+        diffusion, model = build(cfg, device="cuda", seed=seed, train=True)
+        perturb_gates(model, seed=seed)
+        if tower:
+            ds = PDFDataset("test", root=root)
+            slices = np.stack([ds[i][1] for i in range(0, len(ds), len(ds) // 8)])
+            calibrate_tower(model.dose_encoder, torch.from_numpy(slices).cuda())
+        path = Trainer(diffusion, model, cfg).save(1)
+        del diffusion, model
+        return path
+
+    def counted(fn, forwards, tag):
+        """``fn()`` with the launches of phase 3's PER_FORWARD per UNet forward."""
+        for w in wrappers.values():
+            w.launches = 0
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = {k: w.launches for k, w in wrappers.items()}
+        for k, n in launches.items():
+            if n != PER_FORWARD.get(k, 0) * forwards:
+                raise AssertionError(f"{tag}: {k} {n} launches in {forwards} UNet forwards, "
+                                     f"want {PER_FORWARD.get(k, 0)} per forward")
+        return out, seconds, launches
+
+    build_config = cli.build_config
+
+    def with_counts(opt):  # the tree's anatomies and doses; the CLI has no flag
+        cfg = build_config(opt)
+        cfg.data.eval_counts, cfg.data.eval_doses = EVAL_COUNTS, 4
+        return cfg
+
+    n = sum(c for _, c in EVAL_COUNTS) * 4
+    cwd = os.getcwd()
+    os.chdir(work)
+    cli.build_config = with_counts
+    try:
+        # test mode through the command line, from a reference-layout checkpoint
+        path = checkpoint(True, 16)
+        tester, cli_s, launches = counted(lambda: cli.main(
+            ["--name", "eval", "--data_root", root, "--dataset", "2020_seen",
+             "--torch_checkpoint", path, "--device", "cuda"]), n * 2, "eval cli")
+        out = os.path.join(work, "checkpoints", "eval", "test_final_npy")
+        names = sorted(os.listdir(out))
+        if len(names) != n or any(np.load(os.path.join(out, f)).shape != (EVAL_SIZE, EVAL_SIZE)
+                                  for f in names):
+            raise AssertionError(f"eval cli: {len(names)} predictions, want {n} of 512x512")
+        lines = [line.split("] ", 1)[1] for line in open(os.path.join(
+            work, "checkpoints", "eval", "test_final.log")).read().splitlines()]
+        want = [f"({a} average mean" for a, _ in EVAL_COUNTS]
+        want += [f"({a} dose {d:2d}:" for a, _ in EVAL_COUNTS for d in range(4)]
+        missing = [w for w in want if not any(line.startswith(w) for line in lines)]
+        if missing or not lines[-1].startswith("test_psnr: "):
+            raise AssertionError(f"eval cli: log lines missing {missing}: {lines}")
+        summary = {k: float(v) for k, v in zip(("psnr", "ssim", "rmse"), re.findall(
+            r"-?\d+\.\d+|nan|inf", lines[-1]))}
+        if not all(math.isfinite(v) for v in summary.values()):
+            raise AssertionError(f"eval cli: summary {summary}")
+        # eval slices/s: data, sampling and metrics of the whole set, 2 passes
+        passes = []
+        native.decodes = 0
+        for _ in range(2):
+            t = time.perf_counter()
+            again = tester.test()
+            passes.append(time.perf_counter() - t)
+        decoded = native.decodes
+        if not all(math.isfinite(again[k]) for k in summary):
+            raise AssertionError(f"eval pass: {again}")
+        if decoded != 2 * 2 * n:  # an LDCT and an NDCT file a slice, 2 passes
+            raise AssertionError(f"eval: the native reader decoded {decoded} of the "
+                                 f"{2 * 2 * n} files of the 2 passes")
+
+        # FID on the card, held against the CPU's on the slices it scored
+        seen = {}
+
+        def capture(preds, gts):
+            seen.update(preds=torch.cat(preds), gts=torch.cat(gts))
+            return Trainer._compute_fid(tester, preds, gts)
+
+        tester._compute_fid = capture
+        fid = tester.test(fid=True)
+        del tester._compute_fid
+        tower = tester.ema.dose_encoder
+        card_feats = [make_clip_extractor(tower)(seen[k]) for k in ("preds", "gts")]
+        cpu_tower = copy.deepcopy(tower).cpu()
+        cpu_feats = [make_clip_extractor(cpu_tower)(seen[k].cpu()) for k in ("preds", "gts")]
+        del cpu_tower
+        feat_err = max(float(np.abs(a - b).max() / np.abs(b).max())
+                       for a, b in zip(card_feats, cpu_feats))
+        fid_cpu = fid_from_features(*cpu_feats)
+        spread = float(np.median(cpu_feats[1].std(axis=0)))
+        eps_offset = 2e-6 * cpu_feats[1].shape[1]  # frechet_distance's eps, both sides
+        fid_card = fid.get("fid_doseclip", math.nan)
+        log(f"[eval fid] {len(seen['preds'])} slices: fid_doseclip {fid_card!r} on the card, "
+            f"{fid_cpu!r} on the CPU (bound {FID_RTOL} relative); features card against CPU "
+            f"{feat_err:.3e} of the largest (bound {FID_FEATURE_RTOL}); median feature spread "
+            f"{spread:.4f} (floor {FID_SPREAD_FLOOR}); eps offset {eps_offset:.4f}")
+        if not (len(seen["preds"]) == n and feat_err <= FID_FEATURE_RTOL
+                and abs(fid_card - fid_cpu) <= FID_RTOL * abs(fid_cpu)
+                and spread >= FID_SPREAD_FLOOR and fid_card > 100 * eps_offset):
+            raise AssertionError(f"eval fid: card {fid_card!r}, CPU {fid_cpu!r}, features "
+                                 f"{feat_err:.3e}, spread {spread:.4f}, {len(seen['preds'])} "
+                                 f"slices")
+
+        # 4 slices on the kernel path and on the plain path; metrics card vs CPU
+        gen = torch.Generator().manual_seed(16)
+        items = [tester.sample_dataset[i] for i in range(4)]
+        noises = [torch.randn(1, EVAL_SIZE, EVAL_SIZE, 1, generator=gen) for _ in items]
+
+        def four():
+            return [tester.sample(torch.from_numpy(ld[None]).cuda(), noise=z,
+                                  use_test_schedule=True) for (_, ld), z in zip(items, noises)]
+
+        kernel_preds = four()
+        for w in wrappers.values():
+            w.launches = 0
+        with swapped(plain):
+            plain_preds = four()
+        launched = {k: w.launches for k, w in wrappers.items() if w.launches}
+        if launched:
+            raise AssertionError(f"eval plain: the plain path launched kernels {launched}")
+        gates = [psnr(a, b) for a, b in zip(kernel_preds, plain_preds)]
+        metric_err = 0.0
+        for pred, (gt, _) in zip(kernel_preds, items):
+            gt = torch.from_numpy(gt[None]).cuda()
+            fns = (compute_psnr, compute_ssim, compute_rmse)
+            on_card = torch.stack([f(pred, gt) for f in fns]).cpu()
+            on_cpu = torch.stack([f(pred.cpu(), gt.cpu()) for f in fns])
+            metric_err = max(metric_err, float((on_card - on_cpu).abs().max()))
+        log(f"[eval gate] 4 slices, test schedule, fp32, kernel vs plain path: PSNR "
+            f"{[round(g, 2) for g in gates]} dB (gate {PSNR_GATE_DB}); PSNR/SSIM/RMSE on the "
+            f"card against the CPU: max |diff| {metric_err:.3e} (bound 1e-4)")
+        if min(gates) < PSNR_GATE_DB:
+            raise AssertionError(f"eval numerics gate failed: {gates}")
+        if not metric_err <= 1e-4:
+            raise AssertionError(f"eval metrics: card against CPU {metric_err:.3e}")
+
+        # full-T: p_sample_loop through the hoisted sampler, one slice
+        d = tester.diffusion
+        full = ResidualDiffusion(None, image_size=EVAL_SIZE, timesteps=EVAL_FULL_T,
+                                 sampling_timesteps=EVAL_FULL_T, objective=d.objective,
+                                 loss_type=d.loss_type, condition=True, sum_scale=d.sum_scale,
+                                 test_res_or_noise=d.test_res_or_noise, device="cuda")
+        sampler = make_hoisted_sampler(tester.ema, full)
+        x = torch.from_numpy(items[0][1][None]).cuda()
+        full_out, full_s, full_launches = counted(
+            lambda: sampler(x, generator=torch.Generator().manual_seed(50)), EVAL_FULL_T,
+            "eval full-T")
+        if full_out.shape != x.shape or not bool(torch.isfinite(full_out).all()):
+            raise AssertionError(f"eval full-T: bad output {tuple(full_out.shape)}")
+        del tester, sampler
+        torch.cuda.empty_cache()
+
+        # test mode without the tower: ResidualDiffusion.sample on Mayo-2016
+        path = checkpoint(False, 17)
+        plain_tester, no_tower_s, no_tower_launches = counted(lambda: cli.main(
+            ["--name", "notower", "--no_dose_encoder", "--data_root", root, "--dataset",
+             "2016_unseen", "--torch_checkpoint", path, "--device", "cuda"]),
+            EVAL_NO_TOWER * 2, "eval no tower")
+        out = os.path.join(work, "checkpoints", "notower", "test_final_2016_npy")
+        if len(os.listdir(out)) != EVAL_NO_TOWER:
+            raise AssertionError(f"eval no tower: {len(os.listdir(out))} predictions")
+        del plain_tester
+        torch.cuda.empty_cache()
+
+        # train mode: 4 steps of 1 x 2 slices at 512^2, previews every 2 steps
+        t = time.perf_counter()
+        trainer = cli.main(["--name", "train", "--is_train", "--debug", "--train_num_steps", "4",
+                            "--train_batch_size", "1", "--data_root", root, "--device", "cuda"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        folder = os.path.join(work, "checkpoints", "train")
+        files = set(os.listdir(folder)) | set(os.listdir(os.path.join(folder, "sample")))
+        need = [("train.log",), ("metrics.jsonl",), ("sample-1.png", "sample-1.png.npy"),
+                ("sample-2.png", "sample-2.png.npy")]
+        if trainer.step != 4 or not all(any(f in files for f in alts) for alts in need):
+            raise AssertionError(f"eval train mode: step {trainer.step}, files {sorted(files)}")
+        del trainer
+        torch.cuda.empty_cache()
+    finally:
+        cli.build_config = build_config
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+
+    reader = native.reader()
+    slices_per_s = n / statistics.median(passes)
+    log(f"[eval] Config() {EVAL_SIZE}^2 DDIM-2 fp32, {n} slices: {slices_per_s:.3f} eval "
+        f"slices/s (data, sampling and metrics; passes {[round(p, 3) for p in passes]} s), "
+        f"reader {reader}; cli test mode {cli_s:.2f} s (build, load, test, save), launches "
+        f"{launches}; summary {summary}; fid_doseclip {fid_card:.4f}; no tower "
+        f"{EVAL_NO_TOWER} slices {no_tower_s:.2f} s; full-T {EVAL_FULL_T} steps {full_s:.2f} s, "
+        f"launches {full_launches}; train mode 4 steps {train_s:.2f} s; tree {data_s:.2f} s "
+        f"[{card}]")
+    return dict(slices=n, eval_slices_per_s=slices_per_s, pass_s=passes, reader=reader,
+                native_decodes=decoded, cli_s=cli_s, launches=launches, summary=summary,
+                fid_doseclip=fid_card, fid_cpu=fid_cpu, fid_feature_err=feat_err,
+                fid_feature_spread=spread,
+                gate_psnr_db=gates, metric_card_cpu_max_abs=metric_err, no_tower_s=no_tower_s,
+                no_tower_launches=no_tower_launches, full_t_s=full_s,
+                full_t_launches=full_launches, train_mode_s=train_s, tree_s=data_s)
+
+
 def beside_parent(tag, train, card) -> None:
     """The fp32 step of ``train_full_width`` beside the parent tree's."""
     log(f"[{tag}] fp32 step {statistics.median(train['step_s']):.4f} s; the parent tree's "
@@ -2108,6 +2449,9 @@ def main() -> int:
     # phase 15: a five-level UNet, d_state 64 at its 32^2 level
     torch.cuda.empty_cache()
     record["five_level"] = five_level(wrappers, plain_default, x_all[:1], card)
+    # phase 16: the evaluation entry point
+    torch.cuda.empty_cache()
+    record["eval"] = eval_entry(wrappers, plain_default, card)
 
     kernels = []
     for k, (src, tpu) in SOURCES.items():

@@ -12,6 +12,11 @@ two opt-in routes ``FOUNDDIFF_GN`` (the GroupNorm pair) and
 wrapper runs its plain PyTorch version for CPU tensors and launches its
 kernel for CUDA tensors.
 
+Evaluation and data-fed training: ``python -m founddiff_tpu_torch``
+(:mod:`founddiff_tpu_torch.cli`, the two modes of the JAX ``train.py``) over
+the CT data layer (:mod:`founddiff_tpu_torch.data`) and
+``Trainer.test`` with its metrics and Dose-CLIP FID.
+
 Layout follows the JAX package: images are NHWC, channel concat on the last
 axis.  Parameter names follow the reference PyTorch state-dict layout.
 """

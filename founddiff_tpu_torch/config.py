@@ -1,13 +1,15 @@
-"""Config tree of the serving and training paths, FoundDiff and the vanilla
-DDPM baseline (mirror of ``founddiff_tpu/config.py``).
+"""Config tree of the serving, training and evaluation paths, FoundDiff and
+the vanilla DDPM baseline (mirror of ``founddiff_tpu/config.py``).
 
-Only the fields those paths read; defaults are the reference's shipped
-values (train.py:39-119).
+Defaults are the reference's shipped values (train.py:39-119).  The JSON
+form is the JAX package's: a file written by either loads in the other for
+the fields both have; a field one side lacks is skipped on load.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Tuple
 
 
@@ -26,6 +28,8 @@ class ModelConfig:
     base_d_state: int = 4
     ssm_expand: float = 2.0
     clip_backbone: str = "RN50"
+    # False: a UnetRes with no Dose-CLIP tower, zero dose/content embeddings
+    use_dose_encoder: bool = True
     # the vanilla lucidrains path: VanillaUnet + GaussianDiffusion
     # (train.py:59,85-95; set condition False with it, as train.py does)
     original_ddim_ddpm: bool = False
@@ -61,6 +65,25 @@ class TrainConfig:
     mixed_precision: str = "no"  # 'no' | 'bf16' (reference runs fp32)
     checkpoint_folder: str = "checkpoints/FoundDiff"
     keep_checkpoints: int = 3  # older milestone files are pruned (0 = keep all)
+    # test(fid=True) at the periodic-eval cadence (src/DADiff.py:1731-1747)
+    fid_eval: bool = True
+    # mirror metrics.jsonl to wandb when it is importable
+    use_wandb: bool = False
+    wandb_project: str = "founddiff_tpu"
+
+
+@dataclasses.dataclass
+class DataConfig:
+    root: str = "/mnt/miah203/zhchen"
+    train_phase: str = "train512"
+    test_phase: str = "test"
+    subset: str = "multi"
+    doses: Tuple[int, ...] = (2, 4, 6, 10)
+    num: int = 3000
+    stride: int = 2
+    # per-anatomy eval slice counts (reference src/DADiff.py:1918-1945)
+    eval_counts: Tuple[Tuple[str, int], ...] = (("ab", 290), ("lung", 637), ("head", 159))
+    eval_doses: int = 4
 
 
 @dataclasses.dataclass
@@ -69,6 +92,27 @@ class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     diffusion: DiffusionConfig = dataclasses.field(default_factory=DiffusionConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, text: str) -> "Config":
+        """Lists become tuples (nested ones too); unknown keys are skipped."""
+        subs = {"model": ModelConfig, "diffusion": DiffusionConfig, "train": TrainConfig,
+                "data": DataConfig}
+
+        def tup(v):
+            return tuple(tup(x) for x in v) if isinstance(v, list) else v
+
+        def build(klass, raw):
+            names = {f.name for f in dataclasses.fields(klass)}
+            kwargs = {k: build(subs[k], v) if klass is cls and k in subs else tup(v)
+                      for k, v in raw.items() if k in names}
+            return klass(**kwargs)
+
+        return build(cls, json.loads(text))
 
 
 def debug_config() -> Config:

@@ -2,10 +2,12 @@
 
 Mirror of ``founddiff_tpu/diffusion/residual.py`` (reference
 src/DADiff.py:908-1498): ``model_predictions`` with all four objectives,
-``ddim_sample`` with both update rules, and the training loss
-(``q_sample``, ``p_losses``, ``loss``).  The JAX ``lax.scan`` over static
-time pairs is a Python loop here; ``jax.random`` keys become explicit
-``torch.Generator``s, and ``t`` and the noise can be handed in instead.
+``ddim_sample`` with both update rules, full-T ancestral sampling
+(``q_posterior``, ``p_mean_variance``, ``p_sample_loop``), the public
+``sample`` entry, and the training loss (``q_sample``, ``p_losses``,
+``loss``).  The JAX ``lax.scan`` loops are Python loops here; ``jax.random``
+keys become explicit ``torch.Generator``s, and ``t`` and the noise can be
+handed in instead.
 """
 
 from __future__ import annotations
@@ -127,6 +129,19 @@ class ResidualDiffusion:
         return (x_t - extract(sch.alphas_cumsum, t, nd) * x_res
                 - extract(sch.betas_cumsum, t, nd) * noise)
 
+    def q_posterior_from_res_noise(self, sch, x_res, noise, x_t, t):
+        nd = x_t.ndim
+        return (x_t - extract(sch.alphas, t, nd) * x_res
+                - (extract(sch.betas2, t, nd) / extract(sch.betas_cumsum, t, nd)) * noise)
+
+    def q_posterior(self, sch, pred_res, x_start, x_t, t):
+        nd = x_t.ndim
+        mean = (extract(sch.posterior_mean_coef1, t, nd) * x_t
+                + extract(sch.posterior_mean_coef2, t, nd) * pred_res
+                + extract(sch.posterior_mean_coef3, t, nd) * x_start)
+        return (mean, extract(sch.posterior_variance, t, nd),
+                extract(sch.posterior_log_variance_clipped, t, nd))
+
     def _model_input(self, x, x_input, x_input_condition):
         if not self.condition:
             return x
@@ -175,6 +190,62 @@ class ResidualDiffusion:
             raise ValueError(f"unknown objective {self.objective!r}")
         return ModelResPrediction(pred_res, pred_noise, x_start)
 
+    # DDPM ancestral sampler (src/DADiff.py:1211-1273)
+
+    def p_mean_variance(self, sch, x_input, x, t, x_input_condition=None, x_self_cond=None):
+        preds = self.model_predictions(sch, x_input, x, t, x_input_condition, x_self_cond)
+        mean, var, log_var = self.q_posterior(sch, preds.pred_res, preds.pred_x_start, x, t)
+        return mean, var, log_var, preds.pred_x_start
+
+    @torch.no_grad()
+    def p_sample_loop(self, x_input, shape, *, sch: Optional[ResidualSchedule] = None,
+                      last: bool = True, generator: Optional[torch.Generator] = None,
+                      noise=None):
+        """Full-T ancestral sampling over ``t = T-1 .. 0``, one draw per step
+        (unused at t = 0, as in the JAX loop).  ``noise``: a sequence of the
+        T + 1 draws (the initial noise, then one per step, as the tests hand
+        in the JAX package's), or the initial noise alone with the step draws
+        from ``generator``; by default every draw is a standard normal from
+        ``generator`` on the CPU."""
+        sch = self.train_schedule if sch is None else sch
+        x_input, x_input_condition = self._split_input(x_input)
+        device = x_input.device if torch.is_tensor(x_input) else self.device
+        sch = sch.to(device)
+        draws = self._draws(shape, self.num_timesteps, generator, noise, device)
+        img, input_add_noise = self._initial(x_input, next(draws))
+        imgs = []
+        x_start_prev = torch.zeros(shape, device=device) if self.self_condition else None
+        for t in range(self.num_timesteps - 1, -1, -1):
+            bt = torch.full((shape[0],), t, dtype=torch.long, device=device)
+            mean, _, log_var, x_start = self.p_mean_variance(sch, x_input, img, bt,
+                                                             x_input_condition, x_start_prev)
+            z = next(draws)
+            img = mean + torch.exp(0.5 * log_var) * z if t > 0 else mean
+            if self.self_condition:
+                x_start_prev = x_start
+            if not last:
+                imgs.append(img)
+        return self._package_samples(img, imgs, input_add_noise, last)
+
+    def _draws(self, shape, steps: int, generator, noise, device):
+        """The initial noise and one draw per step: from ``noise`` (the
+        initial draw alone, or all ``steps + 1``), the rest standard normals
+        from ``generator`` on the CPU, drawn as they are used."""
+        given = [] if noise is None else [noise] if torch.is_tensor(noise) else list(noise)
+        if len(given) > 1 and len(given) != steps + 1:
+            raise ValueError(f"noise: {len(given)} draws, want 1 or {steps + 1}")
+        for i in range(steps + 1):
+            n = given[i] if i < len(given) else torch.randn(tuple(shape), generator=generator)
+            yield n.to(device=device, dtype=torch.float32)
+
+    def _initial(self, x_input, noise):
+        """(the first image, the noised input it is returned as): conditional
+        sampling starts at ``x_input + sqrt(sum_scale) * noise``."""
+        if self.condition:
+            img = x_input + math.sqrt(self.sum_scale) * noise
+            return img, img
+        return noise, None
+
     @torch.no_grad()
     def ddim_sample(self, x_input, shape, *, sch: Optional[ResidualSchedule] = None,
                     last: bool = True, generator: Optional[torch.Generator] = None,
@@ -195,13 +266,8 @@ class ResidualDiffusion:
         eta = self.ddim_sampling_eta
         if noise is None:
             noise = torch.randn(tuple(shape), generator=generator, dtype=torch.float32)
-        noise = noise.to(device=device, dtype=torch.float32)
-        if self.condition:
-            img = x_input + math.sqrt(self.sum_scale) * noise
-            input_add_noise = img
-        else:
-            img = noise
-            input_add_noise = None
+        img, input_add_noise = self._initial(x_input, noise.to(device=device,
+                                                               dtype=torch.float32))
 
         t_cur, t_next = ddim_time_pairs(self.num_timesteps, self.sampling_timesteps)
         imgs = []
@@ -252,6 +318,26 @@ class ResidualDiffusion:
         else:
             out = [img] if last else imgs
         return [unnormalize_to_zero_to_one(o) for o in out]
+
+    def sample(self, x_input=None, batch_size: int = 16, last: bool = True,
+               use_test_schedule: bool = False, generator: Optional[torch.Generator] = None,
+               noise=None):
+        """Public sampling entry (src/DADiff.py:1367-1380): ``x_input`` in
+        [0, 1] (normalised here; a list for ``input_condition``), DDIM when
+        ``sampling_timesteps < timesteps`` else ``p_sample_loop``; ``noise``
+        as the chosen sampler takes it."""
+        sch = self.test_schedule if use_test_schedule else self.train_schedule
+        fn = self.ddim_sample if self.is_ddim_sampling else self.p_sample_loop
+        if self.condition:
+            if isinstance(x_input, (list, tuple)):
+                x_input = [normalize_to_neg_one_to_one(x) for x in x_input]
+                size = x_input[0].shape
+            else:
+                x_input = normalize_to_neg_one_to_one(x_input)
+                size = x_input.shape
+        else:
+            size = (batch_size, self.image_size, self.image_size, self.channels)
+        return fn(x_input, size, sch=sch, last=last, generator=generator, noise=noise)
 
     # training loss (src/DADiff.py:1382-1498)
 

@@ -25,7 +25,7 @@ from founddiff_tpu_torch.models.blocks import ChanLayerNorm, TransposedAttention
 from founddiff_tpu_torch.models.clip import CLIP, AttentionPool2d, PromptLearner, _MHAWeights
 from founddiff_tpu_torch.models.founddiff import FoundDiffDenoiser
 from founddiff_tpu_torch.models.ss2d import SS2D, MambaBlock
-from founddiff_tpu_torch.models.unet import Unet
+from founddiff_tpu_torch.models.unet import Unet, UnetRes
 from founddiff_tpu_torch.models.vanilla_unet import VanillaUnet
 from founddiff_tpu_torch.utils.device import resolve
 
@@ -98,36 +98,46 @@ def init_params(model: nn.Module, gen: torch.Generator) -> None:
 JAX_FIXED = {"base_d_state": 4, "ssm_expand": 2.0, "resnet_block_groups": 8}
 
 
-def build_denoiser(config: Config, clip_overrides=()) -> Union[FoundDiffDenoiser, VanillaUnet]:
+def build_denoiser(config: Config,
+                   clip_overrides=()) -> Union[FoundDiffDenoiser, UnetRes, VanillaUnet]:
+    """The vanilla UNet, FoundDiff (``use_dose_encoder``) or, without the
+    tower, a ``UnetRes`` whose dose/content embeddings are zeros
+    (``founddiff_tpu/factory.py:32-59``; the JAX factory passes
+    ``resnet_block_groups`` on to that one)."""
     m = config.model
     if m.original_ddim_ddpm:
         return VanillaUnet(dim=m.dim, dim_mults=tuple(m.dim_mults), channels=m.channels,
                            self_condition=m.self_condition,
                            resnet_block_groups=m.resnet_block_groups)
-    ignored = {k: getattr(m, k) for k, v in JAX_FIXED.items() if getattr(m, k) != v}
+    fixed = dict(JAX_FIXED)
+    if not m.use_dose_encoder:
+        fixed.pop("resnet_block_groups")
+    ignored = {k: getattr(m, k) for k, v in fixed.items() if getattr(m, k) != v}
+    kind = "FoundDiff" if m.use_dose_encoder else "UnetRes"
     if ignored:
-        warnings.warn("build: the JAX package builds FoundDiff with "
-                      + ", ".join(f"{k}={JAX_FIXED[k]}" for k in ignored) + " whatever the "
+        warnings.warn(f"build: the JAX package builds {kind} with "
+                      + ", ".join(f"{k}={fixed[k]}" for k in ignored) + " whatever the "
                       "Config says; ignoring " + ", ".join(f"{k}={v}" for k, v in ignored.items())
-                      + " (construct FoundDiffDenoiser directly for other values)",
-                      stacklevel=2)
-    return FoundDiffDenoiser(
-        dim=m.dim, dim_mults=tuple(m.dim_mults), channels=m.channels,
-        num_unet=m.num_unet, condition=m.condition, input_condition=m.input_condition,
-        self_condition=m.self_condition, objective=m.objective,
-        test_res_or_noise=m.test_res_or_noise, clip_backbone=m.clip_backbone,
-        clip_overrides=clip_overrides, **JAX_FIXED)
+                      + f" (construct {kind} directly for other values)", stacklevel=2)
+    kw = dict(dim=m.dim, dim_mults=tuple(m.dim_mults), channels=m.channels,
+              num_unet=m.num_unet, condition=m.condition, input_condition=m.input_condition,
+              self_condition=m.self_condition, objective=m.objective,
+              test_res_or_noise=m.test_res_or_noise, **fixed)
+    if not m.use_dose_encoder:
+        return UnetRes(resnet_block_groups=m.resnet_block_groups, **kw)
+    return FoundDiffDenoiser(clip_backbone=m.clip_backbone, clip_overrides=clip_overrides, **kw)
 
 
 def build(config: Config, device="cuda", seed: Optional[int] = None, clip_overrides=(),
           train: bool = False) -> Tuple[Union[ResidualDiffusion, GaussianDiffusion],
-                                        Union[FoundDiffDenoiser, VanillaUnet]]:
+                                        Union[FoundDiffDenoiser, UnetRes, VanillaUnet]]:
     """Returns ``(diffusion, model)`` with seeded weights on ``device``.
 
     ``train=False`` gives the frozen serving model.  ``train=True`` gives the
     model in train mode with the UNets' parameters trainable and the
     Dose-CLIP tower frozen: its forward already runs under ``no_grad``, as the
-    JAX model stops its gradient (models/founddiff.py:82-88).  With
+    JAX model stops its gradient (models/founddiff.py:82-88); without
+    ``use_dose_encoder`` there is no tower.  With
     ``original_ddim_ddpm`` the diffusion is the vanilla process at the
     settings of ``founddiff_tpu/factory.py:88-98``: cosine betas,
     ``pred_noise``, l1 loss and DDIM over ``min(250, timesteps)`` steps.
@@ -149,7 +159,8 @@ def build(config: Config, device="cuda", seed: Optional[int] = None, clip_overri
             model_fn, image_size=d.image_size, channels=m.channels, timesteps=d.timesteps,
             sampling_timesteps=min(250, d.timesteps), loss_type="l1", objective="pred_noise",
             beta_schedule="cosine", device=device), model
-    model.dose_encoder.eval().requires_grad_(False)
+    if m.use_dose_encoder:
+        model.dose_encoder.eval().requires_grad_(False)
     diffusion = ResidualDiffusion(
         model_fn, image_size=d.image_size, channels=m.channels, timesteps=d.timesteps,
         sampling_timesteps=d.sampling_timesteps, loss_type=d.loss_type, objective=m.objective,

@@ -266,6 +266,7 @@ class CLIPIQA(nn.Module):
                  prompt_name_lens: Tuple[int, ...] = (3, 3)):
         super().__init__()
         self.embed_dim = embed_dim
+        self.backbone_resolution = backbone_resolution
         self.clip_model = CLIP(embed_dim, backbone_resolution, vision_layers, vision_width,
                                transformer_width=transformer_width,
                                transformer_heads=transformer_heads,

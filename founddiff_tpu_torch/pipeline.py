@@ -1,4 +1,5 @@
-"""Hoisted-tower DDIM serving (mirror of ``founddiff_tpu/pipeline.py:26-67``).
+"""Hoisted-tower serving (mirror of ``founddiff_tpu/pipeline.py:26-67``): DDIM,
+or full-T ancestral sampling when ``sampling_timesteps == timesteps``.
 
 The frozen Dose-CLIP tower depends only on the conditioning image, so it runs
 once per slice and its embeddings are bound into every UNet call of the DDIM
@@ -21,7 +22,8 @@ from founddiff_tpu_torch.diffusion.residual import (
 def make_hoisted_sampler(model, diffusion: ResidualDiffusion,
                          use_test_schedule: bool = True, last: bool = True,
                          compute_dtype: Optional[torch.dtype] = None) -> Callable:
-    """Returns ``sample(x_input01, generator=None, noise=None) -> [B,H,W,C]``.
+    """Returns ``sample(x_input01, generator=None, noise=None) -> [B,H,W,C]``;
+    ``noise`` as ``ddim_sample`` or ``p_sample_loop`` takes it.
 
     ``compute_dtype`` (e.g. ``torch.bfloat16``) runs the UNet trunk in that
     dtype: the input is cast at the model boundary and the predictions cast
@@ -47,10 +49,9 @@ def make_hoisted_sampler(model, diffusion: ResidualDiffusion,
         d = copy.copy(diffusion)
         d.model_fn = bound_fn
         sch = d.test_schedule if use_test_schedule else d.train_schedule
-        if not d.is_ddim_sampling:
-            raise NotImplementedError("the port serves DDIM (sampling_timesteps < timesteps)")
-        out = d.ddim_sample(x_norm, x_norm.shape, sch=sch, last=last,
-                            generator=generator, noise=noise)
+        sample_fn = d.ddim_sample if d.is_ddim_sampling else d.p_sample_loop
+        out = sample_fn(x_norm, x_norm.shape, sch=sch, last=last, generator=generator,
+                        noise=noise)
         return out[-1]
 
     return sample

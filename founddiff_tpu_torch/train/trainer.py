@@ -14,10 +14,18 @@ inputs are cast to bf16 and the predictions back to fp32 for the loss.
 The conditional (FoundDiff) and the generation (vanilla DDPM) paths both
 train here; ``sample()`` follows the JAX ``Trainer.sample`` routes.
 
+With ``train_dataset`` the loop draws ``(gt, ld)`` batches from
+``cycle(Loader(...))`` when none are passed, writes ``metrics.jsonl`` and,
+with ``sample_dataset``, the preview ``sample-<milestone>.png`` at every
+``save_and_sample_every`` steps and the periodic ``test(fid=fid_eval)``.
+``test()`` is the evaluation protocol of the JAX ``Trainer.test``
+(trainer.py:419-519): every slice of ``sample_dataset`` denoised with the
+EMA weights on the test schedule, PSNR/SSIM/RMSE on the card, per-anatomy
+and per-dose log lines, the ``.npy`` predictions and a Dose-CLIP FID.
+
 Random draws (timesteps, noise) come from one ``torch.Generator`` seeded
 with ``train.seed``, on the CPU, so a seed gives the same run on every
-device.  ``test()`` with its per-anatomy metrics and FID waits for the
-data modules.
+device.
 """
 
 from __future__ import annotations
@@ -25,38 +33,38 @@ from __future__ import annotations
 import copy
 import glob
 import itertools
-import logging
+import math
 import os
 import re
 import time
-from typing import Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional
 
+import numpy as np
 import torch
 
 from founddiff_tpu_torch.config import Config
+from founddiff_tpu_torch.data.loader import Loader, cycle
+from founddiff_tpu_torch.ops.metrics import compute_psnr, compute_rmse, compute_ssim
 from founddiff_tpu_torch.pipeline import make_hoisted_sampler
 from founddiff_tpu_torch.train.ema import ema_update
 from founddiff_tpu_torch.train.state import clip_by_global_norm_, make_optimizer
-
-
-def _logger(path: str) -> logging.Logger:
-    log = logging.getLogger(f"founddiff_tpu_torch.train:{path}")
-    if not log.handlers:
-        log.setLevel(logging.INFO)
-        handler = logging.FileHandler(path)
-        handler.setFormatter(logging.Formatter("%(asctime)s %(message)s"))
-        log.addHandler(handler)
-    return log
+from founddiff_tpu_torch.utils.images import hu_preview_window, save_image
+from founddiff_tpu_torch.utils.logger import get_logger
+from founddiff_tpu_torch.utils.metrics_log import MetricsLogger
 
 
 class Trainer:
     """Trains ``model`` (from ``factory.build(..., train=True)``) under
-    ``diffusion``'s loss with ``config.train``."""
+    ``diffusion``'s loss with ``config.train``; ``train_dataset`` /
+    ``sample_dataset``: map-style datasets of ``[NDCT, LDCT]`` NHWC pairs
+    (None when the caller passes batches or does not evaluate)."""
 
-    def __init__(self, diffusion, model, config: Config):
+    def __init__(self, diffusion, model, config: Config, train_dataset=None,
+                 sample_dataset=None):
         tcfg = config.train
         self.diffusion, self.model, self.config = diffusion, model, config
         self.num_unet = config.model.num_unet
+        self.device = next(model.parameters()).device
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.opt = make_optimizer(self.params, self.num_unet, tcfg.train_lr, tcfg.adam_betas)
         self.ema = copy.deepcopy(model).eval().requires_grad_(False)
@@ -67,6 +75,26 @@ class Trainer:
         self.results_folder = os.path.join(self.checkpoint_folder, "sample")
         self._diffusion = copy.copy(diffusion)
         self._diffusion.model_fn = self._model_fn
+        self.train_dataset, self.sample_dataset = train_dataset, sample_dataset
+        if train_dataset is not None:
+            self.dl = cycle(Loader(train_dataset,
+                                   batch_size=tcfg.train_batch_size * tcfg.gradient_accumulate_every,
+                                   shuffle=True, seed=tcfg.seed))
+        if sample_dataset is not None:
+            self.sample_loader = cycle(Loader(sample_dataset, batch_size=tcfg.num_samples,
+                                              shuffle=True, seed=tcfg.seed + 1))
+        self.train_logger = None
+        self._metrics = None
+
+    @property
+    def metrics(self) -> MetricsLogger:
+        """``metrics.jsonl`` in the checkpoint folder, opened at first use."""
+        if self._metrics is None:
+            tcfg = self.config.train
+            self._metrics = MetricsLogger(os.path.join(self.checkpoint_folder, "metrics.jsonl"),
+                                          use_wandb=tcfg.use_wandb, project=tcfg.wandb_project,
+                                          name=self.config.name)
+        return self._metrics
 
     def _model_fn(self, x_in, time, x_self_cond=None):
         if self.config.train.mixed_precision != "bf16":
@@ -87,9 +115,8 @@ class Trainer:
         per-UNet losses averaged over the microbatches."""
         tcfg = self.config.train
         accum = tcfg.gradient_accumulate_every
-        gt, ld = batch
-        device = self.params[0].device
-        gt, ld = gt.to(device), ld.to(device)
+        device = self.device
+        gt, ld = (torch.as_tensor(b).to(device) for b in batch[:2])
         micro = gt.shape[0] // accum
         for p in self.params:
             p.grad = None
@@ -111,28 +138,40 @@ class Trainer:
         self.step += 1
         return losses.tolist()
 
-    def train(self, batches: Iterable, log_every: int = 50) -> None:
-        """The training loop (src/DADiff.py:1673-1763) over ``(gt, ld)``
-        batches until ``train_num_steps``; logs to ``train.log`` in the
-        checkpoint folder and saves at the JAX trainer's cadence."""
+    def train(self, batches: Optional[Iterable] = None, log_every: int = 50) -> None:
+        """The training loop (src/DADiff.py:1673-1763) until
+        ``train_num_steps``, over ``(gt, ld)`` ``batches`` or, when none are
+        given, the ``train_dataset`` loader; logs to ``train.log`` and
+        ``metrics.jsonl`` in the checkpoint folder, previews, evaluates and
+        saves at the JAX trainer's cadence (trainer.py:220-281)."""
         tcfg = self.config.train
         os.makedirs(self.checkpoint_folder, exist_ok=True)
-        log = _logger(os.path.join(self.checkpoint_folder, "train.log"))
+        self.train_logger = log = get_logger(os.path.join(self.checkpoint_folder, "train.log"))
+        stream = iter(batches) if batches is not None else self.dl
         t0 = time.time()
-        for batch in batches:
-            if self.step >= tcfg.train_num_steps:
+        while self.step < tcfg.train_num_steps:
+            batch = next(stream, None)
+            if batch is None:
                 break
             losses = self.train_step(batch)
             step = self.step
             if step % log_every == 0 or step == 1:
                 rate = log_every / max(time.time() - t0, 1e-9)
                 t0 = time.time()
+                m = {f"loss_unet{i}": v for i, v in enumerate(losses)}
                 log.info(f"step {step}/{tcfg.train_num_steps} "
-                         + " ".join(f"loss_unet{i}: {v:.6f}" for i, v in enumerate(losses))
+                         + " ".join(f"{k}: {v:.6f}" for k, v in m.items())
                          + f" ({rate:.2f} it/s)")
+                self.metrics.log({**m, "it_per_sec": rate}, step=step)
             every = tcfg.save_and_sample_every
-            if step > every * 10 * 4 and step % (every * 10) == 0:
-                self.save(step // every)
+            if step % every == 0:
+                milestone = step // every
+                if self.sample_dataset is not None:
+                    self.preview(milestone)
+                if step > every * 10 * 4 and step % (every * 10) == 0:
+                    self.save(milestone)
+                    if self.sample_dataset is not None:
+                        self.test(last=True, fid=tcfg.fid_eval)
         log.info("training complete")
 
     def _ckpt_path(self, milestone) -> str:
@@ -169,28 +208,161 @@ class Trainer:
             os.remove(p)
 
     def load(self, milestone) -> None:
-        device = self.params[0].device
-        data = torch.load(self._ckpt_path(milestone), map_location=device, weights_only=True)
-        strip = lambda sd, pre: {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}
-        self.model.load_state_dict(strip(data["model"], "model."))
-        self.ema.load_state_dict(strip(data["ema"], "ema_model.model."))
+        """Resume from this run's ``model-<milestone>.pt``: the weights and
+        step as :meth:`load_torch` reads them, then the optimizer and the
+        EMA's step."""
+        data = self.load_torch(self._ckpt_path(milestone))
         self.opt.load_state_dict(data["opt"])
-        self.step = int(data["step"])
         self.ema_step = int(data["ema"]["step"])
 
+    def load_torch(self, path: str) -> dict:
+        """Load a reference ``model-<n>.pt`` (src/DADiff.py:1626-1646): the
+        online weights from ``data['model']`` (``model.<name>``), the EMA's
+        from ``data['ema']`` (``ema_model.model.<name>``), the step.  The
+        port's names are the reference's, so this strips the prefixes; every
+        parameter and buffer of the model must be in the file (keys the port
+        does not build, such as the CLIP text embedding, or the tower of a
+        run without it, are skipped).  The optimizer starts afresh, as in the
+        JAX ``load_reference_checkpoint`` (utils/torch_convert.py:484-517).
+        The file is unpickled with ``weights_only=True``: tensors, numbers,
+        strings and containers only.  Returns the file's dict."""
+        data = torch.load(path, map_location=self.device, weights_only=True)
+        strip = lambda sd, pre: {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}
+        parts = [(self.model, strip(data["model"], "model."))]
+        if "ema" in data:
+            parts.append((self.ema, strip(data["ema"], "ema_model.model.")))
+        for module, sd in parts:
+            own = module.state_dict()
+            missing = [k for k in own if k not in sd]
+            if missing:
+                raise RuntimeError(f"load_torch: {path} lacks {len(missing)} keys of the model, "
+                                   f"e.g. {missing[:4]}")
+            module.load_state_dict({k: sd[k] for k in own})
+        if "ema" not in data:
+            self.ema.load_state_dict(self.model.state_dict())
+        self.step = self.ema_step = int(data.get("step", 0))
+        return data
+
     def sample(self, x_input01=None, generator: Optional[torch.Generator] = None,
-               noise=None, compute_dtype=None):
+               noise=None, compute_dtype=None, use_test_schedule: bool = False):
         """Samples with the EMA weights, as the JAX ``Trainer.sample``
-        (trainer.py:341-389) routes them.  Conditional: hoisted-tower DDIM of
-        the conditioning slices ``x_input01`` on the training schedule
-        (``noise``: the initial noise).  Generation (vanilla DDPM):
+        (trainer.py:341-389) routes them.  Conditional: with the tower,
+        hoisted-tower sampling of the conditioning slices ``x_input01``;
+        without it, ``diffusion.sample`` of them (``noise``: the initial
+        noise, or every draw of full-T sampling).  Generation (vanilla DDPM):
         ``diffusion.sample(batch_size=num_samples)``, ``x_input01`` unused
-        (``noise``: every draw, as ``GaussianDiffusion.sample`` takes them)."""
+        (``noise``: every draw, as ``GaussianDiffusion.sample`` takes them).
+        The training schedule unless ``use_test_schedule``."""
+        d = copy.copy(self.diffusion)
+        d.model_fn = lambda x, t, x_self_cond=None: self.ema(x, t, x_self_cond=x_self_cond)
         if not self.diffusion.condition:
-            d = copy.copy(self.diffusion)
-            d.model_fn = lambda x, t, x_self_cond=None: self.ema(x, t, x_self_cond=x_self_cond)
             return d.sample(batch_size=self.config.train.num_samples, generator=generator,
                             noise=noise)
-        sampler = make_hoisted_sampler(self.ema, self.diffusion, use_test_schedule=False,
+        if not hasattr(self.ema, "encode"):  # no tower to hoist
+            return d.sample(x_input01, last=True, use_test_schedule=use_test_schedule,
+                            generator=generator, noise=noise)[-1]
+        sampler = make_hoisted_sampler(self.ema, self.diffusion,
+                                       use_test_schedule=use_test_schedule,
                                        compute_dtype=compute_dtype)
         return sampler(x_input01, generator=generator, noise=noise)
+
+    def preview(self, milestone) -> torch.Tensor:
+        """The preview of ``milestone`` (src/DADiff.py:1765-1815): one batch of
+        ``sample_dataset``'s LDCT slices denoised on the training schedule,
+        saved through the HU display window as ``sample-<milestone>.png``
+        (``.png.npy`` without PIL)."""
+        batch = next(self.sample_loader)
+        x = torch.from_numpy(np.asarray(batch[1])).to(self.device)
+        img = self.sample(x, generator=self.generator)
+        os.makedirs(self.results_folder, exist_ok=True)
+        save_image(hu_preview_window(img.float().cpu().numpy()),
+                   os.path.join(self.results_folder, f"sample-{milestone}.png"),
+                   nrow=int(max(1, np.sqrt(self.config.train.num_samples))))
+        return img
+
+    # the test protocol (src/DADiff.py:1817-1966)
+
+    def _slice_noise(self, index: int, shape) -> torch.Tensor:
+        """The initial noise of test slice ``index`` (the one place ``test``
+        draws it; the later draws of full-T sampling come from the trainer's
+        generator)."""
+        return torch.randn(tuple(shape), generator=self.generator)
+
+    def _compute_fid(self, preds, gts) -> float:
+        """FID between predicted and ground-truth slices with the EMA's frozen
+        Dose-CLIP visual tower as the feature extractor; NaN without a tower."""
+        tower = getattr(self.ema, "dose_encoder", None)
+        if tower is None:
+            if self.train_logger is not None:
+                self.train_logger.info("fid skipped: no dose_encoder params (unconditional run)")
+            return float("nan")
+        from founddiff_tpu_torch.utils.fid import compute_fid, make_clip_extractor
+
+        return compute_fid(torch.cat(preds), torch.cat(gts), make_clip_extractor(tower))
+
+    @torch.no_grad()
+    def test(self, last: bool = True, save_npy: bool = False, fid: bool = False,
+             fid_limit: int = 512) -> Dict[str, float]:
+        """Denoises every slice of ``sample_dataset`` (batch 1, in order) with
+        the EMA weights on the test schedule and scores it against its NDCT:
+        the summary ``{psnr, ssim, rmse[, fid_doseclip]}``, logged with the
+        per-anatomy and per-dose means of ``data.eval_counts`` /
+        ``eval_doses`` in the JAX text format, and as ``test_*`` in
+        ``metrics.jsonl``.  ``save_npy`` writes each prediction as
+        ``<results_folder>/<slice name>.npy``; ``fid`` computes the Dose-CLIP
+        FID over the first ``fid_limit`` slices."""
+        assert self.sample_dataset is not None
+        os.makedirs(self.checkpoint_folder, exist_ok=True)
+        logger = self.train_logger or get_logger(os.path.join(self.checkpoint_folder,
+                                                              "test.log"))
+        psnrs: List[float] = []
+        ssims: List[float] = []
+        rmses: List[float] = []
+        fid_pred: List[torch.Tensor] = []
+        fid_gt: List[torch.Tensor] = []
+        if save_npy:
+            os.makedirs(self.results_folder, exist_ok=True)
+        loader = Loader(self.sample_dataset, batch_size=1, shuffle=False, drop_last=False)
+        for i, items in enumerate(loader):
+            gt, ldct = (torch.from_numpy(np.asarray(a)).to(self.device) for a in items[:2])
+            pred = self.sample(ldct, noise=self._slice_noise(i, ldct.shape),
+                               generator=self.generator, use_test_schedule=True)
+            p, s, r = torch.stack([compute_psnr(pred, gt), compute_ssim(pred, gt),
+                                   compute_rmse(pred, gt)]).tolist()
+            psnrs.append(p)
+            ssims.append(s)
+            rmses.append(r)
+            if fid and len(fid_pred) < fid_limit:
+                fid_pred.append(pred)
+                fid_gt.append(gt)
+            if save_npy:
+                name = self.sample_dataset.load_name(i)
+                np.save(os.path.join(self.results_folder, name[:-4]),
+                        pred.float().cpu().numpy().reshape(pred.shape[1], pred.shape[2]))
+
+        # per-anatomy / per-dose aggregation (src/DADiff.py:1918-1952)
+        n_doses = self.config.data.eval_doses
+        offset = 0
+        for anatomy, length in dict(self.config.data.eval_counts).items():
+            block = slice(offset, offset + length * n_doses)
+            a_p, a_s, a_r = psnrs[block], ssims[block], rmses[block]
+            if a_p:
+                logger.info("(%s average mean: psnr: %.4f, ssim: %.4f, rmse: %.4f)"
+                            % (anatomy, np.mean(a_p), np.mean(a_s), np.mean(a_r)))
+                for d in range(n_doses):
+                    seg = slice(d * length, (d + 1) * length)
+                    if a_p[seg]:
+                        logger.info("(%s dose %2d: psnr: %.4f, ssim: %.4f, rmse: %.4f)"
+                                    % (anatomy, d, np.mean(a_p[seg]), np.mean(a_s[seg]),
+                                       np.mean(a_r[seg])))
+            offset += length * n_doses
+
+        summary = {k: float(np.mean(v)) if v else math.nan
+                   for k, v in (("psnr", psnrs), ("ssim", ssims), ("rmse", rmses))}
+        if fid and fid_pred:
+            # Dose-CLIP features, not InceptionV3: keyed apart from published FIDs
+            summary["fid_doseclip"] = float(self._compute_fid(fid_pred, fid_gt))
+        self.metrics.log({f"test_{k}": v for k, v in summary.items()}, step=self.step)
+        logger.info("test_psnr: {psnr:.4f}, test_ssim: {ssim:.4f}, "
+                    "test_rmse: {rmse:.4f}".format(**summary))
+        return summary

@@ -905,3 +905,49 @@ def test_register_kernels_at_padded_and_grouped_d_state(dev, dtype, N):
 def test_selective_scan_fn_grads_at_d_state_12(dev):
     args = _scan_inputs(_gen(12), 2, 100, 48, 12, torch.float32, dev)
     _grad_check(scan_mod.selective_scan, args, dev)
+
+
+# the evaluation layer: metrics and the Dose-CLIP extractor run where the
+# prediction is; on the card they agree with the CPU within 1e-4 absolute
+# (the bound phase 16 of chip_smoke.py holds), the SSIM map within 1e-5
+METRIC_SHAPES = [(1, 512, 512, 1), (2, 64, 48, 1), (1, 16, 16, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", METRIC_SHAPES)
+def test_metrics_on_the_card(dev, shape):
+    from founddiff_tpu_torch.ops import metrics as m
+
+    gen = torch.Generator().manual_seed(shape[1])
+    a = torch.rand(shape, generator=gen)
+    b = (a + 0.05 * torch.randn(shape, generator=gen)).clamp(0, 1)
+    fns = {"psnr": m.compute_psnr, "rmse": m.compute_rmse, "ssim": m.compute_ssim,
+           "cs": lambda x, y: m.compute_ssim(x, y, full=True)[1]}
+    for name, fn in fns.items():
+        card = fn(a.to(dev), b.to(dev))
+        assert card.device.type == "cuda", name
+        assert abs(float(card) - float(fn(a, b))) <= 1e-4, name
+    card_map = m.compute_ssim(a.to(dev), b.to(dev), reduction="none")
+    torch.testing.assert_close(card_map.cpu(), m.compute_ssim(a, b, reduction="none"),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_clip_extractor_on_the_card(dev):
+    """A micro Dose-CLIP tower's FID features of 512^2 slices on the card
+    against the same tower on the CPU (antialiased resize to 64^2)."""
+    from founddiff_tpu_torch.factory import init_params
+    from founddiff_tpu_torch.models.clip import CLIPIQA
+    from founddiff_tpu_torch.utils.fid import make_clip_extractor
+
+    micro = dict(vision_layers=(1, 1, 1, 1), vision_width=8, embed_dim=64,
+                 transformer_width=32, transformer_layers=2, transformer_heads=4,
+                 backbone_resolution=64)
+    tower = CLIPIQA(**micro)
+    init_params(tower, torch.Generator().manual_seed(0))
+    tower.eval()
+    x = torch.rand(3, 512, 512, 1, generator=torch.Generator().manual_seed(1))
+    cpu = make_clip_extractor(tower)(x)
+    card = make_clip_extractor(tower.to(dev))(x.to(dev))
+    torch.testing.assert_close(torch.from_numpy(card), torch.from_numpy(cpu), rtol=1e-4,
+                               atol=1e-5)
