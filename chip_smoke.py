@@ -59,7 +59,10 @@ Phases (any failure exits non-zero before the last line is printed):
    the training batch, and ``scan_image_forward``, ``scan_fused_forward``,
    ``ss2d_image_block`` and ``ss2d_mamba_block`` at the 32^2 blocks of
    phase 15 (C0 512).  Then ``scan_forward``'s bounds-only h_bounds against
-   its full mode's, bit for bit, at every scan_forward shape of phase 2.
+   its full mode's, bit for bit, at every scan_forward shape of phase 2,
+   and its last-state mode (``last_state=True``: ``h_last`` against the
+   plain version's at phase 2's tolerance, y and h_bounds bit for bit
+   those of the mode without it).
    ``attn_block`` also at the three C = 64 MambaBlocks of a 512^2 slice
    (512^2 and 256^2 at bs4), where ``FOUNDDIFF_ATTN_BLOCK=on`` takes it and
    the default runs the plain composition, timed beside that composition;
@@ -188,6 +191,25 @@ Phases (any failure exits non-zero before the last line is printed):
    train mode (``--is_train --debug``, 4 steps of 2 slices at 512^2) with
    ``train.log``, ``metrics.jsonl`` and the previews ``sample-1`` and
    ``sample-2``.
+17. Distribution (``founddiff_tpu_torch.parallel``): (a) the
+   sequence-sharded composition in one process at 2 and 4 virtual shards of
+   the 512^2 first level's scan operands (B 1, K 4, L 65,536, D 128, N 4,
+   fp32), ``local_summary`` (``scan_forward`` with its last state, one
+   launch a shard) then ``apply_prefix``, against the unsharded kernel scan
+   and the plain chunked scan (rtol 2e-4 / atol 2e-5), with the
+   correction's time and peak memory; (b) ``init_distributed`` at world
+   size 1 over NCCL (a ``FileStore`` rendezvous, rank 0) and
+   ``make_mesh()``: one data-parallel fp32 train step of ``Config()`` at
+   512^2 (2 x 2 microbatches) against a step without a mesh on the same
+   batch and draws (per parameter bit-identical or within 1e-6 relative),
+   two more timed beside phase 7's with phase 7's launches per step;
+   ``make_volume_denoiser`` of phase 3's model on a seeded volume of 18
+   slices of 512^2 in bf16 waves of 4 (slices/s, phase 3's launches per
+   UNet forward, every wave bit-identical to the hoisted sampler's on the
+   same noise, the plain-path gate of phase 4 on one slice); (c)
+   ``python -m founddiff_tpu_torch.tools.denoise_volume`` as a subprocess
+   on a ``model-1.pt`` of phase 3's weights and a 4-slice volume: rc 0, the
+   output's shape and its summary line.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches on
 its path, phase 3 for the serving kernels, phase 12's 360^2 requests for
@@ -201,7 +223,9 @@ summed times of the calls of one bs1 bf16 UNet forward (serving kernels and
 360^2, ``merge_ln_gate`` at 16^2), one bs1 fp32 vanilla UNet forward (``flash_fwd``, the
 GroupNorm pair) or one fp32 train step (the scan and flash backward
 kernels); ``d_state``, the state sizes phase 2 held it at, where it has
-one; and for ``scan_fused_forward``, ``merge_ln_gate`` and the two flash
+one; for ``scan_forward`` ``last_state``, its last-state mode's cases,
+worst ``h_last`` error and launches on the seq route (phase 17); and for
+``scan_fused_forward``, ``merge_ln_gate`` and the two flash
 backward kernels ``units``, their time and bound summed over a bs4 bf16
 forward, for the scan also over an fp32 360^2 train step, for the flash
 backward over a bf16 train step with SDPA's backward beside them); the
@@ -834,6 +858,41 @@ def check_bounds_only(cases):
         f"{sum(result.values())} of {len(result)}")
     return result, failed
 
+
+
+def check_last_state(cases):
+    """Row 4's last-state mode, ``scan_forward(..., last_state=True)``, at
+    every scan_forward case of phase 2, fp32 and bf16: y and h_bounds bit
+    for bit against the mode without it, ``h_last`` [B, K, D, N] against the
+    plain version's at phase 2's per-element tolerance (its own dtype,
+    fp32)."""
+    from founddiff_tpu_torch.ops.scan import scan_chunk, scan_forward, scan_forward_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(47)
+    rows, failed = [], []
+    for batch, kname, label, count, make in cases:
+        if kname != "scan_forward":
+            continue
+        for dtype in (torch.float32, torch.bfloat16):
+            args = make(dtype, gen, dev)[0]
+            y, hb = scan_forward(*args)
+            y2, hb2, h_last = scan_forward(*args, last_state=True)
+            want = scan_forward_plain(*args, scan_chunk(args[2].shape[-1]), last_state=True)[2]
+            torch.cuda.synchronize()
+            same = torch.equal(y, y2) and torch.equal(hb, hb2)
+            err, excess, scale, tol, ok = compare(h_last, want, None, dtype)
+            key = f"{label} {str(dtype).replace('torch.', '')}"
+            rows.append(dict(case=key, bit_identical=same, max_abs_err=err, err_past_ulp=excess,
+                             tol=tol, ok=ok))
+            if not (same and ok):
+                failed.append(f"scan_forward last_state {key}")
+            del args, y, hb, y2, hb2, h_last, want
+    log(f"[kernel] scan_forward last_state: y and h_bounds bit-identical to the mode without "
+        f"it in {sum(r['bit_identical'] for r in rows)} of {len(rows)} cases; h_last against "
+        f"the plain version: worst err {max(r['max_abs_err'] for r in rows):.3e}, "
+        f"{sum(r['ok'] for r in rows)} of {len(rows)} within tolerance")
+    return rows, failed
 
 def check_fused_h_bounds():
     """``scan_fused_forward``'s h_bounds against ``scan_forward``'s on the
@@ -2182,6 +2241,275 @@ def eval_entry(wrappers, plain, card):
                 full_t_launches=full_launches, train_mode_s=train_s, tree_s=data_s)
 
 
+
+# phase 17: the scan operands of the 512^2 first level (B 1, K 4, L 256^2,
+# D 128, N 4, fp32), split into virtual shards; a world of one over NCCL
+SEQ_OPERANDS = (1, 4, 256 * 256, 128, 4)
+SEQ_SHARDS = (2, 4)
+SEQ_RTOL, SEQ_ATOL = 2e-4, 2e-5
+VOLUME_Z, VOLUME_BPD = 18, 4  # 18 slices in waves of 4: 2 of padding
+GRAD_EXACT_RTOL = 1e-6  # DP step against the step without a mesh, per parameter
+
+
+def seq_virtual_shards(wrappers, card):
+    """Phase 17 (a): the sequence-sharded composition on the card in one
+    process, ``local_summary`` per virtual shard (the kernel with its last
+    state) and ``apply_prefix`` per shard over the stacked summaries, at 2
+    and 4 shards of the 512^2 first level's scan operands; held against the
+    unsharded kernel scan and the plain chunked scan (rtol 2e-4 / atol
+    2e-5).  Times the correction of the last shard (the longest fold) and
+    its peak memory above the operands."""
+    from founddiff_tpu_torch.ops.scan import scan_forward
+    from founddiff_tpu_torch.ops.selective_scan import selective_scan_chunked
+    from founddiff_tpu_torch.parallel import apply_prefix, local_summary
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(170)
+    B, K, L, D, N = SEQ_OPERANDS
+    R = -(-(D // 2) // 16)  # dt_rank of the C0 64 block
+    u = torch.nn.functional.silu(_n(gen, (B, K, L, D), 1.0, dev))
+    delta = _n(gen, (B, K, L, D), R ** -0.5, dev)
+    Bm, Cm = (_n(gen, (B, K, L, N), 0.5, dev) for _ in range(2))
+    A = -torch.arange(1, N + 1, dtype=torch.float32).expand(K, D, N).contiguous().to(dev)
+    Ds, bias = torch.ones(K, D, device=dev), _dt_bias(gen, K, D, dev)
+    y_kernel = scan_forward(u, delta, A, Bm, Cm, Ds, bias)[0]
+    y_plain = selective_scan_chunked(u, delta, A, Bm, Cm, Ds, bias)
+    out = {}
+    for n in SEQ_SHARDS:
+        Ll = L // n
+        part = lambda t, i: t[:, :, i * Ll:(i + 1) * Ll]
+        torch.cuda.synchronize()
+        wrappers["scan_forward"].launches = 0
+        shards = [local_summary(part(u, i), part(delta, i), A, part(Bm, i), part(Cm, i), Ds,
+                                bias) for i in range(n)]
+        launches = wrappers["scan_forward"].launches
+        all_Ap = torch.stack([sh[1] for sh in shards])
+        all_he = torch.stack([sh[2] for sh in shards])
+        last = shards[-1]
+        correct = lambda: apply_prefix(last[0], last[3], part(Cm, n - 1), A, all_Ap, all_he,
+                                       n - 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        correct()
+        torch.cuda.synchronize()
+        peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        ms = cuda_ms(correct, reps=5, warm=1)
+        got = torch.cat([apply_prefix(sh[0], sh[3], part(Cm, i), A, all_Ap, all_he, i)
+                         for i, sh in enumerate(shards)], dim=2)
+        torch.cuda.synchronize()
+        row = dict(shards=n, scan_forward_launches=launches, correction_ms=ms,
+                   correction_peak_gib=peak_gib)
+        for tag, want in (("kernel", y_kernel), ("plain", y_plain)):
+            diff = (got - want).abs()
+            row[f"max_abs_err_{tag}"] = float(diff.max())
+            row[f"ok_{tag}"] = bool((diff <= SEQ_ATOL + SEQ_RTOL * want.abs()).all())
+        out[n] = row
+        log(f"[seq] {n} virtual shards of L {L} (B {B} K {K} D {D} N {N}, fp32): against the "
+            f"unsharded kernel scan max |diff| {row['max_abs_err_kernel']:.3e}, against the "
+            f"plain scan {row['max_abs_err_plain']:.3e} (rtol {SEQ_RTOL}, atol {SEQ_ATOL}); "
+            f"{launches} scan_forward launches (last state); the correction of shard {n - 1} "
+            f"{ms:.3f} ms, peak {peak_gib:.3f} GiB [{card}]")
+        if launches != n or not (row["ok_kernel"] and row["ok_plain"]):
+            raise AssertionError(f"sequence-sharded composition at {n} shards: {row}")
+        del shards, all_Ap, all_he, last, got
+    return out
+
+
+def last_state_summary(record):
+    """``scan_forward``'s last-state mode for the kernels line: phase 2's
+    cases and worst h_last error, and its launches on the seq route
+    (phase 17's virtual shards)."""
+    rows = record["last_state"]
+    return dict(cases=len(rows), bit_identical=all(r["bit_identical"] for r in rows),
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                seq_route_launches={n: r["scan_forward_launches"]
+                                    for n, r in record["seq_shards"].items()})
+
+
+def distributed(wrappers, plain, card, model, diffusion, train):
+    """Phase 17 (b, c): ``init_distributed`` at world size 1 over NCCL (a
+    ``FileStore`` rendezvous), ``make_mesh()``; one data-parallel fp32 train
+    step of ``Config()`` at 512^2 against a step without a mesh on the same
+    batch and draws (gradients per parameter), two more timed beside phase
+    7's with their launches; ``make_volume_denoiser`` of phase 3's model on
+    a seeded volume of 18 slices in bf16 waves of 4 (slices/s, every wave
+    bit-identical to the hoisted sampler's on the same noise, the plain-path
+    gate on one slice); then ``python -m founddiff_tpu_torch.tools.
+    denoise_volume`` once as a subprocess on a saved ``model-1.pt``."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from founddiff_tpu_torch.parallel import init_distributed, make_mesh
+
+    work = os.path.join(REPO, "checkpoints", "chip_smoke_dist")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    store = dist.FileStore(os.path.join(work, "store"), 1)
+    device = init_distributed("cuda", rank=0, world_size=1, store=store)
+    out = dict(backend=dist.get_backend(), device=str(device))
+    try:
+        mesh = make_mesh()
+        out["mesh"] = mesh.shape
+        if out["backend"] != "nccl" or mesh.groups["data"] is None:
+            raise AssertionError(f"distributed: {out}, groups {mesh.groups}")
+        out["train"] = _dp_step(wrappers, card, mesh, work, train)
+        out["volume"] = _volume(wrappers, plain, card, model, diffusion, mesh)
+    finally:
+        dist.destroy_process_group()
+    out["tool"] = _volume_tool(card, model, work)
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def _dp_step(wrappers, card, mesh, work, train):
+    import torch.distributed as dist
+
+    from founddiff_tpu_torch.config import Config
+    from founddiff_tpu_torch.factory import build
+    from founddiff_tpu_torch.train.trainer import Trainer
+
+    cfg = Config()
+    cfg.train.checkpoint_folder = os.path.join(work, "train")
+    B = cfg.train.train_batch_size * cfg.train.gradient_accumulate_every
+    S = cfg.diffusion.image_size
+    gen = torch.Generator().manual_seed(17)
+
+    def batch():
+        gt = torch.rand((B, S, S, 1), generator=gen)
+        return gt, (gt + 0.1 * torch.randn((B, S, S, 1), generator=gen)).clamp(0, 1)
+
+    def trainer(m):
+        d, net = build(cfg, device="cuda", seed=0, train=True)
+        perturb_gates(net, seed=0)
+        return Trainer(d, net, cfg, mesh=m)
+
+    # the compared steps with cuDNN's deterministic algorithms (its default
+    # weight-gradient algorithms may sum in another order from run to run);
+    # the timed steps with the defaults, as phase 7's
+    first = batch()
+    ref = trainer(None)
+    torch.backends.cudnn.deterministic = True
+    loss_ref = ref.train_step(first)
+    want = {n: p.grad.detach().clone() for n, p in ref.model.named_parameters()
+            if p.grad is not None}
+    del ref
+    torch.cuda.empty_cache()
+    dp = trainer(mesh)
+    counts, times, losses = {}, [], []
+    for b in (first, batch(), batch()):
+        torch.cuda.synchronize()
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        losses.append(dp.train_step(b))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        for k, fn in wrappers.items():
+            counts.setdefault(k, []).append(fn.launches)
+        if len(times) == 1:
+            got = {n: p.grad.detach().clone() for n, p in dp.model.named_parameters()
+                   if p.grad is not None}
+            torch.backends.cudnn.deterministic = False
+    if got.keys() != want.keys():
+        raise AssertionError("DP step: another set of parameters has gradients")
+    same = sum(torch.equal(got[n], want[n]) for n in want)
+    worst = max(float((got[n] - want[n]).norm() / want[n].norm().clamp_min(1e-30))
+                for n in want)
+    for k in wrappers:
+        if any(c != PER_STEP.get(k, 0) for c in counts[k]):
+            raise AssertionError(f"DP step: {k} launches per step {counts[k]}, want "
+                                 f"{PER_STEP.get(k, 0)}")
+    step_s = statistics.median(times[1:])
+    log(f"[dist train] DP fp32 step of Config() {S}^2 at mesh {mesh.shape} "
+        f"({dist.get_backend()}, world {dist.get_world_size()}): "
+        f"loss {losses[0][0]:.6f} against {loss_ref[0]:.6f} without a mesh; gradients "
+        f"bit-identical in {same} of {len(want)} parameters, worst relative "
+        f"{worst:.3e} (limit {GRAD_EXACT_RTOL}); steps {[round(t, 4) for t in times]} s, "
+        f"timed {step_s:.4f} s against phase 7's {statistics.median(train['step_s']):.4f} s; "
+        f"launches per step {dict((k, v[0]) for k, v in counts.items() if v[0])} [{card}]")
+    if worst > GRAD_EXACT_RTOL or any(abs(a - b) > GRAD_EXACT_RTOL * abs(b)
+                                      for a, b in zip(losses[0], loss_ref)):
+        raise AssertionError(f"DP step against the step without a mesh: worst {worst:.3e}, "
+                             f"losses {losses[0]} / {loss_ref}")
+    return dict(loss=losses[0], loss_no_mesh=loss_ref, grads_bit_identical=same,
+                grads=len(want), worst_grad_rel=worst, step_s=times, timed_step_s=step_s,
+                phase7_step_s=statistics.median(train["step_s"]),
+                launches={k: v[0] for k, v in counts.items()})
+
+
+def _volume(wrappers, plain, card, model, diffusion, mesh):
+    from founddiff_tpu_torch.pipeline import make_hoisted_sampler, make_volume_denoiser
+
+    bf16 = torch.bfloat16
+    S = diffusion.image_size
+    vol = torch.from_numpy(np.random.default_rng(17).random((VOLUME_Z, S, S, 1),
+                                                            dtype=np.float32)).cuda()
+    denoise = make_volume_denoiser(model, diffusion, mesh, batch_per_device=VOLUME_BPD,
+                                   compute_dtype=bf16)
+    denoise(vol[:VOLUME_BPD], generator=torch.Generator().manual_seed(1))  # warm-up
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    got = denoise(vol, generator=torch.Generator().manual_seed(18))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    waves = -(-VOLUME_Z // VOLUME_BPD)
+    forwards = waves * diffusion.sampling_timesteps
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    for k, n in launches.items():
+        if n != PER_FORWARD.get(k, 0) * forwards:
+            raise AssertionError(f"volume: {k} {n} launches in {forwards} UNet forwards")
+    # the hoisted sampler's waves on the same draws
+    sampler = make_hoisted_sampler(model, diffusion, compute_dtype=bf16)
+    gen = torch.Generator().manual_seed(18)
+    padded = torch.cat([vol, vol[-1:].expand(waves * VOLUME_BPD - VOLUME_Z, S, S, 1)])
+    same = []
+    for w in range(waves):
+        x = padded[w * VOLUME_BPD:(w + 1) * VOLUME_BPD]
+        want = sampler(x, generator=gen, noise=torch.randn(tuple(x.shape), generator=gen))
+        n = min(VOLUME_BPD, VOLUME_Z - w * VOLUME_BPD)
+        same.append(torch.equal(got[w * VOLUME_BPD:w * VOLUME_BPD + n], want[:n]))
+    ok = got.shape == (VOLUME_Z, S, S, 1) and bool(torch.isfinite(got).all())
+    one = make_volume_denoiser(model, diffusion, mesh, batch_per_device=1, compute_dtype=bf16)
+    gate = plain_gate(lambda x, seed: one(x, generator=torch.Generator().manual_seed(seed)),
+                      vol[:1], plain, wrappers, "volume", diffusion.sampling_timesteps)
+    log(f"[dist volume] {VOLUME_Z} slices of {S}^2 bf16 in waves of {VOLUME_BPD} at mesh "
+        f"{mesh.shape}: {dt:.3f} s, {VOLUME_Z / dt:.3f} slices/s (phase 3 bs4: see [main]); "
+        f"waves bit-identical to the hoisted sampler's: {same}; launches {launches} over "
+        f"{forwards} UNet forwards [{card}]")
+    if not (ok and all(same)):
+        raise AssertionError(f"volume denoiser: shape/finite {ok}, waves identical {same}")
+    return dict(seconds=dt, slices_per_s=VOLUME_Z / dt, waves_bit_identical=same,
+                launches=launches, forwards=forwards, gate=gate)
+
+
+def _volume_tool(card, model, work):
+    """``python -m founddiff_tpu_torch.tools.denoise_volume`` on a 4-slice
+    volume and a ``model-1.pt`` of phase 3's weights (the reference layout,
+    online weights alone), as a user runs it."""
+    os.makedirs(work, exist_ok=True)
+    ckpt = os.path.join(work, "model-1.pt")
+    torch.save({"model": {f"model.{k}": v for k, v in model.state_dict().items()}}, ckpt)
+    src, dst = os.path.join(work, "volume.npy"), os.path.join(work, "denoised.npy")
+    np.save(src, np.random.default_rng(19).random((4, 512, 512), dtype=np.float32))
+    cmd = [sys.executable, "-m", "founddiff_tpu_torch.tools.denoise_volume", src, dst,
+           "--checkpoint", ckpt, "--batch_per_device", "2", "--bf16"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    dt = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    summary = lines[-1] if lines else ""
+    shape = tuple(np.load(dst).shape) if proc.returncode == 0 else None
+    log(f"[dist tool] {' '.join(cmd[1:4])} ...: rc {proc.returncode} in {dt:.1f} s, output "
+        f"{shape}: {summary} [{card}]")
+    if proc.returncode != 0 or shape != (4, 512, 512) or \
+            not summary.startswith("denoised 4 slices @ 512^2"):
+        raise AssertionError(f"denoise_volume: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    return dict(rc=proc.returncode, seconds=dt, shape=shape, summary=summary)
+
 def beside_parent(tag, train, card) -> None:
     """The fp32 step of ``train_full_width`` beside the parent tree's."""
     log(f"[{tag}] fp32 step {statistics.median(train['step_s']):.4f} s; the parent tree's "
@@ -2298,8 +2626,11 @@ def main() -> int:
     failed += bounds_failed
     bounds_only, bounds_only_failed = check_bounds_only(cases)
     failed += bounds_only_failed
+    last_state, last_state_failed = check_last_state(cases)
+    failed += last_state_failed
     record = dict(card=card, build_seconds=built["seconds"], ptxas=built["logs"],
                   kernel_cases=rows, fused_h_bounds=bounds, bounds_only=bounds_only,
+                  last_state=last_state,
                   attn_on_c64=attn_on_summary(rows), split=gn_split(card),
                   units=unit_totals(rows, card), flash_bwd_parts=flash_bwd_parts())
     if failed:
@@ -2452,6 +2783,14 @@ def main() -> int:
     # phase 16: the evaluation entry point
     torch.cuda.empty_cache()
     record["eval"] = eval_entry(wrappers, plain_default, card)
+    # phase 17: distribution
+    torch.cuda.empty_cache()
+    t17 = time.perf_counter()
+    record["seq_shards"] = seq_virtual_shards(wrappers, card)
+    record["distributed"] = distributed(wrappers, plain_default, card, model, diffusion,
+                                        record["train"])
+    record["phase17_s"] = time.perf_counter() - t17
+    log(f"[phase 17] {record['phase17_s']:.1f} s")
 
     kernels = []
     for k, (src, tpu) in SOURCES.items():
@@ -2473,16 +2812,20 @@ def main() -> int:
             main_rows = [r for r in mine if r["dtype"] == "float32"]
             n = record["vanilla_train" if k in FLASH_BWD else "train"]["launches"][k]
         total = lambda key: sum(r[key] * r["per_forward"] for r in main_rows)
+        errs = [r["max_abs_err"] for r in mine]
+        if k == "scan_forward":  # its last-state mode's h_last, held in phase 2 too
+            errs += [r["max_abs_err"] for r in record["last_state"]]
         states = sorted({int(w[2:]) for r in mine for w in r["shape"].split()
                          if w.startswith("N=")})
         kernels.append(dict(
             name=k, route="cuda", source=src, replaces=tpu, launches=n,
-            max_abs_err=max(r["max_abs_err"] for r in mine), ms=total("ms"),
+            max_abs_err=max(errs), ms=total("ms"),
             plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
             bound_by="bytes" if total("bytes_ms") >= total("ops_ms") else "operations",
             library_ms=total("library_ms") if main_rows[0]["library_ms"] is not None else None,
             **({"d_state": states} if states else {}),
-            **({"units": record["units"][k]} if k in record["units"] else {})))
+            **({"units": record["units"][k]} if k in record["units"] else {}),
+            **({"last_state": last_state_summary(record)} if k == "scan_forward" else {})))
     record["kernels"] = kernels
     _write_record(record)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -4,9 +4,13 @@
     python -m founddiff_tpu_torch --name FoundDiff --is_train --data_root DIR
     python -m founddiff_tpu_torch --name FoundDiff --epoch 400 --dataset 2020_seen
     python -m founddiff_tpu_torch --name X --torch_checkpoint model-400.pt
+    torchrun --nproc_per_node 4 -m founddiff_tpu_torch --name X --is_train --mesh_data 4
 
 The flags are ``train.py``'s, with ``--device`` (the card by default; ``cpu``
-runs the plain versions) and without ``--scan_impl`` and ``--mesh_data``.
+runs the plain versions) and without ``--scan_impl``.  Under ``torchrun``
+each rank takes ``cuda:LOCAL_RANK`` and NCCL (gloo with ``--device cpu``),
+and a ('data', 'seq') mesh is built as ``train.py`` builds it
+(train.py:113-131): data-parallel training, every rank computing the test.
 Checkpoints and logs go to ``checkpoints/<name>`` under the working directory.
 """
 
@@ -16,8 +20,7 @@ import argparse
 import os
 
 EPILOG = ("Not taken from train.py: --scan_impl (the port routes each MambaBlock as the "
-          "JAX package does on a TPU, by grid and width) and --mesh_data (one card; "
-          "distribution is not ported yet).")
+          "JAX package does on a TPU, by grid and width).")
 
 
 def parse_args(argv=None):
@@ -47,6 +50,8 @@ def parse_args(argv=None):
                    help="comma-separated UNet width multipliers")
     p.add_argument("--torch_checkpoint", type=str, default="",
                    help="load a reference PyTorch model-<n>.pt")
+    p.add_argument("--mesh_data", type=int, default=0,
+                   help="data-parallel mesh axis size (0 = auto: all ranks / seq)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default: the card; 'cpu' runs the plain versions)")
     return p.parse_args(argv)
@@ -93,18 +98,29 @@ def main(argv=None):
     opt = parse_args(argv)
     cfg = build_config(opt)
 
+    import torch.distributed as dist
+
     from founddiff_tpu_torch.data import Mayo16Dataset
     from founddiff_tpu_torch.factory import build
+    from founddiff_tpu_torch.parallel import init_distributed, make_mesh
     from founddiff_tpu_torch.train.trainer import Trainer
     from founddiff_tpu_torch.utils.logger import get_logger
 
     os.makedirs(cfg.train.checkpoint_folder, exist_ok=True)
-    diffusion, model = build(cfg, device=opt.device, train=True)
+    # torchrun's rendezvous, then a ('data', 'seq') mesh when more than one
+    # rank runs or a layout is asked for (train.py:119-131)
+    device = init_distributed(opt.device)
+    mesh = None
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if opt.mesh_data or cfg.mesh.seq_axis > 1 or world > 1:
+        data = opt.mesh_data or (cfg.mesh.data_axis if cfg.mesh.data_axis > 0 else None)
+        mesh = make_mesh(data=data, seq=cfg.mesh.seq_axis)
+    diffusion, model = build(cfg, device=device, train=True)
 
     if opt.is_train:
         trainer = Trainer(diffusion, model, cfg,
                           train_dataset=_pdf(cfg, cfg.data.train_phase),
-                          sample_dataset=_pdf(cfg, cfg.data.test_phase))
+                          sample_dataset=_pdf(cfg, cfg.data.test_phase), mesh=mesh)
         if opt.torch_checkpoint:
             trainer.load_torch(opt.torch_checkpoint)
         trainer.train()
@@ -121,7 +137,7 @@ def main(argv=None):
         test_ds = _pdf(cfg, cfg.data.test_phase)
         suffix = "test_final"
 
-    trainer = Trainer(diffusion, model, cfg, sample_dataset=test_ds)
+    trainer = Trainer(diffusion, model, cfg, sample_dataset=test_ds, mesh=mesh)
     if opt.torch_checkpoint:
         trainer.load_torch(opt.torch_checkpoint)
     else:

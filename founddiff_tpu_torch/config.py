@@ -87,12 +87,20 @@ class DataConfig:
 
 
 @dataclasses.dataclass
+class MeshConfig:
+    """The ('data', 'seq') process mesh (``founddiff_tpu_torch.parallel``)."""
+    data_axis: int = -1  # -1: every rank on the data axis (divided by seq_axis)
+    seq_axis: int = 1  # ranks of the sequence-sharded scan
+
+
+@dataclasses.dataclass
 class Config:
     name: str = "FoundDiff"
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     diffusion: DiffusionConfig = dataclasses.field(default_factory=DiffusionConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2)
@@ -101,7 +109,7 @@ class Config:
     def from_json(cls, text: str) -> "Config":
         """Lists become tuples (nested ones too); unknown keys are skipped."""
         subs = {"model": ModelConfig, "diffusion": DiffusionConfig, "train": TrainConfig,
-                "data": DataConfig}
+                "data": DataConfig, "mesh": MeshConfig}
 
         def tup(v):
             return tuple(tup(x) for x in v) if isinstance(v, list) else v

@@ -43,7 +43,11 @@
 //   issued together ahead of their steps.
 // - Forward: pass 1 (chunk end states from zero, and sum delta'), the
 //   carry, pass 2 (rerun from the entry states, y).  The bounds-only mode
-//   (y == nullptr) stops after the carry: what a backward needs.
+//   (y == nullptr) stops after the carry: what a backward needs.  The
+//   last-state mode also writes h_last [G, D, N], the state after step L
+//   (the TPU kernel's second output, hout_ref, scan_pallas.py:310): the
+//   carry's last segment composes one chunk past the last, exp(A * dsum) *
+//   entry + end, which the sequence-sharded scan's shard summary reads.
 // - Backward: the local pass (the adjoint from a zero carry, right to
 //   left, and sum delta'), the reverse carry, then the main pass: per
 //   chunk, a forward walk keeps the state at each sub-tile's start in
@@ -615,14 +619,15 @@ int forward_pass(ScanArgs<T> p, const Geometry& q, bool final_pass, T* y, float*
 // One geometry for every group: that of the first (the last may have fewer
 // states, whose lanes then hold none).
 template <typename T>
-int forward(ScanArgs<T> p, T* y, float* yacc, float* hb, float* dsum, int G, cudaStream_t s) {
+int forward(ScanArgs<T> p, T* y, float* yacc, float* hb, float* dsum, float* last, int G,
+            cudaStream_t s) {
   const int ngroups = (p.N + GROUP - 1) / GROUP;
   const Geometry q = geometry(min(p.N, GROUP));
   p.ng = q.ng;
   p.DT = q.DT;
   for (int pass = 0; pass < 2; ++pass) {
     if (pass == 1) {
-      FD_TRY(fd::carry_scan<false>(p.A, dsum, hb, p.K, p.D, p.N, p.NC, G, s));
+      FD_TRY(fd::carry_scan<false>(p.A, dsum, hb, p.K, p.D, p.N, p.NC, G, s, last));
       if (y == nullptr) return 0;  // bounds only
     }
     for (int i = 0; i < ngroups; ++i) {
@@ -748,22 +753,24 @@ int fused_forward(const T* u, const T* wproj, const float* A, const float* Ds,
 // u, dl [G, L, D], Bm, Cm [G, L, N] at the io dtype (G = Bsz * K, direction
 // g % K); A [K, D, N], Ds and bias [K, D] fp32; any N >= 1.  Writes hb
 // [G, NC, N, D] fp32, the state entering each chunk of TC steps, and, unless
-// y is null (the bounds-only mode), y [G, L, D] (io).  Scratch: dsum
-// [G, NC, D] fp32, and for N > 64 yacc [G, L, D] fp32 (else unused).
+// y is null (the bounds-only mode), y [G, L, D] (io); unless last is null,
+// last [G, D, N] fp32, the state after step L (the carry's last segment
+// writes it; the other outputs keep their bits).  Scratch: dsum [G, NC, D]
+// fp32, and for N > 64 yacc [G, L, D] fp32 (else unused).
 extern "C" int scan_forward(const void* u, const void* dl, const void* Bm, const void* Cm,
                             const float* A, const float* Ds, const float* bias, void* y,
-                            float* hb, float* dsum, float* yacc, int G, int K, int L, int D,
-                            int NS, int TC, int dtype, void* stream) {
+                            float* hb, float* dsum, float* yacc, float* last, int G, int K,
+                            int L, int D, int NS, int TC, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (NS < 1 || (NS > GROUP && y != nullptr && yacc == nullptr))
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return forward<float>(scan_args<float>(u, dl, Bm, Cm, nullptr, A, Ds, bias, K, L, D, NS, TC),
-                          static_cast<float*>(y), yacc, hb, dsum, G, s);
+                          static_cast<float*>(y), yacc, hb, dsum, last, G, s);
   if (dtype == 1)
     return forward<__nv_bfloat16>(
         scan_args<__nv_bfloat16>(u, dl, Bm, Cm, nullptr, A, Ds, bias, K, L, D, NS, TC),
-        static_cast<__nv_bfloat16*>(y), yacc, hb, dsum, G, s);
+        static_cast<__nv_bfloat16*>(y), yacc, hb, dsum, last, G, s);
   return (int)cudaErrorInvalidValue;
 }
 

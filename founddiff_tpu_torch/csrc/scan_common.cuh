@@ -224,11 +224,14 @@ __device__ __forceinline__ void stage_tile(T* dst, const T* src, long long ld, i
 // carry entering each chunk at its last step (right to left).  Block: 32
 // channels x WARPS segments of chunks (CARRY_WARPS; the fused-projection
 // forward takes 4 where it has at most 32 chunks, so that its blocks do
-// not idle).  (scan.cu, scan_image.cu)
+// not idle).  last (forward only, may be null): the carry one chunk past the
+// last, the state after step L, written by the segment that ends at NC into
+// [G, D, N].  (scan.cu, scan_image.cu)
 template <bool REVERSE, int WARPS = CARRY_WARPS>
 __global__ void __launch_bounds__(CARRY_LANES * WARPS)
 carry_scan_kernel(const float* __restrict__ A, const float* __restrict__ dsum,
-                  float* __restrict__ st, int K, int D, int N, int NC) {
+                  float* __restrict__ st, float* __restrict__ last, int K, int D, int N,
+                  int NC) {
   __shared__ float seg_b[WARPS][CARRY_LANES], seg_s[WARPS][CARRY_LANES];
   const int lane = threadIdx.x & (CARRY_LANES - 1), w = threadIdx.x / CARRY_LANES;
   const int d = blockIdx.x * CARRY_LANES + lane, n = blockIdx.y;
@@ -286,14 +289,15 @@ carry_scan_kernel(const float* __restrict__ A, const float* __restrict__ dsum,
       }
     }
   }
+  if (last != nullptr && on && i0 < i1 && i1 == NC) last[(g * D + d) * N + n] = carry;
 }
 
 template <bool REVERSE, int WARPS = CARRY_WARPS>
 cudaError_t carry_scan(const float* A, const float* dsum, float* st, int K, int D, int N, int NC,
-                       int G, cudaStream_t s) {
+                       int G, cudaStream_t s, float* last = nullptr) {
   const dim3 grid((D + CARRY_LANES - 1) / CARRY_LANES, N, G);
-  carry_scan_kernel<REVERSE, WARPS><<<grid, CARRY_LANES * WARPS, 0, s>>>(A, dsum, st, K, D, N,
-                                                                          NC);
+  carry_scan_kernel<REVERSE, WARPS><<<grid, CARRY_LANES * WARPS, 0, s>>>(A, dsum, st, last, K,
+                                                                          D, N, NC);
   return cudaGetLastError();
 }
 

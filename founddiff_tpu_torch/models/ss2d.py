@@ -19,7 +19,13 @@ Routing is the TPU default of the JAX package (ss2d.py:267-317, 577-603):
   scan :func:`selective_scan_fused`, EfficientMerge, :class:`LNorm`, the
   silu(z) gate, conditioning, out_proj and the gated residual;
 - the attention half is :func:`attn_block` at C >= 128, else
-  :func:`layer_norm_modulated` (norm2) + the plain TransposedAttention.
+  :func:`layer_norm_modulated` (norm2) + the plain TransposedAttention;
+- with a ``mesh`` whose seq axis has more than one rank (set by
+  :func:`founddiff_tpu_torch.models.unet.with_mesh`), every SS2D takes the
+  unfused route with the sequence-sharded scan
+  (:func:`seq_sharded_selective_scan`) in place of the fused-projection
+  scan, and the fused block, the epilogue route and the unified op are off
+  (ss2d.py:156-160, 199-207, 441-466).
 
 CPU tensors take the same routes through the plain versions.  Parameter
 names follow the reference (src/emamba2.py:404-751, src/DADiff.py:453-488).
@@ -49,6 +55,7 @@ from founddiff_tpu_torch.ops.scan import (
 from founddiff_tpu_torch.ops.selective_scan import efficient_merge, efficient_scan
 from founddiff_tpu_torch.ops.ss2d_block import block_scan_ok, ss2d_image_block
 from founddiff_tpu_torch.ops.ss2d_fused import merge_ln_gate, merge_ln_gate_split
+from founddiff_tpu_torch.parallel.sequence import seq_sharded_selective_scan
 
 K_DIRS = 4
 
@@ -73,6 +80,11 @@ class SS2D(nn.Module):
         self.out_norm = LNorm(D)
         self.out_proj = Dense(D, d_model, bias=False)
         self.attn = nn.Sequential(Dense(context_dim, D, bias=False), nn.SiLU())
+        self.mesh = None  # the sequence-parallel mesh (with_mesh)
+
+    def seq_shards(self) -> int:
+        """Ranks of the mesh's seq axis the scan's L is split over (1: none)."""
+        return 1 if self.mesh is None else self.mesh.shape["seq"]
 
     def A(self) -> torch.Tensor:
         """``-exp(A_logs)`` [4, D, N] in fp32; without autograd, derived once
@@ -96,14 +108,15 @@ class SS2D(nn.Module):
         xs = F.linear(x1, w_in[:D].to(x1.dtype))
         xs = F.silu(conv_nhwc(xs, self.conv2d.weight, self.conv2d.bias, padding=1,
                               groups=D))
-        if block_scan_ok(H, W):
+        sharded = self.seq_shards() > 1
+        if not sharded and block_scan_ok(H, W):
             return ss2d_image_block(
                 x1, xs, residual, w_z=w_in[D:].t(), x_proj_weight=self.x_proj_weight,
                 dt_projs_weight=self.dt_projs_weight, A=A, Dskip=Ds,
                 delta_bias=self.dt_projs_bias, ln_g=self.out_norm.weight,
                 ln_b=self.out_norm.bias, local=local, proj_w=self.out_proj.weight.t(),
                 gate=gate, dt_rank=self.dt_rank, d_state=N, eps=1e-5)
-        if H % 2 == 0 and W % 2 == 0:
+        if not sharded and H % 2 == 0 and W % 2 == 0:
             return self._epilogue(x1, xs, local, A, Ds, gate, residual)
         return self._unfused(x1, xs, local, A, Ds, gate, residual)
 
@@ -143,13 +156,30 @@ class SS2D(nn.Module):
             return merge_ln_gate_split(ys[:, 0::2], ys[:, 1::2], *norm, **fold)
         return merge_ln_gate(self._scan_seq(xs, A, Ds), *norm, **fold)
 
+    def _scan_sharded(self, xs, A, Ds):
+        """The sequence-sharded route's scan (ss2d.py:441-466): the x_dbl
+        projection, the split into dts/B/C and the dt projection at xs's
+        dtype, then :func:`seq_sharded_selective_scan` over the mesh's seq
+        axis: ys [B, 4, L, D] fp32.  The batch is this data rank's own rows
+        already, so it is not split again."""
+        R, N = self.dt_rank, self.d_state
+        seq = efficient_scan(xs, 2)
+        x_dbl = torch.einsum("bkld,kcd->bklc", seq, self.x_proj_weight.to(seq.dtype))
+        dts, Bs, Cs = torch.split(x_dbl, [R, N, N], dim=-1)
+        dts = torch.einsum("bklr,kdr->bkld", dts, self.dt_projs_weight.to(seq.dtype))
+        return seq_sharded_selective_scan(seq, dts, A, Bs, Cs, Ds, self.dt_projs_bias,
+                                          mesh=self.mesh)
+
     def _unfused(self, x1, xs, local, A, Ds, gate, residual):
-        """Odd grids (ss2d.py:319-325, 390-401): the fused-projection scan of
-        the padded decimated sequences, EfficientMerge, LNorm, the silu(z)
-        gate, conditioning, out_proj and the gated residual."""
+        """Odd grids, and every grid under a seq mesh (ss2d.py:319-325,
+        390-401): the fused-projection scan of the padded decimated
+        sequences (or the sequence-sharded scan), EfficientMerge, LNorm, the
+        silu(z) gate, conditioning, out_proj and the gated residual."""
         H, W = x1.shape[1:3]
         z = F.silu(F.linear(x1, self.in_proj.weight[self.d_inner:].to(x1.dtype)))
-        y = efficient_merge(self._scan_seq(xs, A, Ds), H, W, 2)
+        ys = (self._scan_sharded(xs, A, Ds) if self.seq_shards() > 1
+              else self._scan_seq(xs, A, Ds))
+        y = efficient_merge(ys, H, W, 2).to(x1.dtype)
         y = self.out_norm(y) * z
         if local is not None:
             y = y + local[:, None, None, :]
@@ -179,7 +209,7 @@ class MambaBlock(nn.Module):
         lin = self.adaLN_modulation[1]
         mod = F.linear(F.silu(t).float(), lin.weight.float(), lin.bias.float())
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
-        if unified_route() and mamba_block_ok(H, W):
+        if unified_route() and mamba_block_ok(H, W) and self.mamba.seq_shards() == 1:
             # the JAX conditions besides (ss2d.py:228-235) hold by construction:
             # norm1 comes first, the residual is x, the conv is 3x3, and
             # in_proj/out_proj have no bias and the block no dropout

@@ -9,6 +9,7 @@ Module names follow the reference state dict: ``downs.{i}.{0,1,2}`` are
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Tuple
 
 import torch
@@ -22,7 +23,23 @@ from founddiff_tpu_torch.models.blocks import (
     Upsample,
     conv,
 )
-from founddiff_tpu_torch.models.ss2d import MambaBlock
+from founddiff_tpu_torch.models.ss2d import SS2D, MambaBlock
+
+
+def with_mesh(module: nn.Module, mesh) -> nn.Module:
+    """A copy of ``module`` whose every :class:`SS2D` carries ``mesh`` (the
+    sequence-parallel mesh, ``founddiff_tpu/models/unet.py:61``): the
+    counterpart of flax's ``model.clone(mesh=mesh)``.  The module tree is
+    new; its parameters and buffers are the same tensors, so weights loaded
+    into either (``from_jax_params``, ``load_torch``) are the other's."""
+    new = copy.copy(module)
+    new.__dict__["_parameters"] = dict(module._parameters)
+    new.__dict__["_buffers"] = dict(module._buffers)
+    new.__dict__["_modules"] = {k: None if m is None else with_mesh(m, mesh)
+                                for k, m in module._modules.items()}
+    if isinstance(new, SS2D):
+        new.mesh = mesh
+    return new
 
 
 class Unet(nn.Module):
@@ -162,3 +179,9 @@ class UnetRes(nn.Module):
             raise ValueError(self.test_res_or_noise)
         t = time[1] if self.objective == "pred_noise" else time[0]
         return [self.unet0(x, t, **kw)]
+
+    def clone(self, mesh=None) -> "UnetRes":
+        """:func:`with_mesh`: this model, its weights shared, with every SS2D
+        on ``mesh`` (the sequence-sharded scan where its seq axis has more
+        than one rank)."""
+        return with_mesh(self, mesh)

@@ -85,11 +85,13 @@ def scan_chunk(d_state: int) -> int:
 # --- plain versions ----------------------------------------------------------
 
 
-def scan_forward_plain(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk: int):
-    """Plain version of ``scan_forward``: ``(y [B,K,L,D] io, h_bounds)``."""
-    y, hb = selective_scan_chunked(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk=chunk,
-                                   return_bounds=True)
-    return y.to(u.dtype), hb
+def scan_forward_plain(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk: int,
+                       last_state: bool = False):
+    """Plain version of ``scan_forward``: ``(y [B,K,L,D] io, h_bounds)``,
+    and with ``last_state`` ``h_last [B,K,D,N]`` fp32 after them."""
+    y, *rest = selective_scan_chunked(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk=chunk,
+                                      return_bounds=True, return_last_state=last_state)
+    return (y.to(u.dtype), *rest)
 
 
 def scan_backward_plain(u, delta, A, Bmat, Cmat, Dskip, delta_bias, h_bounds, dy,
@@ -166,7 +168,7 @@ def scan_backward_plain(u, delta, A, Bmat, Cmat, Dskip, delta_bias, h_bounds, dy
 
 
 def _scan_forward_cuda(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk: int,
-                       bounds_only: bool = False):
+                       bounds_only: bool = False, last_state: bool = False):
     Bsz, K, L, D = u.shape
     N = A.shape[-1]
     io = u.dtype
@@ -182,12 +184,13 @@ def _scan_forward_cuda(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk: int,
     hb = torch.empty(G, NC, N, D, device=dev)
     dsum = torch.empty(G * NC * D, device=dev)
     yacc = torch.empty(G * L * D, device=dev) if N > _GROUP and not bounds_only else None
-    fn = _build.kernel("scan", "scan_forward", 11, [ctypes.c_int] * 7)
-    rc = fn(*map(_build.ptr, (u, delta, Bmat, Cmat, A32, Ds32, bias32, y, hb, dsum, yacc)),
+    last = torch.empty(Bsz, K, D, N, device=dev) if last_state else None
+    fn = _build.kernel("scan", "scan_forward", 12, [ctypes.c_int] * 7)
+    rc = fn(*map(_build.ptr, (u, delta, Bmat, Cmat, A32, Ds32, bias32, y, hb, dsum, yacc, last)),
             G, K, L, D, N, chunk, _build.dtype_code(u), _build.stream())
     _build.check(rc, "scan_forward")
     scan_forward.launches += 1
-    return y, hb
+    return (y, hb, last) if last_state else (y, hb)
 
 
 def _scan_backward_cuda(u, delta, A, Bmat, Cmat, Dskip, delta_bias, h_bounds, dy,
@@ -225,16 +228,19 @@ def _scan_backward_cuda(u, delta, A, Bmat, Cmat, Dskip, delta_bias, h_bounds, dy
 
 
 def scan_forward(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk: Optional[int] = None,
-                 bounds_only: bool = False):
+                 bounds_only: bool = False, last_state: bool = False):
     """``(y [B,K,L,D] at u's dtype, h_bounds [B*K, NC, N, D] fp32)``; with
     ``bounds_only`` y is None and the kernel writes h_bounds alone (the same
-    bits).  CUDA tensors launch the kernel; CPU tensors take the plain
-    version."""
+    bits); with ``last_state`` a third output, ``h_last [B,K,D,N]`` fp32, the
+    state after step L (``_scan_kernel``'s ``h_last``, scan_pallas.py:317),
+    and y and h_bounds keep their bits.  CUDA tensors launch the kernel; CPU
+    tensors take the plain version."""
     chunk = chunk or scan_chunk(A.shape[-1])
     if u.is_cuda:
-        return _scan_forward_cuda(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk, bounds_only)
-    y, hb = scan_forward_plain(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk)
-    return (None if bounds_only else y), hb
+        return _scan_forward_cuda(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk, bounds_only,
+                                  last_state)
+    y, *rest = scan_forward_plain(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk, last_state)
+    return (None if bounds_only else y, *rest)
 
 
 def scan_backward(u, delta, A, Bmat, Cmat, Dskip, delta_bias, h_bounds, dy,

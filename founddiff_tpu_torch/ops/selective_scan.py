@@ -21,11 +21,15 @@ import torch.nn.functional as F
 
 
 def selective_scan_chunked(u, delta, A, Bmat, Cmat, Dskip=None, delta_bias=None,
-                           chunk: Optional[int] = None, return_bounds: bool = False):
+                           chunk: Optional[int] = None, return_bounds: bool = False,
+                           return_last_state: bool = False):
     """Plain chunked scan, vectorised over the chunks of L.
 
     ``return_bounds`` also returns the state entering each chunk as
-    ``h_bounds [B*K, NC, N, D]`` fp32, the layout the scan backward reads.
+    ``h_bounds [B*K, NC, N, D]`` fp32, the layout the scan backward reads;
+    ``return_last_state`` then (last) the state after step L, ``h_last
+    [B, K, D, N]`` fp32 (the carry one chunk past the last; padded steps
+    have delta' = 0 and pass the state through).
 
     Three passes, the same decomposition the CUDA scan uses:
       1. every chunk scans from a zero state (a loop over the ``chunk``
@@ -81,9 +85,40 @@ def selective_scan_chunked(u, delta, A, Bmat, Cmat, Dskip=None, delta_bias=None,
     y = y.reshape(Bsz, K, NC * T, D)[:, :, :L]
     if Dskip is not None:
         y = y + u * Dskip.float()[None, :, None, :]
+    out = (y,)
     if return_bounds:
-        return y, entry.transpose(-1, -2).reshape(Bsz * K, NC, N, D)
-    return y
+        out += (entry.transpose(-1, -2).reshape(Bsz * K, NC, N, D),)
+    if return_last_state:
+        out += (carry,)
+    return out if len(out) > 1 else y
+
+
+def selective_scan(u, delta, A, Bmat, Cmat, Dskip=None, delta_bias=None,
+                   return_last_state: bool = False):
+    """The dispatching selective scan (``founddiff_tpu/ops/selective_scan.py``
+    ``selective_scan``, :164-194): y [B, K, L, D] fp32, and with
+    ``return_last_state`` ``(y, h_last [B, K, D, N] fp32)``.
+
+    CUDA tensors take the kernel, ``scan_forward``, forward only (as the TPU
+    path with the last state is: ``selective_scan_pallas``,
+    scan_pallas.py:1188-1193; training takes
+    :class:`founddiff_tpu_torch.ops.scan.SelectiveScanFn`).  CPU tensors
+    take the plain chunked scan.  delta' is ``softplus(delta + delta_bias)``
+    (the JAX ``delta_softplus=True``, the only value the port's callers
+    pass).
+    """
+    K, D = A.shape[0], A.shape[1]
+    if u.is_cuda:
+        from founddiff_tpu_torch.ops.scan import scan_forward
+
+        zeros = lambda: torch.zeros(K, D, device=u.device)
+        y, _, *last = scan_forward(
+            u.float(), delta.float(), A, Bmat.float(), Cmat.float(),
+            zeros() if Dskip is None else Dskip, zeros() if delta_bias is None else delta_bias,
+            last_state=return_last_state)
+        return (y, last[0]) if return_last_state else y
+    return selective_scan_chunked(u, delta, A, Bmat, Cmat, Dskip, delta_bias,
+                                  return_last_state=return_last_state)
 
 
 def efficient_scan(x: torch.Tensor, step_size: int = 2) -> torch.Tensor:

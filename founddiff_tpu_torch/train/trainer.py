@@ -26,6 +26,17 @@ and per-dose log lines, the ``.npy`` predictions and a Dose-CLIP FID.
 Random draws (timesteps, noise) come from one ``torch.Generator`` seeded
 with ``train.seed``, on the CPU, so a seed gives the same run on every
 device.
+
+Data parallelism (``mesh=``, ``founddiff_tpu/train/trainer.py:60-88,
+236-245``): every rank reads the same loader and draws the same timesteps
+and noise, at the global microbatch's shape, and takes its rows of each
+(``shard_batch``), so a step over ``data`` ranks makes the update of one
+process on the global batch.  After the microbatches one flat
+``all_reduce`` over the data group averages the gradients (and the
+losses), before the clip, as XLA's all-reduce precedes it in the JAX step.
+The parameters, buffers and EMA are broadcast from rank 0 at the start.
+Only rank 0 writes checkpoints, previews, logs and ``metrics.jsonl``;
+every rank computes in :meth:`Trainer.test`.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from __future__ import annotations
 import copy
 import glob
 import itertools
+import logging
 import math
 import os
 import re
@@ -41,10 +53,13 @@ from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from founddiff_tpu_torch.config import Config
 from founddiff_tpu_torch.data.loader import Loader, cycle
 from founddiff_tpu_torch.ops.metrics import compute_psnr, compute_rmse, compute_ssim
+from founddiff_tpu_torch.parallel.mesh import replicate_state
 from founddiff_tpu_torch.pipeline import make_hoisted_sampler
 from founddiff_tpu_torch.train.ema import ema_update
 from founddiff_tpu_torch.train.state import clip_by_global_norm_, make_optimizer
@@ -57,16 +72,23 @@ class Trainer:
     """Trains ``model`` (from ``factory.build(..., train=True)``) under
     ``diffusion``'s loss with ``config.train``; ``train_dataset`` /
     ``sample_dataset``: map-style datasets of ``[NDCT, LDCT]`` NHWC pairs
-    (None when the caller passes batches or does not evaluate)."""
+    (None when the caller passes batches or does not evaluate); ``mesh``:
+    the ('data', 'seq') mesh of ``parallel.make_mesh`` for data-parallel
+    training (None: one process)."""
 
     def __init__(self, diffusion, model, config: Config, train_dataset=None,
-                 sample_dataset=None):
+                 sample_dataset=None, mesh=None):
         tcfg = config.train
         self.diffusion, self.model, self.config = diffusion, model, config
+        self.mesh = mesh
+        # only rank 0 writes files (src/DADiff.py:1627,1723,1766)
+        self.is_main = not dist.is_initialized() or dist.get_rank() == 0
         self.num_unet = config.model.num_unet
         self.device = next(model.parameters()).device
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.opt = make_optimizer(self.params, self.num_unet, tcfg.train_lr, tcfg.adam_betas)
+        if mesh is not None:
+            replicate_state(model)
         self.ema = copy.deepcopy(model).eval().requires_grad_(False)
         self.ema_step = 0
         self.step = 0
@@ -123,13 +145,24 @@ class Trainer:
         losses = torch.zeros(self.num_unet, device=device)
         for i in range(accum):
             part = slice(i * micro, (i + 1) * micro)
+            g, l, draws = gt[part], ld[part], dict(generator=self.generator)
+            if self.mesh is not None:
+                # the draws of ``loss`` at the global microbatch, in its
+                # order; this rank's rows of them and of the batch
+                t = torch.randint(0, self.diffusion.num_timesteps, (micro,),
+                                  generator=self.generator)
+                noise = torch.randn((micro,) + tuple(gt.shape[1:]), generator=self.generator)
+                rows = self.mesh.rows(micro)
+                g, l, draws = g[rows], l[rows], dict(draws, t=t[rows], noise=noise[rows])
             if self.diffusion.condition:
-                out = self._diffusion.loss([gt[part], ld[part]], generator=self.generator)
+                out = self._diffusion.loss([g, l], **draws)
             else:  # generation: the single image stream (src/DADiff.py:1691-1694)
-                out = [self._diffusion.loss(gt[part], generator=self.generator)]
+                out = [self._diffusion.loss(g, **draws)]
             (sum(out) / accum).backward()
             losses += torch.stack([torch.as_tensor(l, device=device).detach().float()
                                    for l in out]) / accum
+        if self.mesh is not None and self.mesh.groups["data"] is not None:
+            losses = self._average_over_data(losses)
         clip_by_global_norm_(self.params, tcfg.max_grad_norm)
         self.opt.step()
         self.ema_step = ema_update(list(self.ema.parameters()), list(self.model.parameters()),
@@ -137,6 +170,19 @@ class Trainer:
                                    update_every=tcfg.ema_update_every)
         self.step += 1
         return losses.tolist()
+
+    @torch.no_grad()
+    def _average_over_data(self, losses: torch.Tensor) -> torch.Tensor:
+        """The gradients (in place) and ``losses`` averaged over the mesh's
+        data group: one flat ``all_reduce``."""
+        grads = [p.grad for p in self.params if p.grad is not None]
+        flat = _flatten_dense_tensors(grads + [losses])
+        dist.all_reduce(flat, group=self.mesh.groups["data"])
+        flat /= self.mesh.shape["data"]
+        out = _unflatten_dense_tensors(flat, grads + [losses])
+        for g, avg in zip(grads, out):
+            g.copy_(avg)
+        return out[-1]
 
     def train(self, batches: Optional[Iterable] = None, log_every: int = 50) -> None:
         """The training loop (src/DADiff.py:1673-1763) until
@@ -146,7 +192,10 @@ class Trainer:
         saves at the JAX trainer's cadence (trainer.py:220-281)."""
         tcfg = self.config.train
         os.makedirs(self.checkpoint_folder, exist_ok=True)
-        self.train_logger = log = get_logger(os.path.join(self.checkpoint_folder, "train.log"))
+        log = None
+        if self.is_main:
+            self.train_logger = log = get_logger(os.path.join(self.checkpoint_folder,
+                                                              "train.log"))
         stream = iter(batches) if batches is not None else self.dl
         t0 = time.time()
         while self.step < tcfg.train_num_steps:
@@ -155,7 +204,7 @@ class Trainer:
                 break
             losses = self.train_step(batch)
             step = self.step
-            if step % log_every == 0 or step == 1:
+            if log is not None and (step % log_every == 0 or step == 1):
                 rate = log_every / max(time.time() - t0, 1e-9)
                 t0 = time.time()
                 m = {f"loss_unet{i}": v for i, v in enumerate(losses)}
@@ -166,13 +215,14 @@ class Trainer:
             every = tcfg.save_and_sample_every
             if step % every == 0:
                 milestone = step // every
-                if self.sample_dataset is not None:
+                if self.sample_dataset is not None and self.is_main:
                     self.preview(milestone)
                 if step > every * 10 * 4 and step % (every * 10) == 0:
                     self.save(milestone)
                     if self.sample_dataset is not None:
                         self.test(last=True, fid=tcfg.fid_eval)
-        log.info("training complete")
+        if log is not None:
+            log.info("training complete")
 
     def _ckpt_path(self, milestone) -> str:
         return os.path.join(self.results_folder, f"model-{milestone}.pt")
@@ -181,7 +231,10 @@ class Trainer:
         """``model-<milestone>.pt`` in the reference layout
         (src/DADiff.py:1626-1646): ``model`` is the diffusion state dict
         (``model.<port name>``), ``ema`` the ema_pytorch state dict
-        (``ema_model.model.<port name>``)."""
+        (``ema_model.model.<port name>``).  Only rank 0 writes."""
+        path = self._ckpt_path(milestone)
+        if not self.is_main:
+            return path
         os.makedirs(self.results_folder, exist_ok=True)
         data = {
             "step": self.step,
@@ -190,7 +243,6 @@ class Trainer:
             "ema": {"initted": torch.tensor(True), "step": torch.tensor(self.ema_step),
                     **{f"ema_model.model.{k}": v for k, v in self.ema.state_dict().items()}},
         }
-        path = self._ckpt_path(milestone)
         torch.save(data, path)
         self._prune_checkpoints()
         return path
@@ -313,8 +365,12 @@ class Trainer:
         FID over the first ``fid_limit`` slices."""
         assert self.sample_dataset is not None
         os.makedirs(self.checkpoint_folder, exist_ok=True)
-        logger = self.train_logger or get_logger(os.path.join(self.checkpoint_folder,
-                                                              "test.log"))
+        if self.is_main:
+            logger = self.train_logger or get_logger(os.path.join(self.checkpoint_folder,
+                                                                  "test.log"))
+        else:  # every rank computes; rank 0 alone writes
+            logger = logging.getLogger("founddiff_tpu_torch.test.quiet")
+            logger.propagate, logger.handlers = False, [logging.NullHandler()]
         psnrs: List[float] = []
         ssims: List[float] = []
         rmses: List[float] = []
@@ -335,7 +391,7 @@ class Trainer:
             if fid and len(fid_pred) < fid_limit:
                 fid_pred.append(pred)
                 fid_gt.append(gt)
-            if save_npy:
+            if save_npy and self.is_main:
                 name = self.sample_dataset.load_name(i)
                 np.save(os.path.join(self.results_folder, name[:-4]),
                         pred.float().cpu().numpy().reshape(pred.shape[1], pred.shape[2]))
@@ -362,7 +418,8 @@ class Trainer:
         if fid and fid_pred:
             # Dose-CLIP features, not InceptionV3: keyed apart from published FIDs
             summary["fid_doseclip"] = float(self._compute_fid(fid_pred, fid_gt))
-        self.metrics.log({f"test_{k}": v for k, v in summary.items()}, step=self.step)
+        if self.is_main:
+            self.metrics.log({f"test_{k}": v for k, v in summary.items()}, step=self.step)
         logger.info("test_psnr: {psnr:.4f}, test_ssim: {ssim:.4f}, "
                     "test_rmse: {rmse:.4f}".format(**summary))
         return summary

@@ -100,20 +100,20 @@ def test_test_mode_from_the_checkpoint(run, dataset, suffix, n, source, monkeypa
 
 
 def test_flags_follow_train_py():
-    """The same flags and defaults as ``train.py`` less --scan_impl and
-    --mesh_data, plus --device; the same Config fields from the same argv."""
+    """The same flags and defaults as ``train.py`` less --scan_impl, plus
+    --device; the same Config fields from the same argv."""
     import train as jtrain
 
     argv = ["--name", "x", "--debug", "--dim", "16", "--dim_mults", "1,2,4",
             "--no_dose_encoder", "--sampling_timesteps", "5", "--train_num_steps", "50"]
     jopt, topt = vars(jtrain.parse_args(argv)), vars(cli.parse_args(argv))
-    assert set(jopt) - set(topt) == {"scan_impl", "mesh_data"}
+    assert set(jopt) - set(topt) == {"scan_impl"}
     assert set(topt) - set(jopt) == {"device"} and topt["device"] == "cuda"
     assert {k: v for k, v in jopt.items() if k in topt} == \
         {k: v for k, v in topt.items() if k in jopt}
     jcfg = jtrain.build_config(jtrain.parse_args(argv))
     tcfg = cli.build_config(cli.parse_args(argv))
-    for part in ("model", "diffusion", "train", "data"):
+    for part in ("model", "diffusion", "train", "data", "mesh"):
         j, t = vars(getattr(jcfg, part)), vars(getattr(tcfg, part))
         assert {k: j[k] for k in t if k in j} == {k: t[k] for k in t if k in j}, part
     with pytest.raises(SystemExit):

@@ -193,6 +193,24 @@ def test_scan_forward_kernel(dev, dtype, L, D, N):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("L,D,N", SCAN_SHAPES + [(529, 256, 12), (529, 256, 128)])
+def test_scan_forward_last_state(dev, dtype, L, D, N):
+    """Row 4's last-state mode: h_last [B, K, D, N] against the plain
+    version's; y and h_bounds bit for bit those of the mode without it."""
+    args = _scan_inputs(_gen(L + D + N), 2, L, D, N, dtype, dev)
+    before = scan_mod.scan_forward.launches
+    y, hb, h_last = scan_mod.scan_forward(*args, last_state=True)
+    assert scan_mod.scan_forward.launches == before + 1
+    assert h_last.shape == (2, 4, D, N) and h_last.dtype == torch.float32
+    y0, hb0 = scan_mod.scan_forward(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y0) and torch.equal(hb, hb0)
+    _close(h_last, scan_mod.scan_forward_plain(*args, scan_mod.scan_chunk(N),
+                                               last_state=True)[2], torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("L,D,N", SCAN_SHAPES)
 def test_scan_backward_kernel(dev, dtype, L, D, N):
     g = _gen(L * D)

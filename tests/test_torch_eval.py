@@ -369,10 +369,12 @@ def test_config_json_across_packages():
     t.train.fid_eval, t.train.use_wandb = False, True
     t.data.eval_counts, t.data.eval_doses = (("ab", 3), ("head", 1)), 2
     t.data.doses = (3, 5)
+    t.mesh.data_axis, t.mesh.seq_axis = 2, 4
     j = JConfig.from_json(t.to_json())
     back = Config.from_json(j.to_json())
     assert back == t
-    for part in ("model", "diffusion", "train", "data"):
+    assert (j.mesh.data_axis, j.mesh.seq_axis) == (2, 4)
+    for part in ("model", "diffusion", "train", "data", "mesh"):
         jd, td = dataclasses.asdict(getattr(j, part)), dataclasses.asdict(getattr(t, part))
         shared = set(jd) & set(td)
         assert {k: jd[k] for k in shared} == {k: td[k] for k in shared}, part
