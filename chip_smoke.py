@@ -74,6 +74,14 @@ Phases (any failure exits non-zero before the last line is printed):
    two flash backward kernels per bf16 step beside SDPA's backward; and the
    key (``flash_bwd_dq``) or query (``flash_bwd_dkv``) parts each phase-2
    backward launch splits the other side into (``[parts]`` lines).
+   The model options' call sites (phase 18): ``ss2d_image_block`` with
+   ``silu_input`` (``FOUNDDIFF_SILU=kernel``, the raw dwconv output in) at
+   every main-path shape at bs1 and bs4; at the first level of ``Config()``
+   (C0 64 on 512^2, d_state 4, bs1) ``scan_image_forward`` before the
+   un-folded epilogue, ``merge_ln_gate`` without the fold,
+   ``scan_fused_forward`` on v0's four full sequences (L 262,144) and on
+   step 3's (L 29,241); and ``flash_fwd`` of a self-attending
+   ``CrossAttention`` on a 64^2 grid (L 4,096) at bs1 and bs4.
 3. Main path at full width: ``build(Config())`` on the card (dim 64 x
    (1, 2, 4, 8), full RN50 CLIPIQA tower, seeded random weights with
    non-zero adaLN and prompt), ``make_hoisted_sampler(...,
@@ -210,6 +218,24 @@ Phases (any failure exits non-zero before the last line is printed):
    ``python -m founddiff_tpu_torch.tools.denoise_volume`` as a subprocess
    on a ``model-1.pt`` of phase 3's weights and a 4-slice volume: rc 0, the
    output's shape and its summary line.
+18. The model and loss options: (a) phase 3's requests with
+   ``FOUNDDIFF_SILU=kernel`` (every ``ss2d_image_block`` launch with its
+   silu flag, none in phase 3), PSNR >= 40 dB against phase 3's outputs with
+   the count of differing elements, the plain-path gate of phase 4, slices/s
+   beside phase 3's; (b) phase 7's fp32 train step (1 warm-up, 3 timed)
+   under the variable (18 silu launches per step), again with the auxiliary
+   weights AUX, s/step beside phase 7's, and autograd as phase 6 under it;
+   (c) the auxiliary terms at 4 x 512^2 on the card within 1e-5 relative
+   of the CPU's; (d) a no-tower ``UnetRes`` of ``Config()`` at 512^2 with
+   ``learned_variance``, ``input_condition`` and ``input_condition_mask``:
+   one Adam step on (gt, ld, mask), its sample raising ``TypeError`` as the
+   JAX scan does, and the same build without ``learned_variance`` sampling
+   DDIM-2 with phase 3's launches per UNet forward; (e) each SS2D variant
+   (``use_bias``, ``dropout``, ``conv_bias=False`` with ``d_conv`` 5 and
+   ``dt_rank`` 8, v0, step 3 up to its merge, which raises as in JAX) at
+   C0 64 on 512^2, ``MambaBlock(cross=True)`` and a self-attending
+   ``CrossAttention`` at C 512 on 64^2, kernel path against plain path
+   (relative 1e-4, fp32), and ``PatchMerging2D`` there, card against CPU.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches on
 its path, phase 3 for the serving kernels, phase 12's 360^2 requests for
@@ -228,7 +254,10 @@ worst ``h_last`` error and launches on the seq route (phase 17); and for
 ``scan_fused_forward``, ``merge_ln_gate`` and the two flash
 backward kernels ``units``, their time and bound summed over a bs4 bf16
 forward, for the scan also over an fp32 360^2 train step, for the flash
-backward over a bf16 train step with SDPA's backward beside them); the
+backward over a bf16 train step with SDPA's backward beside them); and one
+entry for each site of the options (SITES): ``ss2d_image_block
+silu_input`` over phase 18's serving (one bs1 bf16 forward), the others
+over the one bs1 fp32 call of phase 18's variant that makes it; the
 last is ``{"ok": true, "device": {...}}``.
 A longer record goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -390,6 +419,24 @@ PER_FORWARD_5 = {"ss2d_image_block": 11, "attn_block": 8, "layer_norm_modulated"
 N64 = ((512, 64), (1024, 64))  # (C0, d_state) of the 32^2 blocks
 # d_state sizes no kernel template holds (padded to 16; two groups of 64)
 ODD_STATES = (12, 128)
+# phase 18: the model options.  The fused block with FOUNDDIFF_SILU=kernel is
+# row 1 with its silu flag; the other sites are calls of rows 6, 7, 8 and 12
+# that only the options make.  Each site is its own phase-2 key and its own
+# entry of the kernels line: (wrapper, the site's key).
+SILU_KERNEL = "ss2d_image_block silu_input"
+SITES = (SILU_KERNEL, "scan_image_forward unfolded epilogue", "merge_ln_gate no fold",
+         "scan_fused_forward v0", "scan_fused_forward step 3", "flash_fwd CrossAttention")
+SITE_WRAPPER = {SILU_KERNEL: "ss2d_image_block", SITES[1]: "scan_image_forward",
+                SITES[2]: "merge_ln_gate", SITES[3]: "scan_fused_forward",
+                SITES[4]: "scan_fused_forward", SITES[5]: "flash_fwd"}
+SOURCES.update({k: SOURCES[w] for k, w in SITE_WRAPPER.items()})
+# (H = W, C0, d_state) of the SS2D variants: the first level of Config() at 512^2
+VARIANT = (512, 64, 4)
+V0_L = 512 * 512  # cross_scan_v0: four full sequences of H * W steps
+STEP3_L = 171 * 171  # efficient_scan(x, 3) of a 512^2 grid: ceil(512 / 3)^2 steps
+AUX = (0.1, 0.1)  # aux_grad_loss_weight, aux_wavelet_loss_weight of phase 18's steps
+AUX_RTOL = 1e-5  # the auxiliary losses on the card against the CPU's, relative
+VARIANT_RTOL = 1e-4  # ||kernel - plain|| / ||plain - residual||, fp32
 # the fp32 train step of the parent tree, seconds, at 512^2 and 360^2:
 # scripts/port_ab.py, the parent's two turns of one call, NVIDIA H100 80GB
 # HBM3 at 700 W (PERF.md section 6)
@@ -485,14 +532,18 @@ def ln_case(B, H, C, affine, dtype, gen, dev):
     return args, kw, None, nbytes(x, g, b, ms, mt) + nbytes(x), [(flops, FP32_FLOPS)]
 
 
-def ss2d_case(B, H, C0, N, dtype, gen, dev):
+def ss2d_case(B, H, C0, N, dtype, gen, dev, silu_input=False):
+    """The fused block at batch B on an H x H grid; with ``silu_input`` xs
+    is the raw dwconv output and the kernel applies the silu."""
     D, R = 2 * C0, -(-C0 // 16)
     P = B * H * H
     dt = torch.exp(torch.rand((4, D), generator=gen) * (math.log(0.1) - math.log(1e-3))
                    + math.log(1e-3)).clamp_min(1e-4)
+    x1 = _n(gen, (B, H, H, C0), 1.0, dev).to(dtype)
+    raw = _n(gen, (B, H, H, D), 1.0, dev)  # drawn after x1, as before the silu flag
     args = (
-        _n(gen, (B, H, H, C0), 1.0, dev).to(dtype),                     # x1
-        torch.nn.functional.silu(_n(gen, (B, H, H, D), 1.0, dev)).to(dtype),  # xs
+        x1,
+        (raw if silu_input else torch.nn.functional.silu(raw)).to(dtype),  # xs
         _n(gen, (B, H, H, C0), 1.0, dev).to(dtype),                     # x_raw
         _u(gen, (C0, D), C0 ** -0.5, dev),                              # w_z
         _u(gen, (4, R + 2 * N, D), D ** -0.5, dev),                     # x_proj_weight
@@ -517,7 +568,10 @@ def ss2d_case(B, H, C0, N, dtype, gen, dev):
     # C, z and out_proj, per pixel: each pixel is one step of one direction
     mm = 2 * P * (2 * D * R + 2 * N * D + 2 * C0 * D)
     scan = 6 * P * D * N
-    return args, kw, args[2], moved, [(mm, PEAK_FLOPS[dtype]), (scan, FP32_FLOPS)]
+    work = [(mm, PEAK_FLOPS[dtype]), (scan, FP32_FLOPS)]
+    if silu_input:  # the silu of each xs element once: an exponential and 3 operations
+        work += [(P * D, SFU_EXP_PER_S), (3 * P * D, FP32_FLOPS)]
+    return args, kw, args[2], moved, work
 
 
 def attn_case(B, H, C, dtype, gen, dev):
@@ -623,10 +677,10 @@ def scan_bwd_case(H, C, N, dtype, gen, dev):
     return (*fwd, hb, dy), {}, None, moved, [(G * L * D * (12 * N + 10), FP32_FLOPS)]
 
 
-def scan_image_case(H, C, N, dtype, gen, dev):
+def scan_image_case(H, C, N, dtype, gen, dev, B=TRAIN_BATCH):
     D, R = 2 * C, -(-C // 16)
-    P = TRAIN_BATCH * H * H
-    x = torch.nn.functional.silu(_n(gen, (TRAIN_BATCH, H, H, D), 1.0, dev)).to(dtype)
+    P = B * H * H
+    x = torch.nn.functional.silu(_n(gen, (B, H, H, D), 1.0, dev)).to(dtype)
     xw = _u(gen, (4, R + 2 * N, D), D ** -0.5, dev)
     dtw = _u(gen, (4, D, R), R ** -0.5, dev)
     w_delta = torch.einsum("krd,ker->kde", xw[:, :R], dtw).to(dtype)
@@ -831,6 +885,45 @@ def slice7_cases():
              lambda dt, g, d, N=N: mamba_case(1, 32, C0, N, dt, g, d)),
         ]
     return cases
+
+
+def options_cases():
+    """(batch, kernel, label, count, make) of the model options' call sites:
+    the fused block with ``silu_input`` (``FOUNDDIFF_SILU=kernel``) at every
+    main-path shape at bs1 and bs4, counted per UNet forward of phase 18's
+    serving; and, counted once per bs1 call of phase 18's SS2D variants and
+    its CrossAttention (the first level of ``Config()``: C0 64 on 512^2,
+    d_state 4), the image scan before the un-folded epilogue (``use_bias``,
+    ``dropout``), the epilogue without the folded out_proj, the
+    fused-projection scan of v0's four full sequences and of step 3's,
+    and the flash forward of a self-attending CrossAttention on a 64^2 grid
+    (also at bs4)."""
+    cases = []
+    for B in (1, 4):
+        ss = {}
+        for H, C, N in BLOCKS.values():
+            ss[(H, C, N)] = ss.get((H, C, N), 0) + 1
+        for (H, C, N), n in ss.items():
+            cases.append((B, SILU_KERNEL, f"bs{B} {H}^2 C0={C} D={2 * C} N={N}", n,
+                          lambda dt, g, d, B=B, H=H, C=C, N=N: ss2d_case(
+                              B, H, C, N, dt, g, d, silu_input=True)))
+    H, C0, N = VARIANT
+    D = 2 * C0
+    L = FLASH_L
+    return cases + [
+        (1, SITES[1], f"bs1 {H}^2 D={D} N={N}", 1,
+         lambda dt, g, d: scan_image_case(H, C0, N, dt, g, d, B=1)),
+        (1, SITES[2], f"bs1 split {H}^2 C={D} no fold", 1,
+         lambda dt, g, d: epilogue_case(1, H, D, C0, True, False, dt, g, d)),
+        (1, SITES[3], f"bs1 L={V0_L} D={D} N={N}", 1,
+         lambda dt, g, d: scan_fused_case(1, C0, N, dt, g, d, L=V0_L)),
+        (1, SITES[4], f"bs1 L={STEP3_L} D={D} N={N}", 1,
+         lambda dt, g, d: scan_fused_case(1, C0, N, dt, g, d, L=STEP3_L)),
+        (1, SITES[5], f"B1 H{FLASH_HEADS} Lq={L} Lk={L} d={FLASH_D}", 1,
+         lambda dt, g, d: flash_case("flash_fwd", 1, L, L, dt, g, d)),
+        (4, SITES[5], f"B4 H{FLASH_HEADS} Lq={L} Lk={L} d={FLASH_D}", 0,
+         lambda dt, g, d: flash_case("flash_fwd", 4, L, L, dt, g, d)),
+    ]
 
 
 def check_bounds_only(cases):
@@ -1515,11 +1608,13 @@ def check_gn_autograd(wrappers):
     return result
 
 
-def train_full_width(wrappers, card, cfg, per_step, tag, full=True):
-    """Phases 7, 9, 10 and 11: ``Trainer.train_step`` of ``cfg`` on the card.
-    ``per_step``: the launches per step of the path's kernels (every other
-    kernel 0).  ``full=False`` (the routed phases) takes the warm-up and the
-    three timed fp32 steps only: no profiled step and no bf16 steps."""
+def train_full_width(wrappers, card, cfg, per_step, tag, full=True, aux=None):
+    """Phases 7, 9, 10, 11 and 18: ``Trainer.train_step`` of ``cfg`` on the
+    card.  ``per_step``: the launches per step of the path's kernels (every
+    other kernel 0).  ``full=False`` (the routed phases) takes the warm-up
+    and the three timed fp32 steps only: no profiled step and no bf16
+    steps.  ``aux``: the diffusion's (aux_grad_loss_weight,
+    aux_wavelet_loss_weight)."""
     from founddiff_tpu_torch.factory import build
     from founddiff_tpu_torch.train.trainer import Trainer
 
@@ -1527,6 +1622,8 @@ def train_full_width(wrappers, card, cfg, per_step, tag, full=True):
     diffusion, model = build(cfg, device="cuda", seed=0, train=True)
     if not cfg.model.original_ddim_ddpm:
         perturb_gates(model, seed=0)
+    if aux is not None:
+        diffusion.aux_grad_loss_weight, diffusion.aux_wavelet_loss_weight = aux
     trainer = Trainer(diffusion, model, cfg)
     B = cfg.train.train_batch_size * cfg.train.gradient_accumulate_every
     S = cfg.diffusion.image_size
@@ -1554,12 +1651,15 @@ def train_full_width(wrappers, card, cfg, per_step, tag, full=True):
         torch.cuda.synchronize()
         for fn in wrappers.values():
             fn.launches = 0
+        wrappers["ss2d_image_block"].launches_silu = 0
         t0 = time.perf_counter()
         losses = trainer.train_step(b)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         for k, fn in wrappers.items():
             counts.setdefault(k, []).append(fn.launches)
+        counts.setdefault("ss2d_image_block silu_input", []).append(
+            wrappers["ss2d_image_block"].launches_silu)
         if check:
             look_at_grads()
         return losses, dt
@@ -1777,6 +1877,7 @@ def serve_requests(request, x_all, wrappers, per_forward, steps, tag):
     torch.cuda.reset_peak_memory_stats()
     for fn in wrappers.values():
         fn.launches = 0
+    wrappers["ss2d_image_block"].launches_silu = 0
     t_bs1, t_bs4, outs = [], [], []
     for i in range(4):
         t0 = time.perf_counter()
@@ -1787,6 +1888,7 @@ def serve_requests(request, x_all, wrappers, per_forward, steps, tag):
         outs.append(request(x_all, 200 + i))
         t_bs4.append(time.perf_counter() - t0)
     launches = {k: fn.launches for k, fn in wrappers.items()}
+    launches_silu = wrappers["ss2d_image_block"].launches_silu
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     forwards = (4 + 2) * steps
     for k, n in launches.items():
@@ -1802,8 +1904,8 @@ def serve_requests(request, x_all, wrappers, per_forward, steps, tag):
     sps1 = 1.0 / statistics.median(t_bs1)
     sps4 = 4.0 / statistics.median(t_bs4)
     log(f"[{tag}] launches {launches} over {forwards} UNet forwards "
-        f"({per_forward} per forward)")
-    return dict(launches=launches, forwards=forwards, bs1_slices_per_s=sps1,
+        f"({per_forward} per forward), {launches_silu} ss2d_image_block with silu_input")
+    return dict(launches=launches, launches_silu=launches_silu, forwards=forwards, bs1_slices_per_s=sps1,
                 bs4_slices_per_s=sps4, bs1_request_s=t_bs1, bs4_batch_s=t_bs4,
                 peak_memory_gib=peak_gib, steps=steps, size=size), outs
 
@@ -2517,6 +2619,305 @@ def beside_parent(tag, train, card) -> None:
         f"(scripts/port_ab.py, two turns) [{card}]")
 
 
+# --- phase 18: the model options ------------------------------------------------
+
+
+def _rel(got, want, base=None) -> float:
+    """||got - want|| / ||want - base||, fp32."""
+    ref = want.float() if base is None else want.float() - base.float()
+    return float((got.float() - want.float()).norm() / ref.norm().clamp_min(1e-30))
+
+
+def silu_serving(request, x_all, wrappers, plain, steps, outs, main, card):
+    """Phase 18 (a): phase 3's requests under ``FOUNDDIFF_SILU=kernel``: every
+    ``ss2d_image_block`` launch with its silu flag, the outputs against phase
+    3's (the same weights and seeds; PSNR >= 40 dB, the count of elements
+    that differ printed) and against the plain path, slices/s beside phase
+    3's."""
+    with routes_on(FOUNDDIFF_SILU="kernel"):
+        rec, outs_silu = serve_requests(request, x_all, wrappers, PER_FORWARD, steps, "silu")
+        rec["gate"] = plain_gate(request, x_all[:1], plain, wrappers, "silu", steps)
+    want = PER_FORWARD["ss2d_image_block"] * rec["forwards"]
+    if rec["launches_silu"] != want:
+        raise AssertionError(f"silu: {rec['launches_silu']} ss2d_image_block launches with "
+                             f"silu_input, want {want}")
+    if main["launches_silu"] != 0:
+        raise AssertionError("phase 3 (the variable unset) launched the silu flag")
+    rec["psnr_db"] = [psnr(a, b) for a, b in zip(outs_silu, outs)]
+    rec["differing"] = [int((a != b).sum()) for a, b in zip(outs_silu, outs)]
+    rec["elements"] = [a.numel() for a in outs]
+    worst = min(rec["psnr_db"])
+    log(f"[silu] DDIM-{steps} 512^2 bf16 with FOUNDDIFF_SILU=kernel: bs1 "
+        f"{rec['bs1_slices_per_s']:.3f} slices/s (request s "
+        f"{[round(t, 4) for t in rec['bs1_request_s']]}), bs4 {rec['bs4_slices_per_s']:.3f} "
+        f"slices/s (batch s {[round(t, 4) for t in rec['bs4_batch_s']]}); phase 3: bs1 "
+        f"{main['bs1_slices_per_s']:.3f}, bs4 {main['bs4_slices_per_s']:.3f} slices/s [{card}]")
+    log(f"[silu gate] the 6 requests against phase 3's: PSNR "
+        f"{[round(p, 2) for p in rec['psnr_db']]} dB (gate {PSNR_GATE_DB}), differing elements "
+        f"{rec['differing']} of {rec['elements']}")
+    if not worst >= PSNR_GATE_DB:
+        raise AssertionError(f"silu against phase 3: {worst:.2f} dB")
+    return rec
+
+
+def aux_on_card(card):
+    """Phase 18 (c): the two auxiliary terms at 512^2 (4 slices, NHWC, as
+    ``p_losses`` forms them) on the card against the CPU, relative AUX_RTOL."""
+    from founddiff_tpu_torch.ops.losses import grad_loss, wt_decomp
+
+    gen = torch.Generator().manual_seed(18)
+    pred = torch.randn((4, 512, 512, 1), generator=gen) * 0.3
+    target = pred + 0.1 * torch.randn((4, 512, 512, 1), generator=gen)
+
+    def terms(p, t):
+        hi = lambda v: wt_decomp(v.movedim(-1, 1), level=3)[1]
+        return grad_loss(p, t), (hi(p) - hi(t)).abs().mean()
+
+    cpu = terms(pred, target)
+    t0 = time.perf_counter()
+    gpu = terms(pred.cuda(), target.cuda())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    rel = [abs(float(g) - float(c)) / abs(float(c)) for g, c in zip(gpu, cpu)]
+    log(f"[aux] grad_loss {float(gpu[0]):.6e} (CPU {float(cpu[0]):.6e}), wavelet level-3 "
+        f"{float(gpu[1]):.6e} (CPU {float(cpu[1]):.6e}) at 4 x 512^2: relative "
+        f"{[f'{r:.2e}' for r in rel]} (gate {AUX_RTOL}); {ms:.1f} ms on the card [{card}]")
+    if not all(r <= AUX_RTOL for r in rel):
+        raise AssertionError(f"auxiliary losses on the card against the CPU: {rel}")
+    return dict(card=[float(v) for v in gpu], cpu=[float(v) for v in cpu], rel=rel, ms=ms)
+
+
+def no_tower_options(wrappers, card):
+    """Phase 18 (d): a no-tower ``UnetRes`` of ``Config()`` at 512^2 with
+    ``learned_variance``, ``input_condition`` and ``input_condition_mask``:
+    one Adam step on (gt, ld, mask) pairs (the loss broadcasts the two
+    output channels, as in JAX); its DDIM-2 sample raises TypeError, as the
+    JAX scan does; the same build without ``learned_variance`` samples
+    DDIM-2 (finite, [0, 1], phase 3's launches per UNet forward)."""
+    from founddiff_tpu_torch.config import Config
+    from founddiff_tpu_torch.factory import build
+
+    gen = torch.Generator().manual_seed(19)
+    gt = torch.rand((2, 512, 512, 1), generator=gen).cuda()
+    ld = (gt + 0.05 * torch.randn(gt.shape, generator=gen).cuda()).clamp(0, 1)
+    mask = (torch.rand(gt.shape, generator=gen) > 0.5).float().cuda()
+    result = {}
+    for lv in (True, False):
+        cfg = Config()
+        m = cfg.model
+        m.use_dose_encoder, m.learned_variance = False, lv
+        m.input_condition, m.input_condition_mask = True, True
+        diffusion, model = build(cfg, device="cuda", seed=0, train=lv)
+        perturb_gates(model, seed=0)
+        if lv:
+            opt = torch.optim.Adam([p for p in model.parameters() if p.requires_grad], lr=2e-4)
+            before = {n: p.detach().clone() for n, p in model.named_parameters()}
+            for fn in wrappers.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            loss = sum(diffusion.loss([gt, ld, mask], generator=torch.Generator().manual_seed(1)))
+            loss.backward()
+            grads = [p.grad for p in model.parameters() if p.requires_grad]
+            live = sum(g is not None and bool(g.abs().max() > 0) for g in grads)
+            finite = all(g is None or bool(torch.isfinite(g).all()) for g in grads)
+            opt.step()
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+            moved = sum(not torch.equal(p, before[n]) for n, p in model.named_parameters())
+            out_ch = model.unet0.final_conv.weight.shape[0]
+            # the dose-prompt weights see zero embeddings without the tower: no gradient
+            if not (math.isfinite(float(loss)) and finite and moved == live
+                    and live > 0.9 * len(grads) and out_ch == 2):
+                raise AssertionError(f"no-tower step: loss {float(loss)}, finite {finite}, "
+                                     f"{moved} parameters moved, {live} of {len(grads)} with a "
+                                     f"gradient, {out_ch} channels")
+            model.eval()
+            try:
+                with torch.no_grad():
+                    diffusion.sample([ld, mask], use_test_schedule=True)
+                raise AssertionError("a learned_variance sample did not raise")
+            except TypeError as e:
+                refused = str(e)
+            result["step"] = dict(loss=float(loss), step_s=step_s, launches=launches,
+                                  refused=refused)
+            log(f"[no tower] UnetRes 512^2 learned_variance + input_condition + mask: loss "
+                f"{float(loss):.6f}, {moved} of {len(grads)} parameters moved (those with a "
+                f"non-zero gradient), step {step_s:.3f} s, launches "
+                f"{launches}; its DDIM-2 sample raises TypeError as the JAX scan does ({refused})"
+                f" [{card}]")
+        else:
+            for fn in wrappers.values():
+                fn.launches = 0
+            with torch.no_grad():
+                out = diffusion.sample([ld, mask], use_test_schedule=True,
+                                       generator=torch.Generator().manual_seed(2))
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+            img = out[-1]
+            ok = (img.shape == ld.shape and bool(torch.isfinite(img).all())
+                  and 0.0 <= float(img.min()) and float(img.max()) <= 1.0)
+            per = {k: PER_FORWARD.get(k, 0) * 2 for k in wrappers}  # two UNet forwards
+            if not ok or any(launches.get(k, 0) != n for k, n in per.items()):
+                raise AssertionError(f"no-tower DDIM-2 sample: {tuple(img.shape)}, launches "
+                                     f"{launches}, want {per}")
+            result["sample"] = dict(launches=launches, shape=list(img.shape))
+            log(f"[no tower] UnetRes 512^2 input_condition + mask, DDIM-2 bs2: "
+                f"{tuple(img.shape)} in [0, 1], launches {launches}")
+        del model, diffusion
+        torch.cuda.empty_cache()
+    return result
+
+
+def _variant_io(gen, dev, H, C0):
+    x = _n(gen, (1, H, H, C0), 1.0, dev)
+    c = _n(gen, (1, 1, 256), 0.1, dev)
+    gate = _n(gen, (1, C0), 0.3, dev)
+    return x, c, gate
+
+
+def ss2d_variants(wrappers, plain, card):
+    """Phase 18 (e): each SS2D variant at the first level of ``Config()`` (C0
+    64 on 512^2, d_state 4), bs1 fp32, seeded weights (non-zero biases),
+    through the kernel path and the plain path: ``use_bias`` and ``dropout``
+    (eval) on the image scan and the epilogue without the fold, then out_proj
+    and the gated residual; ``conv_bias=False``, ``d_conv`` 5, ``dt_rank`` 8
+    on the fused block; v0 on the fused-projection scan of its four full
+    sequences; step 3 on the fused-projection scan of its sequences (the
+    merge raises, as in JAX); then ``MambaBlock(cross=True)`` and
+    ``PatchMerging2D`` at C0 512 on 64^2 (the latter plain PyTorch, card
+    against CPU), and a self-attending ``CrossAttention`` at L 4,096 on the
+    flash kernel.  Each: ||kernel - plain|| / ||plain - residual|| <=
+    VARIANT_RTOL, and the launches of its sites."""
+    from founddiff_tpu_torch.factory import init_params
+    from founddiff_tpu_torch.models.blocks import CrossAttention
+    from founddiff_tpu_torch.models.ss2d import SS2D, MambaBlock, PatchMerging2D
+
+    dev = torch.device("cuda")
+    H, C0, N = VARIANT
+    variants = {"use_bias": (dict(use_bias=True), SITES[1:3]),
+                "dropout": (dict(dropout=0.1), SITES[1:3]),
+                "conv": (dict(conv_bias=False, d_conv=5, dt_rank=8), ("ss2d_image_block",)),
+                "v0": (dict(forward_type="v0"), SITES[3:4]),
+                "step 3": (dict(step_size=3), SITES[4:5])}
+    result, failed, sites = {}, [], {}
+
+    def run(fn):
+        for w in wrappers.values():
+            w.launches = 0
+        with torch.no_grad():
+            got = fn()
+        torch.cuda.synchronize()
+        used = {k: w.launches for k, w in wrappers.items() if w.launches}
+        for w in wrappers.values():
+            w.launches = 0
+        with torch.no_grad(), swapped(plain):
+            want = fn()
+        launched = {k: w.launches for k, w in wrappers.items() if w.launches}
+        if launched:
+            raise AssertionError(f"the plain path launched kernels {launched}")
+        return got, want, used
+
+    for name, (opts, site_keys) in variants.items():
+        gen = torch.Generator().manual_seed(len(name))
+        mod = SS2D(C0, N, **opts)
+        init_params(mod, gen)
+        mod = mod.to(dev).eval().requires_grad_(False)
+        x, c, gate = _variant_io(gen, dev, H, C0)
+        if name == "step 3":
+            xs = torch.nn.functional.silu(_n(gen, (1, H, H, 2 * C0), 1.0, dev))
+            got, want, used = run(lambda: mod.scan_core(xs, merge=False))
+            try:
+                mod(x, c, gate, x)
+                raise AssertionError("step 3: the merge did not raise")
+            except TypeError:
+                pass
+            base = None
+        else:
+            got, want, used = run(lambda: mod(x, c, gate, x))
+            base = x
+        rel = _rel(got, want, base)
+        for k in site_keys:
+            if k in SITE_WRAPPER:
+                sites[k] = used.get(SITE_WRAPPER[k], 0)
+        result[name] = dict(rel=rel, launches=used, shape=list(got.shape))
+        log(f"[variants] SS2D {name} {opts} at {H}^2 C0={C0} N={N} fp32: kernel against plain "
+            f"path {rel:.3e} (gate {VARIANT_RTOL}), launches {used}")
+        if not rel <= VARIANT_RTOL:
+            failed.append(name)
+        del mod
+    # MambaBlock(cross) and PatchMerging2D at C0 512 on 64^2
+    gen = torch.Generator().manual_seed(512)
+    block = MambaBlock(512, 32, time_dim=256, cross=True)
+    init_params(block, gen)
+    with torch.no_grad():
+        for p in (block.adaLN_modulation[1].weight, block.adaLN_modulation[1].bias):
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    block = block.to(dev).eval().requires_grad_(False)
+    x, c, _ = _variant_io(gen, dev, 64, 512)
+    t = _n(gen, (1, 256), 1.0, dev)
+    got, want, used = run(lambda: block(x, c, t))
+    result["cross"] = dict(rel=_rel(got, want, x), launches=used)
+    if "attn_block" in used or not result["cross"]["rel"] <= VARIANT_RTOL:
+        failed.append("cross")
+    log(f"[variants] MambaBlock(cross=True) 64^2 C=512 N=32 fp32: kernel against plain path "
+        f"{result['cross']['rel']:.3e}, launches {used}")
+    pm = PatchMerging2D(512)
+    init_params(pm, gen)
+    pm.requires_grad_(False)
+    y_cpu = pm(x.cpu())
+    y_card = pm.to(dev)(x)
+    result["patch_merging"] = dict(rel=_rel(y_card.cpu(), y_cpu), shape=list(y_card.shape))
+    if not result["patch_merging"]["rel"] <= VARIANT_RTOL:
+        failed.append("patch_merging")
+    log(f"[variants] PatchMerging2D 64^2 C=512 -> {tuple(y_card.shape)}: card against CPU "
+        f"{result['patch_merging']['rel']:.3e}")
+    attn = CrossAttention(512, context_dim=512)
+    init_params(attn, gen)
+    attn = attn.to(dev).eval().requires_grad_(False)
+    got, want, used = run(lambda: attn(x))
+    sites[SITES[5]] = used.get("flash_fwd", 0)
+    result["cross_self"] = dict(rel=_rel(got, want), launches=used)
+    if used.get("flash_fwd") != 1 or not result["cross_self"]["rel"] <= VARIANT_RTOL:
+        failed.append("cross_self")
+    log(f"[variants] CrossAttention self 64^2 C=512 (L 4096) fp32: kernel against plain path "
+        f"{result['cross_self']['rel']:.3e}, launches {used} [{card}]")
+    if failed:
+        raise AssertionError(f"SS2D variants: kernel path against plain path: {failed}")
+    result["sites"] = sites
+    return result
+
+
+def options(request, x_all, outs, wrappers, plain_default, plain_all, steps, record, card):
+    """Phase 18: the model and loss options (the docstring's item 18)."""
+    from founddiff_tpu_torch.config import Config
+
+    t18 = time.perf_counter()
+    out = {"serving": silu_serving(request, x_all, wrappers, plain_default, steps, outs,
+                                   record["main"], card)}
+    with routes_on(FOUNDDIFF_SILU="kernel"):
+        out["train"] = train_full_width(wrappers, card, Config(), PER_STEP, "train silu",
+                                        full=False)
+        out["train_aux"] = train_full_width(wrappers, card, Config(), PER_STEP, "train aux",
+                                            full=False, aux=AUX)
+        out["autograd"] = check_autograd(plain_default, wrappers, "autograd silu")
+    for tag in ("train", "train_aux"):
+        silu = out[tag]["per_step"]["ss2d_image_block silu_input"]
+        if any(n != PER_STEP["ss2d_image_block"] for n in silu):
+            raise AssertionError(f"{tag} silu: silu_input launches per step {silu}")
+    log(f"[train silu] fp32 step {statistics.median(out['train']['step_s']):.4f} s with "
+        f"FOUNDDIFF_SILU=kernel, {statistics.median(out['train_aux']['step_s']):.4f} s with "
+        f"the auxiliary weights {AUX} too; phase 7: "
+        f"{statistics.median(record['train']['step_s']):.4f} s [{card}]")
+    out["aux"] = aux_on_card(card)
+    torch.cuda.empty_cache()
+    out["no_tower"] = no_tower_options(wrappers, card)
+    out["variants"] = ss2d_variants(wrappers, plain_all, card)
+    out["seconds"] = time.perf_counter() - t18
+    log(f"[phase 18] {out['seconds']:.1f} s")
+    return out
+
+
 def psnr(a, b) -> float:
     mse = float(((a.float() - b.float()) ** 2).mean())
     return float("inf") if mse == 0 else 10 * math.log10(1.0 / mse)
@@ -2527,7 +2928,7 @@ def main() -> int:
         raise RuntimeError("chip_smoke.py needs a CUDA card; none is available")
     t_start = time.perf_counter()
     sys.path.insert(0, REPO)
-    for k in ROUTES:  # phases 1-9 run the default routes; 10 and 11 set their own
+    for k in (*ROUTES, "FOUNDDIFF_SILU"):  # the default routes; 10, 11 and 18 set theirs
         os.environ.pop(k, None)
     from founddiff_tpu_torch.ops import _build
     from founddiff_tpu_torch.ops import attn_block as attn_mod
@@ -2602,7 +3003,11 @@ def main() -> int:
                                     else fused_mod.merge_ln_gate)(*a, **k),
             lambda *a, split, **k: (fused_mod.merge_ln_gate_split_plain if split
                                     else fused_mod.merge_ln_gate_plain)(*a, **k)),
+        SILU_KERNEL: (
+            lambda *a, **k: ss2d_mod.ss2d_image_block(*a, silu_input=True, **k),
+            lambda *a, **k: ss2d_mod.ss2d_image_block_plain(*a, silu_input=True, **k)),
     }
+    ops.update({k: ops[SITE_WRAPPER[k]] for k in SITES[1:]})
     wrappers = {k: getattr(mod, k) for k, mod in (
         ("ss2d_image_block", ss2d_mod), ("attn_block", attn_mod),
         ("layer_norm_modulated", norm_mod), ("scan_forward", scan_mod),
@@ -2621,6 +3026,7 @@ def main() -> int:
     cases += slice6_cases()
     cases += slice7_cases()
     cases += attn_on_cases()
+    cases += options_cases()
     rows, failed = check_kernels(ops, cases)
     bounds, bounds_failed = check_fused_h_bounds()
     failed += bounds_failed
@@ -2791,6 +3197,12 @@ def main() -> int:
                                         record["train"])
     record["phase17_s"] = time.perf_counter() - t17
     log(f"[phase 17] {record['phase17_s']:.1f} s")
+    # phase 18: the model and loss options
+    torch.cuda.empty_cache()
+    record["options"] = options(
+        request, x_all, outs, wrappers, plain_default,
+        {**plain_all, (blocks_mod, "flash_attention"): flash_mod.flash_attention_plain},
+        steps, record, card)
 
     kernels = []
     for k, (src, tpu) in SOURCES.items():
@@ -2801,6 +3213,12 @@ def main() -> int:
         elif k == "ss2d_mamba_block":  # one bs1 bf16 UNet forward, both routes on
             main_rows = [r for r in mine if r["dtype"] == "bfloat16" and r["batch"] == 1]
             n = record["routes"]["launches"][k]
+        elif k == SILU_KERNEL:  # one bs1 bf16 UNet forward with FOUNDDIFF_SILU=kernel
+            main_rows = [r for r in mine if r["dtype"] == "bfloat16" and r["batch"] == 1]
+            n = record["options"]["serving"]["launches_silu"]
+        elif k in SITES:  # the call of phase 18's bs1 fp32 variant
+            main_rows = [r for r in mine if r["dtype"] == "float32" and r["batch"] == 1]
+            n = record["options"]["variants"]["sites"][k]
         elif k in ("scan_fused_forward", "layer_norm", "merge_ln_gate"):
             # one bs1 bf16 UNet forward at 360^2 (the epilogue: at 16^2)
             main_rows = [r for r in mine if r["dtype"] == "bfloat16" and r["batch"] == 1]

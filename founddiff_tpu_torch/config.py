@@ -23,8 +23,14 @@ class ModelConfig:
     test_res_or_noise: str = "res"  # train.py:82
     condition: bool = True
     input_condition: bool = False
+    # with input_condition: only the input image is normalised to [-1, 1],
+    # the input condition stays as given (residual.py:457, 561)
+    input_condition_mask: bool = False
     self_condition: bool = False
     resnet_block_groups: int = 8
+    # the UNets output 2 * channels (unet.py:198-204); the diffusions use
+    # the output as it is: the loss broadcasts it, the samplers raise
+    learned_variance: bool = False
     base_d_state: int = 4
     ssm_expand: float = 2.0
     clip_backbone: str = "RN50"

@@ -35,6 +35,18 @@ template <typename T> __device__ __forceinline__ float round_io(float v) {
   return to_f<T>(from_f<T>(v));
 }
 
+// silu of an io-dtype value in fp32, rounded back to the io dtype (the
+// FOUNDDIFF_SILU=kernel input of the fused SS2D block)
+template <typename T> __device__ __forceinline__ float silu_io(float v) {
+  return round_io<T>(v / (1.f + expf(-v)));
+}
+
+// Whether a GEMM's A-row functor asks for silu_io on each A element as it
+// is loaded (a member SILU = true); functors without the member do not.
+template <class R, class = void> struct RowSilu : std::false_type {};
+template <class R>
+struct RowSilu<R, std::void_t<decltype(R::SILU)>> : std::bool_constant<R::SILU> {};
+
 // 16 bytes of T: Vec<T>::N elements moved as one Vec<T>::U
 template <typename T> struct Vec;
 template <> struct Vec<float> {
@@ -204,7 +216,8 @@ cudaError_t ln_rows_vec(const Y* x, const float* g, const float* b, const float*
 // callers can gather rows (the decimated scan directions) without a copy.
 // B is row-major [K, N] with leading dimension ldb, slice z at
 // B + (z % zmod) * strideBz (zmod = 1 shares one B across all z).
-// The epilogue functor epi(z, m, n, acc) consumes the fp32 sum.
+// The epilogue functor epi(z, m, n, acc) consumes the fp32 sum.  A RowA
+// with SILU = true has each A element taken through silu_io as it is loaded.
 // 64x64 output tile per block of 256 threads, 4x4 outputs per thread, k in
 // steps of 16 staged through shared memory as fp32.
 // ---------------------------------------------------------------------------
@@ -243,7 +256,9 @@ gemm_kernel(int M, int N, int K, RowA rowA, const T* __restrict__ B,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int k = k0 + ak + i;
-      As[ak + i][ar] = (arow != nullptr && k < K) ? to_f<T>(arow[k]) : 0.f;
+      float a = (arow != nullptr && k < K) ? to_f<T>(arow[k]) : 0.f;
+      if constexpr (RowSilu<RowA>::value) a = silu_io<T>(a);
+      As[ak + i][ar] = a;
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -299,7 +314,9 @@ cudaError_t gemm(int Z, int M, int N, int K, RowA rowA, const T* B, long long st
 // aligned: gemm_tc_ok checks what the host can see, and the caller keeps
 // gemm for the rest.  The products of bf16 operands are exact in fp32, so
 // against gemm only the order of the sums differs.  Hopper's wgmma and TMA
-// would reach further; this is the simple tensor-core form.
+// would reach further; this is the simple tensor-core form.  A RowA with
+// SILU = true has the landed A tile taken through silu_io in shared memory
+// before its fragments are read (silu(0) = 0 keeps the zero fill).
 // ---------------------------------------------------------------------------
 constexpr int TC_BM = 128, TC_BN = 64, TC_BK = 32, TC_THREADS = 256, TC_STAGES = 3;
 constexpr int TC_APAD = TC_BK + 8, TC_BPAD = TC_BN + 8;  // rows 80 and 144 bytes
@@ -387,6 +404,13 @@ gemm_tc_kernel(int M, int N, int K, RowA rowA, const __nv_bfloat16* __restrict__
     if (kt + TC_STAGES - 1 < kts) load((kt + TC_STAGES - 1) % TC_STAGES, kt + TC_STAGES - 1);
     cp_async_commit();
     const int st = kt % TC_STAGES;
+    if constexpr (RowSilu<RowA>::value) {
+      for (int i = tid; i < TC_BM * TC_BK; i += TC_THREADS) {
+        __nv_bfloat16& e = As[st][i / TC_BK][i % TC_BK];
+        e = __float2bfloat16_rn(silu_io<__nv_bfloat16>(__bfloat162float(e)));
+      }
+      __syncthreads();
+    }
 #pragma unroll
     for (int kk = 0; kk < TC_BK; kk += 16) {
       unsigned a[2][4], b[2][4];
@@ -559,6 +583,7 @@ template <class RowA, class Epi>
 __global__ void __launch_bounds__(TC_THREADS, 3)
 gemm_x3_kernel(int M, int N, int K, RowA rowA, const float* __restrict__ B,
                long long strideBz, int zmod, int ldb, Epi epi) {
+  static_assert(!RowSilu<RowA>::value, "gemm_x3 takes A rows as they are");
   __shared__ __align__(16) float As[X3_STAGES][TC_BM][X3_APAD];
   __shared__ __align__(16) float Bs[X3_STAGES][X3_BK][X3_BPAD];
   const int z = blockIdx.z;

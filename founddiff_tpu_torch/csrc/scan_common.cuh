@@ -39,8 +39,11 @@ __device__ __forceinline__ void dir_pixel(int k, int l, int H2, int W2, int& py,
   }
 }
 
-template <typename T>
+// SILU: the GEMMs of common.cuh take each element through silu_io (the
+// fused block's FOUNDDIFF_SILU=kernel input); the chunk passes do not.
+template <typename T, bool SILU_ = false>
 struct RowGather {  // A rows of the projection GEMM: xs pixels in direction order
+  static constexpr bool SILU = SILU_;
   const T* xs;
   int H, W, H2, W2, D;
   __device__ __forceinline__ const T* operator()(int z, int l) const {
@@ -112,8 +115,9 @@ struct StoreSeq {
 
 // GROUPED: states [n0, n0 + NS) of NST, y by mode: 0 out(y); 1 yacc = y;
 // 2 yacc += C.h; 3 out(yacc + C.h) (y = C.h + D*u).  Otherwise NST = NS, one
-// group, its strides known at compile time.
-template <typename T, int NS, bool FINAL, class Out, bool GROUPED>
+// group, its strides known at compile time.  SILU: u = silu_io(xs) (the
+// projection GEMM's A rows take the same).
+template <typename T, int NS, bool FINAL, class Out, bool GROUPED, bool SILU = false>
 __global__ void __launch_bounds__(SCAN_THREADS)
 image_scan_chunk_kernel(const T* __restrict__ xs, const float* __restrict__ proj,
                         const float* __restrict__ A, const float* __restrict__ Dskip,
@@ -142,7 +146,8 @@ image_scan_chunk_kernel(const T* __restrict__ xs, const float* __restrict__ proj
     const long long pix = ((long long)b * H + py) * W + px;
     const float* pr = proj + ((long long)z * L + l) * NP;
     const float dl = pr[d];
-    const float u = to_f<T>(xs[pix * D + d]);
+    float u = to_f<T>(xs[pix * D + d]);
+    if constexpr (SILU) u = silu_io<T>(u);
     const float du = dl * u;
     float y = 0.f;
 #pragma unroll
@@ -303,8 +308,9 @@ cudaError_t carry_scan(const float* A, const float* dsum, float* st, int K, int 
 
 // The three passes on the caller's stream for NST states in groups of NS;
 // proj is [B*4, L, D+2N] from the RowGather/EpiProj GEMM, csum [B*4, NC, D],
-// cstate [B*4, NC, D, N], yacc [B*4, L, D] fp32 (several groups only).
-template <typename T, int NS, class Out>
+// cstate [B*4, NC, D, N], yacc [B*4, L, D] fp32 (several groups only);
+// SILU: the passes read silu_io(xs).
+template <typename T, int NS, class Out, bool SILU = false>
 int image_scan(const T* xs, const float* proj, const float* A, const float* Ds, float* csum,
                float* cstate, Out out, float* yacc, int B, int H, int W, int D, int NST, int L,
                int TC, int NC, cudaStream_t s) {
@@ -314,12 +320,12 @@ int image_scan(const T* xs, const float* proj, const float* A, const float* Ds, 
     constexpr bool FINAL = decltype(final_pass)::value;
     if constexpr (NS == 64) {
       if (ngroups > 1) {
-        image_scan_chunk_kernel<T, NS, FINAL, Out, true><<<grid, SCAN_THREADS, 0, s>>>(
+        image_scan_chunk_kernel<T, NS, FINAL, Out, true, SILU><<<grid, SCAN_THREADS, 0, s>>>(
             xs, proj, A, Ds, csum, cstate, out, yacc, mode, H, W, D, L, NST, i * NS, TC, NC);
         return cudaGetLastError();
       }
     }
-    image_scan_chunk_kernel<T, NS, FINAL, Out, false><<<grid, SCAN_THREADS, 0, s>>>(
+    image_scan_chunk_kernel<T, NS, FINAL, Out, false, SILU><<<grid, SCAN_THREADS, 0, s>>>(
         xs, proj, A, Ds, csum, cstate, out, yacc, mode, H, W, D, L, NST, i * NS, TC, NC);
     return cudaGetLastError();
   };
@@ -335,12 +341,13 @@ int image_scan(const T* xs, const float* proj, const float* A, const float* Ds, 
 
 // image_scan for a runtime state size: 4, 8, 16, 32, 64, or a multiple of
 // 64 with yacc
-template <typename T, class Out>
+template <typename T, class Out, bool SILU = false>
 int image_scan_n(const T* xs, const float* proj, const float* A, const float* Ds, float* csum,
                  float* cstate, Out out, float* yacc, int B, int H, int W, int D, int NS, int L,
                  int TC, int NC, cudaStream_t s) {
 #define FD_IMAGE_SCAN(NSV) \
-  image_scan<T, NSV>(xs, proj, A, Ds, csum, cstate, out, yacc, B, H, W, D, NS, L, TC, NC, s)
+  image_scan<T, NSV, Out, SILU>(xs, proj, A, Ds, csum, cstate, out, yacc, B, H, W, D, NS, L, \
+                                TC, NC, s)
   switch (NS) {
     case 4: return FD_IMAGE_SCAN(4);
     case 8: return FD_IMAGE_SCAN(8);
@@ -389,6 +396,7 @@ chunk_pass_kernel(Rows rows, const float* __restrict__ proj, const float* __rest
                   float* __restrict__ dsum, T* __restrict__ ys, float* __restrict__ yacc,
                   float* __restrict__ hb, int mode, int D, int L, int NST, int n0, int TC,
                   int NC, int TCB, int NCB) {
+  static_assert(!RowSilu<Rows>::value, "the chunk passes take u rows as they are");
   if (!GROUPED) NST = NS, n0 = 0, mode = 0;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sB = reinterpret_cast<float*>(smem_raw);

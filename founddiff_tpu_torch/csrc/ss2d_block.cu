@@ -19,6 +19,10 @@
 // Design: the five launches of ss2d_tail.cuh (projection GEMM, chunked scan,
 // LN statistics, the z GEMM with the gated epilogue, out_proj with the gated
 // residual), with one W_z and no z bias.
+// silu = 1 (FOUNDDIFF_SILU=kernel, JAX ss2d_block.py:110-116): xs is the raw
+// dwconv output and the projection GEMM and the chunked scan read
+// silu(xs), computed in fp32 and rounded to the io dtype at each load
+// (ss2d_tail.cuh SILU); silu = 0 builds the earlier kernels unchanged.
 // Chunking gives B*4*(L/T)*D threads per scan pass (512 channels at bs1 on
 // the 512^2 scale would not fill 132 SMs with one thread per channel).  The
 // TPU kernel's Hillis-Steele tiles, 128-lane padding and row-parity
@@ -27,14 +31,14 @@
 
 namespace {
 
-template <typename T>
+template <typename T, bool SILU>
 int run(const void* x1_, const void* xs_, const void* xr_, const void* wz_,
         const void* wproj_, const float* A, const float* Ds, const float* dbias,
         const float* lng, const float* lnb, const float* local, const void* pw_,
         const float* gate, void* out_, float* proj, float* csum, float* cstate, float* ybuf,
         float* yacc, float* stats, void* og_, int B, int H, int W, int C0, int D, int NS, int TC,
         float eps, bool tc, cudaStream_t s) {
-  return fd::ss2d_tail<T, false>(static_cast<const T*>(x1_), static_cast<const T*>(xs_),
+  return fd::ss2d_tail<T, false, SILU>(static_cast<const T*>(x1_), static_cast<const T*>(xs_),
                                  static_cast<const T*>(xr_), static_cast<const T*>(wz_),
                                  nullptr, static_cast<const T*>(wproj_), A, Ds, dbias, lng,
                                  lnb, local, static_cast<const T*>(pw_), gate,
@@ -49,16 +53,14 @@ extern "C" int ss2d_block_forward(
     const float* A, const float* Ds, const float* dbias, const float* lng,
     const float* lnb, const float* local, const void* pw, const float* gate, void* out,
     float* proj, float* csum, float* cstate, float* ybuf, float* yacc, float* stats, void* og,
-    int B, int H, int W, int C0, int D, int NS, int TC, float eps, int tc, int dtype,
-    void* stream) {
+    int B, int H, int W, int C0, int D, int NS, int TC, float eps, int tc, int silu,
+    int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return run<float>(x1, xs, xr, wz, wproj, A, Ds, dbias, lng, lnb, local, pw, gate, out,
-                      proj, csum, cstate, ybuf, yacc, stats, og, B, H, W, C0, D, NS, TC, eps,
-                      tc != 0, s);
-  if (dtype == 1)
-    return run<__nv_bfloat16>(x1, xs, xr, wz, wproj, A, Ds, dbias, lng, lnb, local, pw,
-                              gate, out, proj, csum, cstate, ybuf, yacc, stats, og, B, H, W, C0,
-                              D, NS, TC, eps, tc != 0, s);
+#define FD_RUN(T, SILU)                                                                   \
+  run<T, SILU>(x1, xs, xr, wz, wproj, A, Ds, dbias, lng, lnb, local, pw, gate, out, proj, \
+               csum, cstate, ybuf, yacc, stats, og, B, H, W, C0, D, NS, TC, eps, tc != 0, s)
+  if (dtype == 0) return silu ? FD_RUN(float, true) : FD_RUN(float, false);
+  if (dtype == 1) return silu ? FD_RUN(__nv_bfloat16, true) : FD_RUN(__nv_bfloat16, false);
+#undef FD_RUN
   return (int)cudaErrorInvalidValue;
 }

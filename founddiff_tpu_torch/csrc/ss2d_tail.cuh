@@ -20,6 +20,9 @@
 //      PER_IMAGE (the unified MambaBlock) one GEMM slice per image with that
 //      image's W_z (its folded LN affine) at b * C0 * D and bias at b * D;
 //   5. out_proj as a GEMM whose epilogue adds gate * acc to the residual.
+// SILU (the fused block under FOUNDDIFF_SILU=kernel): xs is the raw dwconv
+// output, and steps 1 and 2 read silu(xs) computed in fp32 and rounded to
+// the io dtype at each load; off, they read xs as it is.
 // In bf16 the three products run on the tensor cores (fd::gemm_tc, fp32
 // sums) wherever their widths are multiples of 8, as every UNet width is;
 // in fp32 on the CUDA cores (fd::gemm), since TF32 would not hold the fp32
@@ -70,7 +73,7 @@ struct EpiResidual {  // out = x_raw + gate * acc
   }
 };
 
-template <typename T, bool PER_IMAGE>
+template <typename T, bool PER_IMAGE, bool SILU = false>
 int ss2d_tail(const T* x1, const T* xs, const T* xr, const T* wz, const float* zbias,
               const T* wproj, const float* A, const float* Ds, const float* dbias,
               const float* lng, const float* lnb, const float* local, const T* pw,
@@ -85,10 +88,11 @@ int ss2d_tail(const T* x1, const T* xs, const T* xr, const T* wz, const float* z
   const bool tc_z = tc && gemm_tc_ok(D, C0, C0, D, (long long)C0 * D, x1, wz);
   const bool tc_out = tc && gemm_tc_ok(C0, D, D, C0, 0, og, pw);
 
-  FD_TRY((gemm_io<T>(tc_proj, B * 4, L, NP, D, RowGather<T>{xs, H, W, H2, W2, D}, wproj,
+  FD_TRY((gemm_io<T>(tc_proj, B * 4, L, NP, D, RowGather<T, SILU>{xs, H, W, H2, W2, D}, wproj,
                      (long long)D * NP, 4, NP, EpiProj{proj, dbias, L, D, NP}, s)));
-  const int rc = image_scan_n<T>(xs, proj, A, Ds, csum, cstate, StoreMerged{ybuf}, yacc, B, H,
-                                 W, D, NS, L, TC, NC, s);
+  const int rc = image_scan_n<T, StoreMerged, SILU>(xs, proj, A, Ds, csum, cstate,
+                                                    StoreMerged{ybuf}, yacc, B, H, W, D, NS,
+                                                    L, TC, NC, s);
   if (rc) return rc;
   FD_TRY((ln_rows_vec<T, float>(ybuf, nullptr, nullptr, nullptr, nullptr, 0, nullptr, stats, P,
                                 1, D, eps, s)));

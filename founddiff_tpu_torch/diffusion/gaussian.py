@@ -26,6 +26,7 @@ from founddiff_tpu_torch.diffusion.schedules import (
     GaussianSchedule,
     extract,
     make_gaussian_schedule,
+    same_shape,
 )
 from founddiff_tpu_torch.utils.device import resolve
 
@@ -176,6 +177,7 @@ class GaussianDiffusion:
             mean, _, log_var, _ = self.p_mean_variance(img, bt)
             z = next(draws)
             img = mean + torch.exp(0.5 * log_var) * z if t > 0 else mean
+            same_shape(img, shape)
         return unnormalize_to_zero_to_one(img)
 
     @torch.no_grad()
@@ -199,11 +201,13 @@ class GaussianDiffusion:
             z = next(draws)
             if time_next < 0:
                 img = x_start
+                same_shape(img, shape)
                 continue
             alpha, alpha_next = acp[time], acp[time_next]
             sigma = eta * torch.sqrt((1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha))
             c = torch.sqrt(1 - alpha_next - sigma ** 2)
             img = x_start * torch.sqrt(alpha_next) + c * pred_noise + sigma * z
+            same_shape(img, shape)
         return unnormalize_to_zero_to_one(img)
 
     def sample(self, batch_size: int = 16, generator: Optional[torch.Generator] = None,

@@ -5,9 +5,13 @@ src/DADiff.py:908-1498): ``model_predictions`` with all four objectives,
 ``ddim_sample`` with both update rules, full-T ancestral sampling
 (``q_posterior``, ``p_mean_variance``, ``p_sample_loop``), the public
 ``sample`` entry, and the training loss (``q_sample``, ``p_losses``,
-``loss``).  The JAX ``lax.scan`` loops are Python loops here; ``jax.random``
-keys become explicit ``torch.Generator``s, and ``t`` and the noise can be
-handed in instead.
+``loss``, with the auxiliary Sobel and wavelet terms).  The JAX
+``lax.scan`` loops are Python loops here; ``jax.random`` keys become
+explicit ``torch.Generator``s, and ``t`` and the noise can be handed in
+instead.  A prediction of another shape than the image (``learned_variance``
+doubles the channels) broadcasts in the loss, as in JAX, and stops the
+samplers with the ``TypeError`` that the JAX scan raises for a carry that
+changes shape.
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ from founddiff_tpu_torch.diffusion.schedules import (
     ddim_time_pairs,
     extract,
     make_residual_schedule,
+    same_shape,
 )
+from founddiff_tpu_torch.ops.losses import grad_loss, wt_decomp
 from founddiff_tpu_torch.utils.device import resolve
 
 ModelFn = Callable[..., Sequence[torch.Tensor]]
@@ -63,6 +69,7 @@ class ResidualDiffusion:
         condition: bool = False,
         sum_scale: Optional[float] = None,
         input_condition: bool = False,
+        input_condition_mask: bool = False,
         test_res_or_noise: str = "None",
         self_condition: bool = False,
         clip_denoised: bool = True,
@@ -80,14 +87,15 @@ class ResidualDiffusion:
         self.objective = objective
         self.condition = condition
         self.input_condition = input_condition
+        self.input_condition_mask = input_condition_mask
         self.test_res_or_noise = test_res_or_noise
         self.self_condition = self_condition
         self.clip_denoised = clip_denoised
         self.ddim_update = ddim_update
         self.loss_type = loss_type
-        if aux_grad_loss_weight > 0.0 or aux_wavelet_loss_weight > 0.0:
-            raise NotImplementedError("the auxiliary Sobel and wavelet losses "
-                                      "(founddiff_tpu/ops/losses.py) are not ported")
+        # optional auxiliary terms of losses[0] (src/util.py:343-530), off by default
+        self.aux_grad_loss_weight = aux_grad_loss_weight
+        self.aux_wavelet_loss_weight = aux_wavelet_loss_weight
         self.device = resolve(device, "ResidualDiffusion")
         if condition:
             self.sum_scale = sum_scale if sum_scale is not None else 0.01
@@ -221,6 +229,7 @@ class ResidualDiffusion:
                                                              x_input_condition, x_start_prev)
             z = next(draws)
             img = mean + torch.exp(0.5 * log_var) * z if t > 0 else mean
+            same_shape(img, shape)
             if self.self_condition:
                 x_start_prev = x_start
             if not last:
@@ -297,6 +306,7 @@ class ResidualDiffusion:
                            + noise_term)
                 else:
                     img = img - alpha * pred_res + noise_term
+            same_shape(img, shape)
             if self.self_condition:
                 x_start_prev = x_start
             if not last:
@@ -329,7 +339,11 @@ class ResidualDiffusion:
         sch = self.test_schedule if use_test_schedule else self.train_schedule
         fn = self.ddim_sample if self.is_ddim_sampling else self.p_sample_loop
         if self.condition:
-            if isinstance(x_input, (list, tuple)):
+            if self.input_condition and self.input_condition_mask:
+                # the input condition is a mask: it stays as given (residual.py:457)
+                x_input = [normalize_to_neg_one_to_one(x_input[0])] + list(x_input[1:])
+                size = x_input[0].shape
+            elif isinstance(x_input, (list, tuple)):
                 x_input = [normalize_to_neg_one_to_one(x) for x in x_input]
                 size = x_input[0].shape
             else:
@@ -386,7 +400,16 @@ class ResidualDiffusion:
                   "pred_noise": [noise], "pred_res": [x_res]}.get(self.objective)
         if target is None:
             raise ValueError(f"unknown objective {self.objective!r}")
-        return [self._loss(model_out[i], target[i]) for i in range(len(model_out))]
+        losses = [self._loss(model_out[i], target[i]) for i in range(len(model_out))]
+        if self.aux_grad_loss_weight > 0.0:
+            losses[0] = losses[0] + self.aux_grad_loss_weight * grad_loss(model_out[0],
+                                                                          target[0])
+        if self.aux_wavelet_loss_weight > 0.0:
+            # the high-frequency bands of the NCHW views, level 3 (residual.py:541-550)
+            _, hi_pred = wt_decomp(model_out[0].movedim(-1, 1), level=3)
+            _, hi_tgt = wt_decomp(target[0].movedim(-1, 1), level=3)
+            losses[0] = losses[0] + self.aux_wavelet_loss_weight * (hi_pred - hi_tgt).abs().mean()
+        return losses
 
     def loss(self, imgs, t: Optional[torch.Tensor] = None,
              noise: Optional[torch.Tensor] = None,
@@ -397,7 +420,10 @@ class ResidualDiffusion:
         if t is None:
             t = torch.randint(0, self.num_timesteps, (first.shape[0],), generator=generator)
         t = t.to(first.device)
-        if isinstance(imgs, (list, tuple)):
+        if self.input_condition and self.input_condition_mask:
+            # gt and input normalised, the input condition as given (residual.py:561)
+            imgs = [normalize_to_neg_one_to_one(x) for x in imgs[:2]] + list(imgs[2:])
+        elif isinstance(imgs, (list, tuple)):
             imgs = [normalize_to_neg_one_to_one(x) for x in imgs]
         else:
             imgs = normalize_to_neg_one_to_one(imgs)

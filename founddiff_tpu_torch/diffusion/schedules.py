@@ -224,3 +224,13 @@ def extract(a: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """``a[t]`` reshaped to ``[B, 1, ..., 1]`` (src/DADiff.py:840-843)."""
     out = a[t]
     return out.reshape(out.shape + (1,) * (ndim - 1))
+
+
+def same_shape(img, shape) -> None:
+    """The JAX samplers carry the image through ``lax.scan``, which refuses
+    a step whose image changes shape (a ``learned_variance`` UNet's two
+    channels a pixel): the same ``TypeError`` here."""
+    if tuple(img.shape) != tuple(shape):
+        raise TypeError(f"the sampler's image changes shape in a step: {tuple(shape)} -> "
+                        f"{tuple(img.shape)} (a prediction of another shape, as "
+                        "learned_variance gives, cannot be sampled)")

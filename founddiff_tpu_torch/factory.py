@@ -21,7 +21,11 @@ import torch.nn as nn
 from founddiff_tpu_torch.config import Config
 from founddiff_tpu_torch.diffusion.gaussian import GaussianDiffusion
 from founddiff_tpu_torch.diffusion.residual import ResidualDiffusion
-from founddiff_tpu_torch.models.blocks import ChanLayerNorm, TransposedAttention
+from founddiff_tpu_torch.models.blocks import (
+    ChanLayerNorm,
+    RandomOrLearnedSinusoidalPosEmb,
+    TransposedAttention,
+)
 from founddiff_tpu_torch.models.clip import CLIP, AttentionPool2d, PromptLearner, _MHAWeights
 from founddiff_tpu_torch.models.founddiff import FoundDiffDenoiser
 from founddiff_tpu_torch.models.ss2d import SS2D, MambaBlock
@@ -66,6 +70,8 @@ def init_params(model: nn.Module, gen: torch.Generator) -> None:
             mod.Ds.fill_(1.0)
         elif isinstance(mod, TransposedAttention):
             mod.temperature.fill_(1.0)
+        elif isinstance(mod, RandomOrLearnedSinusoidalPosEmb):
+            _fill(mod.weights, gen, "normal", 0.0, 1.0)
         elif isinstance(mod, ChanLayerNorm):
             mod.g.fill_(1.0)
         elif isinstance(mod, AttentionPool2d):
@@ -95,7 +101,9 @@ def init_params(model: nn.Module, gen: torch.Generator) -> None:
 # The FoundDiff fields the JAX factory does not pass on, so its UNet always
 # has their defaults (founddiff_tpu/factory.py:33-46, models/unet.py:227-241,
 # models/founddiff.py:28-63): the port builds the same model from one Config.
-JAX_FIXED = {"base_d_state": 4, "ssm_expand": 2.0, "resnet_block_groups": 8}
+# The no-tower UnetRes takes resnet_block_groups and learned_variance.
+JAX_FIXED = {"base_d_state": 4, "ssm_expand": 2.0, "resnet_block_groups": 8,
+             "learned_variance": False}
 
 
 def build_denoiser(config: Config,
@@ -103,15 +111,18 @@ def build_denoiser(config: Config,
     """The vanilla UNet, FoundDiff (``use_dose_encoder``) or, without the
     tower, a ``UnetRes`` whose dose/content embeddings are zeros
     (``founddiff_tpu/factory.py:32-59``; the JAX factory passes
-    ``resnet_block_groups`` on to that one)."""
+    ``resnet_block_groups`` and ``learned_variance`` on to that one, and to
+    the vanilla UNet)."""
     m = config.model
     if m.original_ddim_ddpm:
         return VanillaUnet(dim=m.dim, dim_mults=tuple(m.dim_mults), channels=m.channels,
                            self_condition=m.self_condition,
-                           resnet_block_groups=m.resnet_block_groups)
+                           resnet_block_groups=m.resnet_block_groups,
+                           learned_variance=m.learned_variance)
     fixed = dict(JAX_FIXED)
     if not m.use_dose_encoder:
         fixed.pop("resnet_block_groups")
+        fixed.pop("learned_variance")
     ignored = {k: getattr(m, k) for k, v in fixed.items() if getattr(m, k) != v}
     kind = "FoundDiff" if m.use_dose_encoder else "UnetRes"
     if ignored:
@@ -122,9 +133,11 @@ def build_denoiser(config: Config,
     kw = dict(dim=m.dim, dim_mults=tuple(m.dim_mults), channels=m.channels,
               num_unet=m.num_unet, condition=m.condition, input_condition=m.input_condition,
               self_condition=m.self_condition, objective=m.objective,
-              test_res_or_noise=m.test_res_or_noise, **fixed)
+              test_res_or_noise=m.test_res_or_noise,
+              **{k: v for k, v in fixed.items() if k != "learned_variance"})
     if not m.use_dose_encoder:
-        return UnetRes(resnet_block_groups=m.resnet_block_groups, **kw)
+        return UnetRes(resnet_block_groups=m.resnet_block_groups,
+                       learned_variance=m.learned_variance, **kw)
     return FoundDiffDenoiser(clip_backbone=m.clip_backbone, clip_overrides=clip_overrides, **kw)
 
 
@@ -165,7 +178,7 @@ def build(config: Config, device="cuda", seed: Optional[int] = None, clip_overri
         model_fn, image_size=d.image_size, channels=m.channels, timesteps=d.timesteps,
         sampling_timesteps=d.sampling_timesteps, loss_type=d.loss_type, objective=m.objective,
         condition=m.condition, sum_scale=d.sum_scale, input_condition=m.input_condition,
-        test_res_or_noise=m.test_res_or_noise, self_condition=m.self_condition,
+        input_condition_mask=m.input_condition_mask, test_res_or_noise=m.test_res_or_noise, self_condition=m.self_condition,
         ddim_sampling_eta=d.ddim_sampling_eta, ddim_update=d.ddim_update,
         convert_to_ddim=d.convert_to_ddim, clip_denoised=d.clip_denoised, device=device)
     return diffusion, model

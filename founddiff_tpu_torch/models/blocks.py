@@ -105,6 +105,50 @@ class SinusoidalPosEmb(nn.Module):
         return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 
 
+class RandomOrLearnedSinusoidalPosEmb(nn.Module):
+    """``[t, sin(2 pi t w), cos(2 pi t w)]`` with w [dim // 2] from N(0, 1)
+    (src/DADiff.py:189-205, crowsonkb's random Fourier features): learned,
+    or with ``is_random`` fixed (no gradient reaches w, as the JAX
+    ``stop_gradient``).  Output width ``2 * (dim // 2) + 1``."""
+
+    def __init__(self, dim: int, is_random: bool = False):
+        super().__init__()
+        self.is_random = is_random
+        self.weights = nn.Parameter(torch.randn(dim // 2), requires_grad=not is_random)
+
+    def forward(self, t):
+        w = self.weights.detach() if self.is_random else self.weights
+        t = t.float()[:, None]
+        freqs = t * w.float()[None, :] * 2 * math.pi
+        return torch.cat([t, torch.sin(freqs), torch.cos(freqs)], dim=-1)
+
+
+class TimestepEmbedder(nn.Module):
+    """DiT timestep embedder (src/DADiff.py:490-527): the cos-first
+    frequency embedding (a zero column at odd ``frequency_embedding_size``),
+    then ``mlp`` = Linear, SiLU, Linear (keys ``mlp.0``, ``mlp.2``)."""
+
+    def __init__(self, hidden_size: int, frequency_embedding_size: int = 256):
+        super().__init__()
+        self.frequency_embedding_size = frequency_embedding_size
+        self.mlp = nn.Sequential(Dense(frequency_embedding_size, hidden_size), nn.SiLU(),
+                                 Dense(hidden_size, hidden_size))
+
+    @staticmethod
+    def timestep_embedding(t, dim: int, max_period: int = 10000):
+        half = dim // 2
+        freqs = torch.exp(-math.log(max_period)
+                          * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+        args = t.float()[:, None] * freqs[None, :]
+        emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+        if dim % 2:
+            emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+        return emb
+
+    def forward(self, t):
+        return self.mlp(self.timestep_embedding(t, self.frequency_embedding_size))
+
+
 class Block(nn.Module):
     """WSConv -> GroupNorm -> (scale/shift) -> SiLU (+ residual)
     (src/DADiff.py:214-233); the GroupNorm epilogue is
@@ -271,6 +315,60 @@ class Attention(nn.Module):
             sim = (q * scale).float() @ k.float().transpose(-1, -2)
             out = torch.softmax(sim, dim=-1).to(v.dtype) @ v
         return self.to_out(out.transpose(1, 2).reshape(B, H, W, -1))
+
+
+class ChannelAttention(nn.Module):
+    """RCAN squeeze-excite channel attention (src/DADiff.py:232-249): the
+    pixel mean, a 1x1 conv to ``num_feat // squeeze_factor``, ReLU, a 1x1
+    conv back, and ``x * sigmoid(.)`` (keys ``attention.1``, ``attention.3``)."""
+
+    def __init__(self, num_feat: int, squeeze_factor: int = 16):
+        super().__init__()
+        self.attention = nn.Sequential(nn.AdaptiveAvgPool2d(1),
+                                       conv(num_feat, num_feat // squeeze_factor, 1),
+                                       nn.ReLU(), conv(num_feat // squeeze_factor, num_feat, 1),
+                                       nn.Sigmoid())
+
+    def forward(self, x):
+        y = x.mean(dim=(1, 2), keepdim=True)
+        y = self.attention[3](torch.relu(self.attention[1](y)))
+        return x * torch.sigmoid(y)
+
+
+class CrossAttention(nn.Module):
+    """Pixel-to-context attention (src/DADiff.py:319-366; JAX
+    blocks.py:581-615): x [B, H, W, query_dim] attends to ``context`` [B,
+    Lk, context_dim], or to itself without one.  Where ``Lq * Lk >= 1024^2``
+    and ``Lk >= 128`` the product runs through :func:`flash_attention`
+    (its kernels on the card), else as the plain softmax, the probabilities
+    cast to v's dtype.  ``to_out`` = Linear, Dropout (keys ``to_out.0``);
+    the dropout acts in train mode only."""
+
+    def __init__(self, query_dim: int, context_dim: int = 256, heads: int = 4,
+                 dim_head: int = 32, dropout: float = 0.0):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads, self.dim_head = heads, dim_head
+        self.to_q = Dense(query_dim, inner, bias=False)
+        self.to_k = Dense(context_dim, inner, bias=False)
+        self.to_v = Dense(context_dim, inner, bias=False)
+        self.to_out = nn.Sequential(Dense(inner, query_dim), nn.Dropout(dropout))
+
+    def forward(self, x, context=None):
+        B, H, W, C = x.shape
+        xf = x.reshape(B, H * W, C)
+        ctx = xf if context is None else context
+        heads = lambda u: u.reshape(B, u.shape[1], self.heads, -1).transpose(1, 2)
+        q, k, v = heads(self.to_q(xf)), heads(self.to_k(ctx)), heads(self.to_v(ctx))
+        scale = self.dim_head ** -0.5
+        Lq, Lk = q.shape[2], k.shape[2]
+        if Lq * Lk >= 1024 * 1024 and Lk >= 128:
+            out = flash_attention(q, k, v, scale)
+        else:
+            sim = (q.float() @ k.float().transpose(-1, -2)) * scale
+            out = torch.softmax(sim, dim=-1).to(v.dtype) @ v
+        out = self.to_out(out.transpose(1, 2).reshape(B, H * W, -1))
+        return out.reshape(B, H, W, -1)
 
 
 def modulate(x, shift, scale):

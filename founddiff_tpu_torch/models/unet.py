@@ -18,6 +18,7 @@ import torch.nn as nn
 from founddiff_tpu_torch.models.blocks import (
     Dense,
     Downsample,
+    RandomOrLearnedSinusoidalPosEmb,
     ResnetBlock,
     SinusoidalPosEmb,
     Upsample,
@@ -42,18 +43,43 @@ def with_mesh(module: nn.Module, mesh) -> nn.Module:
     return new
 
 
+def time_mlp(dim: int, time_dim: int, learned_sinusoidal_cond: bool = False,
+             random_fourier_features: bool = False,
+             learned_sinusoidal_dim: int = 16) -> nn.Sequential:
+    """The time MLP of both UNet families (keys ``time_mlp.{0,1,3}``): the
+    embedding, Linear, GELU, Linear; the first Linear's width follows the
+    embedding's."""
+    if learned_sinusoidal_cond or random_fourier_features:
+        emb = RandomOrLearnedSinusoidalPosEmb(learned_sinusoidal_dim, random_fourier_features)
+        width = 2 * (learned_sinusoidal_dim // 2) + 1
+    else:
+        emb, width = SinusoidalPosEmb(dim), dim
+    return nn.Sequential(emb, Dense(width, time_dim), nn.GELU(), Dense(time_dim, time_dim))
+
+
 class Unet(nn.Module):
     """UNet backbone (src/DADiff.py:530-740).  ``dose_encoder``: the frozen
     Dose-CLIP tower, held here as the reference holds it (its state-dict keys
     are ``unet0.dose_encoder.*``) but never called by ``forward``; the
-    samplers run it once per slice."""
+    samplers run it once per slice.
+
+    ``init_dim`` (default ``dim``) is init_conv's width and the first
+    level's; ``out_dim`` (default ``channels``, twice that with
+    ``learned_variance``) final_conv's.  ``learned_sinusoidal_cond`` /
+    ``random_fourier_features`` embed the time with
+    :class:`RandomOrLearnedSinusoidalPosEmb` of ``learned_sinusoidal_dim``
+    (the time MLP then takes ``learned_sinusoidal_dim + 1`` features), else
+    with the sinusoidal embedding of ``dim`` (unet.py:80-95)."""
 
     def __init__(self, dim: int, dim_mults: Tuple[int, ...] = (1, 2, 4, 8),
                  channels: int = 1, self_condition: bool = False,
                  resnet_block_groups: int = 8, condition: bool = False,
                  input_condition: bool = False, base_d_state: int = 4,
                  ssm_expand: float = 2.0, context_dim: int = 1024,
-                 dose_encoder: Optional[nn.Module] = None):
+                 dose_encoder: Optional[nn.Module] = None, init_dim: Optional[int] = None,
+                 out_dim: Optional[int] = None, learned_variance: bool = False,
+                 learned_sinusoidal_cond: bool = False, random_fourier_features: bool = False,
+                 learned_sinusoidal_dim: int = 16):
         super().__init__()
         self.channels = channels
         self.self_condition = self_condition
@@ -62,9 +88,10 @@ class Unet(nn.Module):
         in_ch = channels * (1 + int(condition) + int(input_condition) + int(self_condition))
         time_dim = dim * 4
         g = resnet_block_groups
-        self.init_conv = conv(in_ch, dim, 7)
-        self.time_mlp = nn.Sequential(SinusoidalPosEmb(dim), Dense(dim, time_dim),
-                                      nn.GELU(), Dense(time_dim, time_dim))
+        init_dim = init_dim or dim
+        self.init_conv = conv(in_ch, init_dim, 7)
+        self.time_mlp = time_mlp(dim, time_dim, learned_sinusoidal_cond,
+                                 random_fourier_features, learned_sinusoidal_dim)
         if condition:
             self.prompt = nn.Parameter(torch.empty(1, time_dim))
             self.text_mlp = nn.Sequential(Dense(context_dim, time_dim), nn.SiLU(),
@@ -73,7 +100,7 @@ class Unet(nn.Module):
         if dose_encoder is not None:
             self.dose_encoder = dose_encoder
 
-        dims = [dim] + [dim * m for m in dim_mults]
+        dims = [init_dim] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         n = len(in_out)
         d_state = lambda level: base_d_state * 2 ** level
@@ -96,8 +123,8 @@ class Unet(nn.Module):
                 MambaBlock(d_out, d_state(n - 1 - i), time_dim, ssm_expand),
                 up,
             ]))
-        self.final_res_block = ResnetBlock(2 * dim, dim, g)
-        self.final_conv = conv(dim, channels, 1)
+        self.final_res_block = ResnetBlock(2 * init_dim, dim, g)
+        self.final_conv = conv(dim, out_dim or channels * (2 if learned_variance else 1), 1)
 
     def forward(self, x, time, dose_embedding=None, content_embedding=None,
                 x_self_cond=None):
@@ -149,7 +176,8 @@ class UnetRes(nn.Module):
                  input_condition: bool = False, objective: str = "pred_res_noise",
                  test_res_or_noise: str = "res_noise", base_d_state: int = 4,
                  ssm_expand: float = 2.0, context_dim: int = 1024,
-                 dose_encoder: Optional[nn.Module] = None):
+                 dose_encoder: Optional[nn.Module] = None, init_dim: Optional[int] = None,
+                 out_dim: Optional[int] = None, learned_variance: bool = False):
         super().__init__()
         if num_unet not in (1, 2):
             raise ValueError("num_unet is 1 or 2")
@@ -160,7 +188,8 @@ class UnetRes(nn.Module):
                   self_condition=self_condition, resnet_block_groups=resnet_block_groups,
                   condition=condition, input_condition=input_condition,
                   base_d_state=base_d_state, ssm_expand=ssm_expand,
-                  context_dim=context_dim)
+                  context_dim=context_dim, init_dim=init_dim, out_dim=out_dim,
+                  learned_variance=learned_variance)
         self.unet0 = Unet(**kw, dose_encoder=dose_encoder)
         if num_unet == 2:
             self.unet1 = Unet(**kw)

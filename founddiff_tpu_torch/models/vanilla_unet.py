@@ -12,7 +12,7 @@ likewise, then ``mid_block1``, ``mid_attn``, ``mid_block2``,
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -25,10 +25,10 @@ from founddiff_tpu_torch.models.blocks import (
     LinearAttention,
     PreNorm,
     Residual,
-    SinusoidalPosEmb,
     Upsample,
     conv,
 )
+from founddiff_tpu_torch.models.unet import time_mlp
 
 
 class TimeResnetBlock(nn.Module):
@@ -52,19 +52,27 @@ class TimeResnetBlock(nn.Module):
 
 class VanillaUnet(nn.Module):
     """``forward(x [B,H,W,C] NHWC, time [B], x_self_cond=None)`` returns one
-    tensor [B,H,W,C]: the predicted noise (no learned variance)."""
+    tensor [B,H,W,out_dim]: the predicted noise, and with
+    ``learned_variance`` (out_dim ``2 * channels``) a second half the
+    diffusion uses as it is.  ``init_dim``, ``out_dim`` and the learned or
+    random sinusoidal embedding as :class:`~founddiff_tpu_torch.models.unet.Unet`
+    takes them (vanilla_unet.py:55-137)."""
 
     def __init__(self, dim: int, dim_mults: Tuple[int, ...] = (1, 2, 4, 8), channels: int = 3,
-                 self_condition: bool = False, resnet_block_groups: int = 8):
+                 self_condition: bool = False, resnet_block_groups: int = 8,
+                 init_dim: Optional[int] = None, out_dim: Optional[int] = None,
+                 learned_variance: bool = False, learned_sinusoidal_cond: bool = False,
+                 random_fourier_features: bool = False, learned_sinusoidal_dim: int = 16):
         super().__init__()
         self.channels = channels
         self.self_condition = self_condition
         time_dim = dim * 4
         g = resnet_block_groups
-        self.init_conv = conv(channels * (2 if self_condition else 1), dim, 7)
-        self.time_mlp = nn.Sequential(SinusoidalPosEmb(dim), Dense(dim, time_dim), nn.GELU(),
-                                      Dense(time_dim, time_dim))
-        dims = [dim] + [dim * m for m in dim_mults]
+        init_dim = init_dim or dim
+        self.init_conv = conv(channels * (2 if self_condition else 1), init_dim, 7)
+        self.time_mlp = time_mlp(dim, time_dim, learned_sinusoidal_cond,
+                                 random_fourier_features, learned_sinusoidal_dim)
+        dims = [init_dim] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         n = len(in_out)
         block = lambda c_in, c_out: TimeResnetBlock(c_in, c_out, time_dim, g)
@@ -86,8 +94,8 @@ class VanillaUnet(nn.Module):
                 Residual(PreNorm(d_out, LinearAttention(d_out))),
                 Upsample(d_out, d_in) if i < n - 1 else conv(d_out, d_in, 3),
             ]))
-        self.final_res_block = block(2 * dim, dim)
-        self.final_conv = conv(dim, channels, 1)
+        self.final_res_block = block(2 * init_dim, dim)
+        self.final_conv = conv(dim, out_dim or channels * (2 if learned_variance else 1), 1)
 
     def forward(self, x, time, x_self_cond=None):
         if self.self_condition:

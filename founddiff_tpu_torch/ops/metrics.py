@@ -75,3 +75,8 @@ def compute_rmse(pred: torch.Tensor, target: torch.Tensor):
     """src/util.py:235-236."""
     return (pred.float() - target.float()).square().mean().sqrt()
 
+
+def slice_metrics(pred: torch.Tensor, target: torch.Tensor):
+    """PSNR, SSIM and RMSE of one batch of slices (metrics.py:99-105)."""
+    return {"psnr": compute_psnr(pred, target), "ssim": compute_ssim(pred, target),
+            "rmse": compute_rmse(pred, target)}

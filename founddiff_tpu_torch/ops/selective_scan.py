@@ -20,6 +20,44 @@ import torch
 import torch.nn.functional as F
 
 
+def selective_scan_ref(u, delta, A, Bmat, Cmat, Dskip=None, delta_bias=None,
+                       delta_softplus: bool = True, h_init=None,
+                       return_last_state: bool = False):
+    """The step-by-step reference (``selective_scan_ref``,
+    selective_scan.py:67-100): the recurrence over L in fp32 from ``h_init``
+    [B, K, D, N] (zeros by default); y [B, K, L, D] fp32, and with
+    ``return_last_state`` the state after step L."""
+    u, delta = u.float(), delta.float()
+    if delta_bias is not None:
+        delta = delta + delta_bias.float()[None, :, None, :]
+    if delta_softplus:
+        delta = F.softplus(delta)
+    A, Bmat, Cmat = A.float(), Bmat.float(), Cmat.float()
+    Bsz, K, L, D = u.shape
+    h = (torch.zeros(Bsz, K, D, A.shape[-1], device=u.device) if h_init is None
+         else h_init.float())
+    ys = []
+    for t in range(L):
+        dt = delta[:, :, t, :, None]
+        h = torch.exp(dt * A[None]) * h + (dt * u[:, :, t, :, None]) * Bmat[:, :, t, None, :]
+        ys.append(torch.einsum("bkdn,bkn->bkd", h, Cmat[:, :, t]))
+    y = torch.stack(ys, dim=2)
+    if Dskip is not None:
+        y = y + u * Dskip.float()[None, :, None, :]
+    return (y, h) if return_last_state else y
+
+
+def flops_selective_scan(B: int, L: int, D: int, N: int, with_D: bool = True,
+                         with_Z: bool = False, with_group: bool = True,
+                         with_complex: bool = False) -> int:
+    """Static FLOP estimate of one selective scan (``flops_selective_scan_fn``,
+    src/emamba2.py:38-110; selective_scan.py:199-219): 9 B L D N for the
+    recurrence, plus B D L for the D skip and for the z gate."""
+    if with_complex:
+        raise ValueError("complex scans are not estimated")
+    return 9 * B * L * D * N + (B * D * L if with_D else 0) + (B * D * L if with_Z else 0)
+
+
 def selective_scan_chunked(u, delta, A, Bmat, Cmat, Dskip=None, delta_bias=None,
                            chunk: Optional[int] = None, return_bounds: bool = False,
                            return_last_state: bool = False):
@@ -143,12 +181,41 @@ def efficient_scan(x: torch.Tensor, step_size: int = 2) -> torch.Tensor:
     return torch.stack([flat(d0), flat(d1), flat(d2), flat(d3)], dim=1)
 
 
+def cross_scan_v0(x: torch.Tensor) -> torch.Tensor:
+    """The full four-direction layout of ``forward_corev0`` (reference
+    src/emamba2.py:589-612): [row-major, column-major, reversed row-major,
+    reversed column-major]; x [B, H, W, C] -> [B, 4, H*W, C]."""
+    B, H, W, C = x.shape
+    rows = x.reshape(B, H * W, C)
+    cols = x.transpose(1, 2).reshape(B, H * W, C)
+    return torch.stack([rows, cols, rows.flip(1), cols.flip(1)], dim=1)
+
+
+def cross_merge_v0(ys: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """The inverse accumulate of :func:`cross_scan_v0` (src/emamba2.py:625-630):
+    each direction un-flipped and un-transposed, the four summed;
+    ys [B, 4, H*W, C] -> [B, H, W, C]."""
+    B, K, L, C = ys.shape
+    rows = ys[:, 0] + ys[:, 2].flip(1)
+    cols = ys[:, 1] + ys[:, 3].flip(1)
+    return rows.reshape(B, H, W, C) + cols.reshape(B, W, H, C).transpose(1, 2)
+
+
 def efficient_merge(ys: torch.Tensor, ori_h: int, ori_w: int,
                     step_size: int = 2) -> torch.Tensor:
     """Inverse interleave (reference src/emamba2.py:236-263):
-    out[2i,2j]=dir0, out[2i+1,2j]=dir1, out[2i,2j+1]=dir2, out[2i+1,2j+1]=dir3."""
+    out[2i,2j]=dir0, out[2i+1,2j]=dir1, out[2i,2j+1]=dir2, out[2i+1,2j+1]=dir3.
+
+    The four directions fill a 2x2 block of each s x s cell; the JAX merge
+    reshapes them to the whole cell, which fails for any step but 2
+    (``efficient_merge``'s reshape, selective_scan.py:301): so does this
+    one, with a ``TypeError`` as there."""
     B, K, L, C = ys.shape
     s = step_size
+    if s != 2:
+        raise TypeError(f"efficient_merge: 4 directions of {L} steps fill a 2x2 block of each "
+                        f"{s}x{s} cell, not the cell (step_size {s}; the JAX merge fails "
+                        "the same way)")
     H = -(-ori_h // s)
     W = -(-ori_w // s)
     d0 = ys[:, 0].reshape(B, H, W, C)

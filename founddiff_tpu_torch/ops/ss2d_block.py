@@ -18,6 +18,12 @@ Rounding follows the TPU kernel: projections take io-dtype operands with
 fp32 sums; the scan state, the LayerNorm and the silu run in fp32; z and
 the gated epilogue are rounded to the io dtype before their products; the
 scan output y is never rounded.
+
+``silu_input=True`` (the model's ``FOUNDDIFF_SILU=kernel``, JAX
+ss2d_block.py:110-116): xs_conv is the raw dwconv output and the block reads
+``silu(xs_conv)``, computed in fp32 and rounded to the io dtype, at each load
+of it; the backward's composition applies the silu first in the io dtype
+(JAX :487-488).
 """
 
 from __future__ import annotations
@@ -56,8 +62,16 @@ def _mm(a, w, io):
     return a.to(io).float() @ w.to(io).float()
 
 
+def _silu_io(xs):
+    """silu in fp32 of the io-dtype xs, rounded to the io dtype (the
+    kernel's load of a silu_input xs)."""
+    return torch.nn.functional.silu(xs.float()).to(xs.dtype)
+
+
 def _ss2d_block_plain(x1, xs, x_raw, w_z, w_delta, w_b, w_c, A, Dskip, delta_bias,
-                      ln_g, ln_b, local, proj_w, gate, eps):
+                      ln_g, ln_b, local, proj_w, gate, eps, silu_input=False):
+    if silu_input:
+        xs = _silu_io(xs)
     z = _mm(x1, w_z, xs.dtype).to(xs.dtype).float()
     return _ss2d_tail_plain(z, xs, x_raw, w_delta, w_b, w_c, A, Dskip, delta_bias, ln_g, ln_b,
                             local, proj_w, gate, eps)
@@ -100,15 +114,16 @@ def _kernel_weights(w_z, w_delta, w_b, w_c, A, Dskip, delta_bias, ln_g, ln_b, pr
                 b=f32(ln_b))
 
 
-_BLOCK_TAIL = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
+_BLOCK_TAIL = [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 3
 # bf16 products on the tensor cores (False: on the CUDA cores of fd::gemm,
 # the earlier route, which the checks on the card hold the first against)
 TENSOR_CORES = True
 
 
-def _launch(x1, xs, x_raw, w, local, gate, eps):
+def _launch(x1, xs, x_raw, w, local, gate, eps, silu_input=False):
     """One ``ss2d_block_forward`` launch with the weight operands ``w`` of
-    :func:`_kernel_weights`."""
+    :func:`_kernel_weights`; ``silu_input`` sets the kernel's silu flag and
+    counts the launch in ``ss2d_image_block.launches_silu`` too."""
     B, H, W, D = xs.shape
     C0 = x_raw.shape[-1]
     N = w["A"].shape[-1]
@@ -140,29 +155,34 @@ def _launch(x1, xs, x_raw, w, local, gate, eps):
     rc = fn(*map(_build.ptr, (x1, xs, x_raw, w["wz"], w["wproj"], w["A"], w["Ds"], w["bias"],
                               w["g"], w["b"], loc32, w["pw"], gate32, out, proj_buf, chunk_sum,
                               chunk_state, ybuf, yacc, stats, og)),
-            B, H, W, C0, D, N, _CHUNK, eps, int(TENSOR_CORES), _build.dtype_code(xs),
-            _build.stream())
+            B, H, W, C0, D, N, _CHUNK, eps, int(TENSOR_CORES), int(silu_input),
+            _build.dtype_code(xs), _build.stream())
     _build.check(rc, "ss2d_block_forward")
     ss2d_image_block.launches += 1
+    ss2d_image_block.launches_silu += int(silu_input)
     return out
 
 
 def _ss2d_block_cuda(x1, xs, x_raw, w_z, w_delta, w_b, w_c, A, Dskip, delta_bias,
-                     ln_g, ln_b, local, proj_w, gate, eps):
+                     ln_g, ln_b, local, proj_w, gate, eps, silu_input=False):
     w = _kernel_weights(w_z, w_delta, w_b, w_c, A, Dskip, delta_bias, ln_g, ln_b, proj_w,
                         xs.dtype)
-    return _launch(x1, xs, x_raw, w, local, gate, eps)
+    return _launch(x1, xs, x_raw, w, local, gate, eps, silu_input)
 
 
 def ss2d_compose(x1, xs_conv, x_raw, w_z, w_delta, w_b, w_c, A, Dskip, delta_bias,
-                 ln_g, ln_b, local, proj_w, gate, eps):
+                 ln_g, ln_b, local, proj_w, gate, eps, silu_input=False):
     """The remat composition of the block (``_xla_compose`` with
     ``_merge_ln_gate_xla``, ss2d_fused.py:94-120), differentiable.
 
-    The scan is :class:`ScanImageFn` where :func:`image_scan_vmem_ok` holds
-    and the decimated :func:`selective_scan` elsewhere, with ys rounded to
-    the io dtype; z comes from an io-dtype product; the epilogue is
+    With ``silu_input`` the silu of xs_conv comes first, in its dtype
+    (``_xla_compose``, ss2d_block.py:487-488).  The scan is
+    :class:`ScanImageFn` where :func:`image_scan_vmem_ok` holds and the
+    decimated :func:`selective_scan` elsewhere, with ys rounded to the io
+    dtype; z comes from an io-dtype product; the epilogue is
     :func:`~founddiff_tpu_torch.ops.ss2d_fused._merge_ln_gate_xla`."""
+    if silu_input:
+        xs_conv = xs_conv * torch.sigmoid(xs_conv)
     B, H, W, D = xs_conv.shape
     N = A.shape[-1]
     io = xs_conv.dtype
@@ -181,17 +201,17 @@ class _SS2DBlockFn(torch.autograd.Function):
     Backward: autograd through :func:`ss2d_compose`."""
 
     @staticmethod
-    def forward(ctx, eps, *args):
-        ctx.eps = eps
+    def forward(ctx, eps, silu_input, *args):
+        ctx.eps, ctx.silu_input = eps, silu_input
         ctx.save_for_backward(*args)
         fn = _ss2d_block_cuda if args[1].is_cuda else _ss2d_block_plain
-        return fn(*args, eps)
+        return fn(*args, eps, silu_input)
 
     @staticmethod
     def backward(ctx, g):
-        eps = ctx.eps
-        return (None, *remat_grads(lambda *a: ss2d_compose(*a, eps), ctx.saved_tensors,
-                                   ctx.needs_input_grad[1:], g))
+        eps, silu_input = ctx.eps, ctx.silu_input
+        return (None, None, *remat_grads(lambda *a: ss2d_compose(*a, eps, silu_input),
+                                         ctx.saved_tensors, ctx.needs_input_grad[2:], g))
 
 
 def _split_weights(w_z, x_proj_weight, dt_projs_weight, dt_rank, d_state, io):
@@ -211,11 +231,12 @@ def _split_args(x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A, Dski
 
 def ss2d_image_block(x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A,
                      Dskip, delta_bias, ln_g, ln_b, local, proj_w, gate,
-                     dt_rank: int, d_state: int, eps: float = 1e-5):
+                     dt_rank: int, d_state: int, eps: float = 1e-5, silu_input: bool = False):
     """``x_raw + gate * out_proj(LN(scan(xs_conv)) * silu(x1 @ w_z) + local)``.
 
     x1 [B,H,W,C0] modulated block input; xs_conv [B,H,W,D] post-silu scan
-    input; x_raw [B,H,W,C0] residual; w_z [C0,D]; x_proj_weight [4,R+2N,D];
+    input (with ``silu_input`` the raw dwconv output, silu applied inside);
+    x_raw [B,H,W,C0] residual; w_z [C0,D]; x_proj_weight [4,R+2N,D];
     dt_projs_weight [4,D,R]; A [4,D,N] (negative); Dskip, delta_bias [4,D];
     ln_g, ln_b [D]; local [B,D] or None; proj_w [D,C0]; gate [B,C0].
     CUDA tensors launch the kernel; CPU tensors take the plain version.
@@ -225,7 +246,7 @@ def ss2d_image_block(x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A,
     """
     weights = (w_z, x_proj_weight, dt_projs_weight, A, Dskip, delta_bias, ln_g, ln_b, proj_w)
     if _cache.needs_grad(x1, xs_conv, x_raw, local, gate, *weights):
-        return _SS2DBlockFn.apply(eps, *_split_args(
+        return _SS2DBlockFn.apply(eps, silu_input, *_split_args(
             x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A, Dskip, delta_bias,
             ln_g, ln_b, local, proj_w, gate, dt_rank, d_state))
     io = xs_conv.dtype
@@ -233,20 +254,22 @@ def ss2d_image_block(x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A,
     if xs_conv.is_cuda:
         w = _cache.derived(("ss2d_block", io, dt_rank, d_state), weights, lambda: _kernel_weights(
             *split(), A, Dskip, delta_bias, ln_g, ln_b, proj_w, io))
-        return _launch(x1, xs_conv, x_raw, w, local, gate, eps)
+        return _launch(x1, xs_conv, x_raw, w, local, gate, eps, silu_input)
     wz, wd, wb, wc = _cache.derived(("ss2d_block plain", io, dt_rank, d_state), weights, split)
     return _ss2d_block_plain(x1, xs_conv, x_raw, wz, wd, wb, wc, A, Dskip, delta_bias, ln_g,
-                             ln_b, local, proj_w, gate, eps)
+                             ln_b, local, proj_w, gate, eps, silu_input)
 
 
 def ss2d_image_block_plain(x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A,
                            Dskip, delta_bias, ln_g, ln_b, local, proj_w, gate,
-                           dt_rank: int, d_state: int, eps: float = 1e-5):
+                           dt_rank: int, d_state: int, eps: float = 1e-5,
+                           silu_input: bool = False):
     """The plain version of :func:`ss2d_image_block` on any device: the test
     oracle the kernel is held against."""
     return _ss2d_block_plain(*_split_args(
         x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A, Dskip, delta_bias,
-        ln_g, ln_b, local, proj_w, gate, dt_rank, d_state), eps)
+        ln_g, ln_b, local, proj_w, gate, dt_rank, d_state), eps, silu_input)
 
 
 ss2d_image_block.launches = 0
+ss2d_image_block.launches_silu = 0  # the launches with silu_input, counted in launches too

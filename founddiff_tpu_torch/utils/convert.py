@@ -10,6 +10,13 @@ for the vanilla UNet the lucidrains ``Unet``'s (``downs.<i>.<0..3>``,
 ``mid_attn.fn.fn``, ``mlp.1``, ...), which the JAX package has no converter
 for and no reference checkpoint has been loaded against.
 
+The modules no UNet of the JAX package builds by default take the
+reference names too: ``sinu_pos_emb/weights`` (learned or random
+sinusoidal) -> ``time_mlp.0.weights``, CrossAttention ``to_out`` ->
+``to_out.0``, ChannelAttention's two convs -> ``attention.1`` /
+``attention.3``, TimestepEmbedder's two denses -> ``mlp.0`` / ``mlp.2``;
+PatchMerging2D (``norm``, ``reduction``) and the SS2D biases keep theirs.
+
 Layout changes: Dense ``kernel [in, out]`` -> Linear ``weight [out, in]``;
 conv ``kernel [kh, kw, I/g, O]`` -> ``weight [O, I/g, kh, kw]`` (depthwise
 ``[3, 3, 1, D]`` -> ``[D, 1, 3, 3]``); norm ``scale`` -> ``weight``;
@@ -39,6 +46,16 @@ _RENAMES = [(re.compile(p), r) for p, r in [
     (r"^resblock_(\d+)$", r"resblocks.\1"), (r"^attn_out_proj$", "attn.out_proj"),
     (r"^mlp_c_fc$", "mlp.c_fc"), (r"^mlp_c_proj$", "mlp.c_proj"),
     (r"^head(\d)_fc1$", r"head\1.0"), (r"^head(\d)_fc2$", r"head\1.2"),
+    # the learned or random sinusoidal embedding, the first of time_mlp
+    # (src/DADiff.py:189-205, 566-585)
+    (r"^sinu_pos_emb$", "time_mlp.0"),
+    # CrossAttention's to_out = Sequential(Linear, Dropout) (src/DADiff.py:319-366)
+    (r"^to_out$", "to_out.0"),
+    # the unnamed convs of ChannelAttention: attention = Sequential(pool, conv,
+    # ReLU, conv, Sigmoid) (src/DADiff.py:232-249); the unnamed denses of
+    # TimestepEmbedder: mlp = Sequential(Linear, SiLU, Linear) (:490-527)
+    (r"^TorchConv_0$", "attention.1"), (r"^TorchConv_1$", "attention.3"),
+    (r"^TorchDense_0$", "mlp.0"), (r"^TorchDense_1$", "mlp.2"),
 ]]
 # the vanilla UNet's modules (JAX vanilla_unet.py:56-141 -> lucidrains Unet)
 _VANILLA_RENAMES = [(re.compile(p), r) for p, r in [
@@ -48,7 +65,7 @@ _VANILLA_RENAMES = [(re.compile(p), r) for p, r in [
     (r"^down_(\d+)_down$", r"downs.\1.3"), (r"^up_(\d+)_up$", r"ups.\1.3"),
     (r"^mid_attn$", "mid_attn.fn.fn"), (r"^mid_attn_norm$", "mid_attn.fn.norm"),
     (r"^time_mlp_1$", "time_mlp.1"), (r"^time_mlp_2$", "time_mlp.3"), (r"^mlp$", "mlp.1"),
-    (r"^to_out_norm$", "to_out.1"),
+    (r"^to_out_norm$", "to_out.1"), (r"^sinu_pos_emb$", "time_mlp.0"),
 ]]
 _LEAVES = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
            "var": "running_var"}

@@ -969,3 +969,190 @@ def test_clip_extractor_on_the_card(dev):
     card = make_clip_extractor(tower.to(dev))(x.to(dev))
     torch.testing.assert_close(torch.from_numpy(card), torch.from_numpy(cpu), rtol=1e-4,
                                atol=1e-5)
+
+
+# --- the model options: FOUNDDIFF_SILU=kernel, the SS2D variants, CrossAttention ---
+
+
+def _block_args(g, dev, dtype, H, W, C0, N, raw):
+    B, D, R = 2, 2 * C0, -(-C0 // 16)
+    u = lambda *s, b: ((torch.rand(s, generator=g) * 2 - 1) * b).to(dev)
+    dt = torch.exp(torch.rand((4, D), generator=g) * math.log(100) + math.log(1e-3))
+    xs = _n(g, (B, H, W, D), 1.0, dev)
+    return dict(
+        x1=_n(g, (B, H, W, C0), 1.0, dev).to(dtype),
+        xs_conv=(xs if raw else torch.nn.functional.silu(xs)).to(dtype),
+        x_raw=_n(g, (B, H, W, C0), 1.0, dev).to(dtype),
+        w_z=u(C0, D, b=C0 ** -0.5), x_proj_weight=u(4, R + 2 * N, D, b=D ** -0.5),
+        dt_projs_weight=u(4, D, R, b=R ** -0.5),
+        A=-torch.arange(1, N + 1.0).expand(4, D, N).contiguous().to(dev),
+        Dskip=torch.ones(4, D, device=dev), delta_bias=(dt + torch.log(-torch.expm1(-dt))).to(dev),
+        ln_g=_n(g, (D,), 0.1, dev) + 1, ln_b=_n(g, (D,), 0.1, dev),
+        local=_n(g, (B, D), 0.2, dev), proj_w=u(D, C0, b=D ** -0.5),
+        gate=_n(g, (B, C0), 0.3, dev), dt_rank=R, d_state=N)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,W,C0,N", [(16, 12, 32, 4), (8, 8, 64, 16), (6, 6, 40, 4)])
+def test_ss2d_image_block_silu_input(dev, dtype, H, W, C0, N):
+    """The fused block with its silu flag (the raw dwconv output in) against
+    its plain version; one launch, counted with the flag too."""
+    args = _block_args(_gen(H * W + C0 + 1), dev, dtype, H, W, C0, N, raw=True)
+    before = (ss2d_mod.ss2d_image_block.launches, ss2d_mod.ss2d_image_block.launches_silu)
+    got = ss2d_mod.ss2d_image_block(**args, silu_input=True)
+    assert (ss2d_mod.ss2d_image_block.launches,
+            ss2d_mod.ss2d_image_block.launches_silu) == (before[0] + 1, before[1] + 1)
+    _close(got, ss2d_mod.ss2d_image_block_plain(**args, silu_input=True), dtype,
+            base=args["x_raw"])
+
+
+@pytest.mark.gpu
+def test_ss2d_image_block_silu_autograd(dev):
+    """d(sum(out * w)) of the fused block with silu_input, fp32: the kernel
+    forward and the backward through the scan kernels on the card against
+    the same Function on CPU copies, per input."""
+    g = _gen(91)
+    args = _block_args(g, dev, torch.float32, 8, 12, 32, 4, raw=True)
+    w = _n(g, args["x_raw"].shape, 1.0, dev)
+    names = [k for k, v in args.items() if torch.is_tensor(v)]
+
+    def grads(device):
+        leaves = {k: (args[k].detach().to(device).requires_grad_(True) if k in names
+                      else args[k]) for k in args}
+        out = ss2d_mod.ss2d_image_block(**leaves, silu_input=True)
+        (out * w.to(device)).sum().backward()
+        return [leaves[k].grad.cpu() for k in names]
+
+    for name, a, b in zip(names, grads(dev), grads("cpu")):
+        assert float((a - b).norm() / b.norm().clamp_min(1e-30)) <= 1e-3, name
+
+
+def _module_pair(make, dev, seed):
+    from founddiff_tpu_torch.factory import init_params
+
+    mod = make()
+    init_params(mod, _gen(seed))
+    mod.eval().requires_grad_(False)
+    import copy
+
+    return copy.deepcopy(mod).to(dev), mod
+
+
+SS2D_VARIANTS = [(dict(use_bias=True), 8, 8), (dict(dropout=0.1), 2, 2),
+                 (dict(conv_bias=False, d_conv=5, dt_rank=3), 6, 10),
+                 (dict(forward_type="v0"), 8, 12), (dict(forward_type="v0"), 5, 7),
+                 (dict(use_bias=True, d_conv=4), 5, 7)]
+
+
+def _plain_path(m):
+    """The wrappers an SS2D calls swapped for their plain versions, on the
+    card (``m``: a monkeypatch context)."""
+    from founddiff_tpu_torch.models import ss2d as ss2d_model
+
+    for name, fn in (("ss2d_image_block", ss2d_mod.ss2d_image_block_plain),
+                     ("selective_scan_fused", scan_mod.selective_scan_fused_plain),
+                     ("scan_image", scan_mod.scan_image_forward_plain),
+                     ("merge_ln_gate", fused_mod.merge_ln_gate_plain),
+                     ("merge_ln_gate_split", fused_mod.merge_ln_gate_split_plain),
+                     ("layer_norm_modulated", norm_mod.layer_norm_modulated_plain)):
+        m.setattr(ss2d_model, name, fn)
+    from founddiff_tpu_torch.models import blocks as blocks_mod
+
+    m.setattr(blocks_mod, "layer_norm", norm_mod.layer_norm_plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("opts,H,W", SS2D_VARIANTS)
+def test_ss2d_variants_on_the_card(dev, dtype, opts, H, W, monkeypatch):
+    """Each SS2D option through its kernels against the same module on the
+    plain path, both on the card, with the gated residual: relative
+    ||kernel - plain|| / ||plain - residual|| <= 1e-4 in fp32, 1e-2 (under
+    three bf16 ulps) in bf16."""
+    from founddiff_tpu_torch.models.ss2d import SS2D
+
+    card, _ = _module_pair(lambda: SS2D(32, 4, **opts), dev, H * W)
+    g = _gen(H + W)
+    x, c, gate = (torch.randn(2, H, W, 32, generator=g), torch.randn(2, 1, 256, generator=g),
+                  torch.randn(2, 32, generator=g) * 0.3)
+    args = (x.to(dev, dtype), c.to(dev, dtype), gate.to(dev), x.to(dev, dtype))
+    got = card(*args).float()
+    with monkeypatch.context() as m:
+        _plain_path(m)
+        want = card(*args).float()
+    rel = float((got - want).norm() / (want - args[0].float()).norm())
+    assert rel <= (1e-4 if dtype == torch.float32 else 1e-2), rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,W", [(6, 6), (7, 5)])
+def test_ss2d_step_3_on_the_card(dev, H, W):
+    """Step 3: the fused-projection scan of its sequences on the card against
+    the CPU; the forward raises at the merge on both."""
+    from founddiff_tpu_torch.models.ss2d import SS2D
+
+    card, cpu = _module_pair(lambda: SS2D(16, 4, step_size=3), dev, H * W)
+    xs = torch.nn.functional.silu(torch.randn(2, H, W, 32, generator=_gen(3)))
+    want = cpu.scan_core(xs, merge=False)
+    before = scan_mod.scan_fused_forward.launches
+    got = card.scan_core(xs.to(dev), merge=False)
+    assert scan_mod.scan_fused_forward.launches == before + 1
+    _close(got, want.to(dev), torch.float32)
+    x = torch.randn(1, H, W, 16, generator=_gen(4))
+    for mod, t in ((cpu, x), (card, x.to(dev))):
+        with pytest.raises(TypeError):
+            mod(t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cross", [True, False])
+def test_mamba_block_cross_on_the_card(dev, cross):
+    """MambaBlock at C 128 on 8x8 (the attention half's kernel without
+    cross; norm2 and CrossAttention with it), card against CPU, fp32."""
+    from founddiff_tpu_torch.models.ss2d import MambaBlock
+
+    card, cpu = _module_pair(lambda: MambaBlock(128, 8, time_dim=64, cross=cross), dev, 128)
+    for blk in (card, cpu):
+        blk.adaLN_modulation[1].weight.copy_(torch.randn(768, 64, generator=_gen(5)) * 0.02)
+    g = _gen(6)
+    x, c, t = (torch.randn(2, 8, 8, 128, generator=g), torch.randn(2, 1, 256, generator=g),
+               torch.randn(2, 64, generator=g))
+    before = attn_mod.attn_block.launches
+    got = card(x.to(dev), c.to(dev), t.to(dev)).cpu()
+    assert attn_mod.attn_block.launches == before + (0 if cross else 1)
+    want = cpu(x, c, t)
+    assert float((got - want).norm() / (want - x).norm()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cross_attention_self_on_the_flash_kernel(dev, dtype):
+    """A self-attending CrossAttention at L 1,024 (32^2): the flash forward
+    on the card, the plain softmax on the CPU."""
+    from founddiff_tpu_torch.models.blocks import CrossAttention
+
+    card, cpu = _module_pair(lambda: CrossAttention(64, 64), dev, 64)
+    x = torch.randn(2, 32, 32, 64, generator=_gen(7))
+    before = flash_mod.flash_fwd.launches
+    got = card.to(dtype)(x.to(dev, dtype)).float().cpu()
+    assert flash_mod.flash_fwd.launches == before + 1
+    want = cpu(x)
+    assert float((got - want).norm() / want.norm()) <= (1e-4 if dtype == torch.float32
+                                                         else 2e-2)
+
+
+@pytest.mark.gpu
+def test_auxiliary_losses_on_the_card(dev):
+    from founddiff_tpu_torch.ops.losses import bmc_loss, grad_loss, wt_decomp
+
+    g = _gen(8)
+    a = torch.randn(2, 96, 80, 1, generator=g)
+    b = a + 0.1 * torch.randn(a.shape, generator=g)
+    fns = {"grad": grad_loss, "bmc": lambda p, t: bmc_loss(p, t, 0.5),
+           "wavelet": lambda p, t: (wt_decomp(p.movedim(-1, 1), 3)[1]
+                                    - wt_decomp(t.movedim(-1, 1), 3)[1]).abs().mean()}
+    for name, fn in fns.items():
+        card, cpu = fn(a.to(dev), b.to(dev)), fn(a, b)
+        assert card.device.type == "cuda", name
+        assert abs(float(card) - float(cpu)) <= 1e-5 * abs(float(cpu)), name

@@ -104,8 +104,19 @@ def test_p_losses(objective, loss_type):
 
 
 def test_aux_losses_are_refused():
-    with pytest.raises(NotImplementedError):
-        TDiffusion(lambda *a: None, image_size=SIZE, aux_grad_loss_weight=0.1)
+    """The auxiliary weights are taken, not refused: above 0 they add their
+    terms to losses[0] (held against the JAX loss in
+    ``tests/test_torch_losses.py``), at 0 they add nothing."""
+    def model(x_in, time, s=None):
+        return [x_in[..., :1] * 0.5 + time[0][:, None, None, None] * 1e-3]
+
+    imgs = [t_(i) for i in _pair(4)]
+    t, noise = torch.tensor([100, 700]), torch.from_numpy(
+        np.random.default_rng(4).standard_normal((2, SIZE, SIZE, 1)).astype(np.float32))
+    kw = dict(image_size=SIZE, objective="pred_res", condition=True, device="cpu")
+    losses = {w: TDiffusion(model, aux_grad_loss_weight=w, **kw).loss(imgs, t=t, noise=noise)[0]
+              for w in (0.0, 0.1)}
+    assert float(losses[0.1]) > float(losses[0.0])
 
 
 @pytest.fixture(scope="module")

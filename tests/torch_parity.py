@@ -51,8 +51,14 @@ def micro_vanilla_params(model, seed: int):
     N(0, 0.1), so that no affine is the identity."""
     import jax.numpy as jnp
 
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 1)),
-                            jnp.zeros((1,)))["params"]
+    return filled_params(model, seed, jnp.zeros((1, 16, 16, model.channels)), jnp.zeros((1,)))
+
+
+def filled_params(model, seed: int, *args, **kwargs):
+    """``model``'s param tree for a call on ``args`` from its shapes
+    (``eval_shape``, which compiles nothing), filled as
+    :func:`micro_vanilla_params` fills it."""
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), *args, **kwargs)["params"]
     rng = np.random.default_rng(seed)
 
     def fill(path, s):
