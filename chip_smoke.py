@@ -176,7 +176,7 @@ Phases (any failure exits non-zero before the last line is printed):
    the plain path, and autograd as phase 6 on one MambaBlock at 32^2, C 512,
    d_state 64.
 16. The evaluation entry point, in process, in a working directory under
-   ``checkpoints/`` that it removes after: a synthetic Mayo-2020 ``test``
+   ``checkpoints/`` that phase 19 removes after it: a synthetic Mayo-2020 ``test``
    tree of 512^2 HU slices (``default_rng(16)``; ab, lung and head, doses 2,
    4, 6 and 10 with the quarter-dose scan for 1/4 or 1/10, 32 LDCT slices,
    ``eval_counts`` set to match), a ``model-1.pt`` of ``Config()`` written by
@@ -236,6 +236,32 @@ Phases (any failure exits non-zero before the last line is printed):
    C0 64 on 512^2, ``MambaBlock(cross=True)`` and a self-attending
    ``CrossAttention`` at C 512 on 64^2, kernel path against plain path
    (relative 1e-4, fp32), and ``PatchMerging2D`` there, card against CPU.
+19. The Dose-CLIP family and the tools, on phase 16's tree and predictions:
+   (a) ``python -m founddiff_tpu_torch.tools.train_doseclip`` as a
+   subprocess (``CLIPIQA()``, bs 8 over two views of the 512^2 train512
+   slices, 6 steps; steps/s and peak memory from its log): rc 0, every loss
+   finite, every ``clip_model.*`` tensor bit for bit the tool's seeded
+   start, ``ctx``, ``token_prefix``, ``token_suffix`` and both heads moved;
+   one step's three loss terms and the trained tensors' gradients at bs 2,
+   card against CPU within 1e-4 relative (the tower's batch-norm statistics
+   set from the slices); the written file loaded strictly as phase 3's dose
+   encoder and one bs1 bf16 DDIM-2 request, finite, with phase 3's launches;
+   (b) ``build_clip_from_state_dict`` on seeded tensors of ViT-B/32's and
+   RN50's stock layout (with a stock file's ints and BatchNorm counters),
+   tokens from the port tokenizer on ``tests/fixtures/bpe_tiny_vocab.txt.gz``:
+   ``CLIP(image, text)`` and the ViT's ``encode_image(pos_embedding=True)``
+   at 512^2 (257 tokens against 50), card against CPU within 1e-4; (c) a
+   seeded LPIPS at 256^2 bs 4 and ``clip_preprocess`` of 4 x 512^2 slices,
+   within 1e-5; (d) the FID tool with (a)'s file (batch-norm statistics set
+   from the ground truths) on phase 16's predictions against
+   ``compute_fid`` in process within 1e-3 and JAX's keys, the tool without
+   weights refusing, ``analyze_results`` against the port's metrics on the
+   same files within 1e-5 (the tools compared with TF32 off, as here);
+   (e) ``Trainer.train(profile_dir=..., profile_steps=(1, 3))`` over 4 fp32
+   steps of ``Config()`` at 512^2: the Chrome trace's port kernels (by the
+   sources' ``__global__`` names) each at twice its count in phase 7's
+   profiled step, grouped as the units that launch them, the wrappers at
+   PER_STEP a step.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches on
 its path, phase 3 for the serving kernels, phase 12's 360^2 requests for
@@ -265,6 +291,7 @@ A longer record goes to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import math
 import os
@@ -312,14 +339,26 @@ BLOCKS = {
 TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-3, 8e-3)}
 MANTISSA_BITS = {torch.float32: 23, torch.bfloat16: 7}
 PSNR_GATE_DB = 40.0
-# kernel-name groups of the profile, first match wins; the port's kernels
-# live in namespace fd or in a file's top-level anonymous namespace (ATen's
-# anonymous namespaces sit under at::native and are not the port's), and a
-# profiler name starts with "void " for a template kernel, with the
-# namespace for a plain one (gn_stats_reduce_kernel, image_scan_carry_kernel)
+# the __global__ functions of the port's sources, by name
+PORT_KERNEL_NAMES = {m.group(1) for path in glob.glob(os.path.join(
+    REPO, "founddiff_tpu_torch", "csrc", "*.cu*")) for m in re.finditer(
+    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", open(path).read())}
+
+
+def is_port_kernel(name: str) -> bool:
+    """A profiler kernel name of the port's: in namespace fd or a file's
+    top-level anonymous namespace (a profiler name starts with "void " for a
+    template kernel, with the namespace for a plain one), and one of the
+    sources' __global__ functions (PyTorch has top-level anonymous-namespace
+    kernels too: softmax_warp_forward)."""
+    return (name.startswith(("void fd::", "void (anonymous namespace)::", "fd::",
+                             "(anonymous namespace)::"))
+            and _kernel_name(name).split("<")[0] in PORT_KERNEL_NAMES)
+
+
+# kernel-name groups of the profile, first match wins
 PROFILE_GROUPS = (
-    ("port kernels", lambda n: n.startswith(("void fd::", "void (anonymous namespace)::",
-                                              "fd::", "(anonymous namespace)::"))),
+    ("port kernels", is_port_kernel),
     ("cuDNN/cuBLAS convolutions and matmuls",
      lambda n: any(k in n for k in ("xmma", "cutlass", "conv2d", "gemm", "cudnn"))),
 )
@@ -1968,13 +2007,16 @@ def plain_gate(request, x, plain, wrappers, tag, steps):
         raise AssertionError(f"{tag}: the plain path launched kernels {launched}")
     gate_db = psnr(fused, ref)
     max_diff = float((fused - ref).abs().max())
+    # PSNR reads inf when every element agrees: the count says how many do not
+    differing = int((fused != ref).sum())
     size = x.shape[1]
     log(f"[{tag} gate] DDIM-{steps} {size}^2 bs{len(x)} bf16 kernel vs plain path: PSNR "
-        f"{gate_db:.2f} dB (gate {PSNR_GATE_DB}), max |diff| {max_diff:.3e}, plain path "
-        f"{t_plain:.2f} s")
+        f"{gate_db:.2f} dB (gate {PSNR_GATE_DB}), max |diff| {max_diff:.3e}, differing "
+        f"elements {differing} of {fused.numel()}, plain path {t_plain:.2f} s")
     if not (math.isfinite(max_diff) and gate_db >= PSNR_GATE_DB):
         raise AssertionError(f"{tag} numerics gate failed: {gate_db:.2f} dB")
-    return dict(psnr_db=gate_db, threshold_db=PSNR_GATE_DB, max_abs_diff=max_diff)
+    return dict(psnr_db=gate_db, threshold_db=PSNR_GATE_DB, max_abs_diff=max_diff,
+                differing=differing, elements=fused.numel())
 
 
 def five_level(wrappers, plain, x, card):
@@ -2077,15 +2119,11 @@ def write_mayo16_tree(root, n, seed):
             np.save(os.path.join(path, f"L067-{sub}-{i}.npy"), noisy.astype(np.float32))
 
 
-def calibrate_tower(tower, slices) -> None:
-    """Each batch-norm's running statistics of the Dose-CLIP ``tower`` set
-    to those of its input over ``slices`` ([N, H, W, 1] in [0, 1]) on the
-    FID extractor's path, in one forward: a trained tower's statistics are
-    those of its data.  Left at the seeded init, every convolution shrinks
-    the signal, the features hardly move between slices and FID reads the
-    eps offset alone."""
+def set_bn_stats(tower, run) -> None:
+    """Each batch-norm's running statistics of the Dose-CLIP ``tower`` set to
+    those of its input in one pass of ``run()`` (without autograd): a trained
+    tower's statistics are those of its data."""
     from founddiff_tpu_torch.models.clip import FrozenBatchNorm
-    from founddiff_tpu_torch.utils.fid import make_clip_extractor
 
     def set_stats(bn, args):
         flat = args[0].reshape(-1, args[0].shape[-1]).double()
@@ -2095,21 +2133,33 @@ def calibrate_tower(tower, slices) -> None:
     hooks = [m.register_forward_pre_hook(set_stats) for m in tower.modules()
              if isinstance(m, FrozenBatchNorm)]
     try:
-        make_clip_extractor(tower, batch_size=len(slices))(slices)
+        with torch.no_grad():
+            run()
     finally:
         for h in hooks:
             h.remove()
 
 
+def calibrate_tower(tower, slices) -> None:
+    """The statistics of :func:`set_bn_stats` over ``slices`` ([N, H, W, 1]
+    in [0, 1]) on the FID extractor's path, in one forward.  Left at the
+    seeded init, every convolution shrinks the signal, the features hardly
+    move between slices and FID reads the eps offset alone."""
+    from founddiff_tpu_torch.utils.fid import make_clip_extractor
+
+    set_bn_stats(tower, lambda: make_clip_extractor(tower, batch_size=len(slices))(slices))
+
+
 FID_FEATURE_RTOL = 1e-3  # card against CPU, relative to the largest |feature|
 FID_RTOL = 1e-2  # the card's fid_doseclip against the CPU's FID of the same slices
 FID_SPREAD_FLOOR = 1e-2  # median per-dimension std of the NDCT features
+EVAL_WORK = os.path.join(REPO, "checkpoints", "chip_smoke_eval")  # phases 16 and 19
 
 
 def eval_entry(wrappers, plain, card):
     """Phase 16: the evaluation entry point (``python -m founddiff_tpu_torch``,
-    in process) at full width on the card, in a working directory under
-    ``checkpoints/`` that it removes at the end.  Test mode of ``Config()``
+    in process) at full width on the card, in ``EVAL_WORK``, which it leaves
+    for phase 19 and ``main`` removes.  Test mode of ``Config()``
     from a ``model-1.pt`` written by ``Trainer.save`` (weights from seed 16,
     adaLN and prompt perturbed) over the 32 slices of a 512^2 Mayo-2020
     ``test`` tree, with ``eval_counts`` set to the tree; FID; 4 slices on
@@ -2128,7 +2178,7 @@ def eval_entry(wrappers, plain, card):
     from founddiff_tpu_torch.train.trainer import Trainer
     from founddiff_tpu_torch.utils.fid import fid_from_features, make_clip_extractor
 
-    work = os.path.join(REPO, "checkpoints", "chip_smoke_eval")
+    work = EVAL_WORK
     shutil.rmtree(work, ignore_errors=True)
     root = os.path.join(work, "mayo")
     t0 = time.perf_counter()
@@ -2323,7 +2373,6 @@ def eval_entry(wrappers, plain, card):
     finally:
         cli.build_config = build_config
         os.chdir(cwd)
-        shutil.rmtree(work, ignore_errors=True)
 
     reader = native.reader()
     slices_per_s = n / statistics.median(passes)
@@ -2340,7 +2389,8 @@ def eval_entry(wrappers, plain, card):
                 fid_feature_spread=spread,
                 gate_psnr_db=gates, metric_card_cpu_max_abs=metric_err, no_tower_s=no_tower_s,
                 no_tower_launches=no_tower_launches, full_t_s=full_s,
-                full_t_launches=full_launches, train_mode_s=train_s, tree_s=data_s)
+                full_t_launches=full_launches, train_mode_s=train_s, tree_s=data_s,
+                work=work)
 
 
 
@@ -2918,6 +2968,426 @@ def options(request, x_all, outs, wrappers, plain_default, plain_all, steps, rec
     return out
 
 
+# --- phase 19: the Dose-CLIP family and the tools ------------------------------
+
+DOSECLIP_STEPS, DOSECLIP_BATCH, DOSECLIP_CHECK_BATCH = 6, 8, 2
+CLIP_RTOL = 1e-4  # the CLIP family and the Dose-CLIP step, card against CPU, relative
+IQA_RTOL = 1e-5  # LPIPS and clip_preprocess, card against CPU, relative
+FID_TOOL_RTOL = 1e-3  # the FID tool's fid_doseclip against compute_fid in process
+REPORT_ATOL = 1e-5  # analyze_results' 4-decimal means against the same rounding in process
+FIXTURE_BPE = os.path.join(REPO, "tests", "fixtures", "bpe_tiny_vocab.txt.gz")
+# stock-layout shapes: OpenAI ViT-B/32 and RN50
+VIT_B32 = dict(embed_dim=512, image_resolution=224, vision_layers=12, vision_width=768,
+               vision_patch_size=32, context_length=77, vocab_size=49408, transformer_width=512,
+               transformer_heads=8, transformer_layers=12)
+RN50 = dict(VIT_B32, embed_dim=1024, vision_layers=(3, 4, 6, 3), vision_width=64)
+FID_KEYS = {"fid_doseclip", "feature_extractor", "n_generated", "n_reference"}
+# the port's kernels of an fp32 train step of Config() by their CUDA symbols,
+# grouped as the units that launch them (first match wins): the layer-norm
+# statistics kernel runs in layer_norm_modulated and inside the other two
+# serving kernels, so it is a group of its own
+TRACE_UNITS = (
+    ("attn_block", ("attn_block",), ("qkv_kernel", "gram_reduce_kernel", "fold_kernel",
+                                     "EpiGated")),
+    ("the scans", ("scan_forward", "scan_backward", "scan_image_forward"),
+     ("fwd_kernel", "bwd_local_kernel", "bwd_main_kernel", "reduce_bc_kernel",
+      "reduce_params_kernel", "carry_scan_kernel", "chunk_pass_kernel", "EpiProjFast")),
+    ("ss2d_image_block", ("ss2d_image_block",), ("image_scan_chunk_kernel",
+                                                 "image_scan_carry_kernel", "gemm_kernel")),
+    ("layer norms", ("layer_norm_modulated",), ("ln_rows_vec_kernel",)),
+)
+
+
+def _rel_err(card, cpu) -> float:
+    card, cpu = card.detach().float().cpu(), cpu.detach().float()
+    return float((card - cpu).norm() / cpu.norm())
+
+
+def _run_tool(module, *args, tag, tf32_off=True):
+    """``python -m founddiff_tpu_torch.tools.<module>`` from the repository
+    root; returns the completed process.  ``tf32_off``: TF32 off in cuBLAS
+    and cuDNN as in this process (phase 1), for a tool whose numbers are
+    compared here (PyTorch's defaults let cuDNN take TF32, which moves the
+    tower's fp32 convolutions and FID by about 1e-2); else PyTorch's
+    defaults, as a user runs the tool."""
+    t = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    if tf32_off:
+        env["NVIDIA_TF32_OVERRIDE"] = "0"
+    r = subprocess.run([sys.executable, "-m", f"founddiff_tpu_torch.tools.{module}", *args],
+                       capture_output=True, text=True, cwd=REPO, timeout=600, env=env)
+    log(f"[{tag}] {module} rc {r.returncode} in {time.perf_counter() - t:.2f} s")
+    return r
+
+
+def doseclip_training(work, root, model, diffusion, wrappers, card):
+    """Phase 19 (a): the Dose-CLIP trainer as a subprocess on the card
+    (``CLIPIQA()``, bs 8, 6 steps on the tree's train512 slices); the towers
+    bit for bit the tool's start, the trained set moved; one step's loss
+    terms and gradients at bs 2, card against CPU; the written file loaded
+    strictly as the dose encoder of phase 3's model and one bs1 bf16 DDIM-2
+    request with phase 3's launches."""
+    import copy
+
+    from founddiff_tpu_torch.data import DoseDataset
+    from founddiff_tpu_torch.factory import init_params
+    from founddiff_tpu_torch.models.clip import CLIPIQA
+    from founddiff_tpu_torch.pipeline import make_hoisted_sampler
+    from founddiff_tpu_torch.tools import train_doseclip as tool
+
+    if len(DoseDataset("train512", root=root)) < DOSECLIP_BATCH:
+        write_eval_tree(root, "train512", DOSECLIP_BATCH, seed=19)
+    out = os.path.join(work, "dose_clip")
+    r = _run_tool("train_doseclip", "--data_root", root, "--steps", str(DOSECLIP_STEPS),
+                  "--batch_size", str(DOSECLIP_BATCH), "--out", out, "--device", "cuda",
+                  tag="doseclip", tf32_off=False)
+    if r.returncode != 0:
+        raise AssertionError(f"train_doseclip: rc {r.returncode}: {r.stderr[-2000:]}")
+    summary = [line.split("] ", 1)[-1] for line in open(os.path.join(out, "train.log"))
+               if "steps/s" in line][-1]
+    m = re.search(r"(\d+) steps, (\d+) with a non-finite loss: first step ([\d.]+) s, then "
+                  r"([\d.]+) steps/s; peak memory ([\d.naninf]+) GiB", summary)
+    if not m or int(m.group(1)) != DOSECLIP_STEPS or int(m.group(2)) != 0:
+        raise AssertionError(f"train_doseclip: {summary!r}")
+    steps_per_s, peak = float(m.group(4)), float(m.group(5))
+    path = os.path.join(out, "dose_clip_final.pth")
+    trained = torch.load(path, map_location="cpu", weights_only=True)
+    start = CLIPIQA()
+    init_params(start, torch.Generator().manual_seed(0))  # the tool's init
+    tower_same, moved = 0, []
+    for k, v in start.state_dict().items():
+        if k.startswith("clip_model."):
+            if not torch.equal(trained[k], v):
+                raise AssertionError(f"train_doseclip: the frozen {k} changed")
+            tower_same += 1
+        elif not torch.equal(trained[k], v):
+            moved.append(k)
+    want_moved = sorted(tool.trained_tensors(start))
+    if sorted(moved) != want_moved:
+        raise AssertionError(f"train_doseclip: moved {sorted(moved)}, want {want_moved}")
+
+    # one step at bs 2: the three terms and the trained tensors' gradients, on
+    # the tower with its batch-norm statistics set from 4 of the slices (at
+    # the seeded statistics every slice gets nearly the same dose embedding,
+    # and BMC's distances, square roots near 0, are rounding on either side)
+    ds = DoseDataset("train512", root=root)
+    views = tool._views(np.stack([ds[i][0][0] for i in range(4)]), "cpu")
+    set_bn_stats(start, lambda: start.clip_model.encode_image(views))
+    items = [ds[i] for i in range(DOSECLIP_CHECK_BATCH)]
+    batch = ((np.stack([it[0][0] for it in items]), np.stack([it[0][1] for it in items])),
+             np.stack([it[1] for it in items]))
+    got = {}
+    for name, m_ in (("cpu", start), ("card", copy.deepcopy(start).cuda())):
+        grads = tool.freeze_towers(m_.eval())
+        loss, aux = tool.loss_fn(m_, batch)
+        loss.backward()
+        got[name] = ({k: float(v.detach()) for k, v in aux.items()},
+                     {k: t.grad.detach().float().cpu() for k, t in grads.items()})
+        del m_
+    term_err = max(abs(got["card"][0][k] - v) / abs(v) for k, v in got["cpu"][0].items())
+    grad_err = max(_rel_err(got["card"][1][k], v) for k, v in got["cpu"][1].items())
+
+    # the written file as the dose encoder of phase 3's model: one request
+    model.dose_encoder.load_state_dict(trained, strict=True)
+    sampler = make_hoisted_sampler(model, diffusion, compute_dtype=torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(19).random((1, 512, 512, 1),
+                                                          dtype=np.float32)).cuda()
+    for w in wrappers.values():
+        w.launches = 0
+    t = time.perf_counter()
+    y = sampler(x, generator=torch.Generator().manual_seed(19))
+    torch.cuda.synchronize()
+    request_s = time.perf_counter() - t
+    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    forwards = 2
+    want = {k: n * forwards for k, n in PER_FORWARD.items()}
+    if launches != want or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"the trained tower's request: launches {launches}, want {want}, "
+                             f"finite {bool(torch.isfinite(y).all())}")
+    log(f"[doseclip] train_doseclip CLIPIQA() bs {DOSECLIP_BATCH}, {DOSECLIP_STEPS} steps on "
+        f"{512}^2: {steps_per_s:.3f} steps/s after the first ({m.group(3)} s), peak memory "
+        f"{peak:.2f} GiB; {tower_same} tower tensors bit for bit, {len(moved)} trained moved "
+        f"[{card}]")
+    log(f"[doseclip] one step at bs {DOSECLIP_CHECK_BATCH}, card against CPU: loss terms "
+        f"{term_err:.3e}, gradients {grad_err:.3e} relative (bound {CLIP_RTOL}); the file as "
+        f"the dose encoder: bs1 bf16 DDIM-2 request {request_s:.3f} s, launches {launches}")
+    if not (term_err <= CLIP_RTOL and grad_err <= CLIP_RTOL):
+        raise AssertionError(f"the Dose-CLIP step: terms {term_err:.3e}, gradients "
+                             f"{grad_err:.3e}")
+    return dict(steps_per_s=steps_per_s, first_step_s=float(m.group(3)), peak_memory_gib=peak,
+                tower_tensors_same=tower_same, moved=len(moved), term_err=term_err,
+                grad_err=grad_err, request_s=request_s, launches=launches), path
+
+
+def clip_families(slices, card):
+    """Phase 19 (b): ``build_clip_from_state_dict`` on seeded tensors of
+    ViT-B/32's and RN50's stock layout (the ints and BatchNorm counters of a
+    stock file beside them); tokens from the port tokenizer on the fixture
+    vocabulary; the CLIP forward's logits, card against CPU, and the ViT's
+    ``encode_image(pos_embedding=True)`` at 512^2 (257 tokens against 50)."""
+    import copy
+
+    from founddiff_tpu_torch.factory import init_params
+    from founddiff_tpu_torch.models.clip import CLIP
+    from founddiff_tpu_torch.models.tokenizer import CT_PROMPTS, ClipTokenizer
+    from founddiff_tpu_torch.utils.clip_build import build_clip_from_state_dict
+    from founddiff_tpu_torch.utils.iqa import clip_preprocess
+
+    tok = ClipTokenizer(bpe_path=FIXTURE_BPE)
+    ids = torch.from_numpy(tok.tokenize(list(CT_PROMPTS) + ["a ct slice of the abdomen"])).long()
+    rgb = slices.repeat_interleave(3, dim=-1)
+    x224 = clip_preprocess(rgb)
+    out = {}
+    for name, shape in (("ViT-B/32", VIT_B32), ("RN50", RN50)):
+        src = CLIP(**shape)
+        init_params(src, torch.Generator().manual_seed(190))
+        sd = dict(src.state_dict(), input_resolution=torch.tensor(224),
+                  context_length=torch.tensor(77), vocab_size=torch.tensor(49408))
+        for k in list(sd):
+            if k.endswith("running_var"):
+                sd[k[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+        del src
+        t = time.perf_counter()
+        cpu = build_clip_from_state_dict(sd)
+        build_s = time.perf_counter() - t
+        gpu = copy.deepcopy(cpu).cuda()
+        with torch.no_grad():
+            logits_cpu, feats_cpu = cpu(x224, ids)
+            logits, feats = gpu(x224.cuda(), ids.cuda())
+            err = max(_rel_err(logits, logits_cpu), _rel_err(feats, feats_cpu))
+            rec = dict(build_s=build_s, logits_err=err, logits_shape=list(logits.shape))
+            if isinstance(shape["vision_layers"], int):
+                x512 = rgb * 2 - 1
+                rec["pos512_err"] = _rel_err(gpu.encode_image(x512.cuda(), pos_embedding=True),
+                                             cpu.encode_image(x512, pos_embedding=True))
+                patch = shape["vision_patch_size"]
+                rec["tokens"] = (512 // patch) ** 2 + 1
+                rec["tokens_native"] = (shape["image_resolution"] // patch) ** 2 + 1
+        out[name] = rec
+        log(f"[clip {name}] build_clip_from_state_dict {build_s:.2f} s; CLIP(image, text) "
+            f"{tuple(logits.shape)} card against CPU {err:.3e}"
+            + (f"; encode_image(pos_embedding=True) at 512^2 ({rec['tokens']} tokens against "
+               f"{rec['tokens_native']}) {rec['pos512_err']:.3e}" if "pos512_err" in rec
+               else "") + f" (bound {CLIP_RTOL}) [{card}]")
+        bad = [k for k in ("logits_err", "pos512_err") if rec.get(k, 0.0) > CLIP_RTOL]
+        if bad:
+            raise AssertionError(f"CLIP {name}: {bad} {rec}")
+        del cpu, gpu
+    return out
+
+
+def lpips_and_preprocess(slices, card):
+    """Phase 19 (c): a seeded LPIPS at 256^2 bs 4 and ``clip_preprocess`` of
+    4 x 512^2 slices to 224^2, card against CPU."""
+    import copy
+
+    from founddiff_tpu_torch.factory import init_params
+    from founddiff_tpu_torch.models import LPIPS
+    from founddiff_tpu_torch.utils.iqa import clip_preprocess
+    from founddiff_tpu_torch.utils.resize import resize
+
+    rgb = slices.repeat_interleave(3, dim=-1)
+    pre_err = _rel_err(clip_preprocess(rgb.cuda()), clip_preprocess(rgb))
+    ms = cuda_ms(lambda: clip_preprocess(rgb.cuda()))
+    cpu = LPIPS()
+    init_params(cpu, torch.Generator().manual_seed(191))
+    gpu = copy.deepcopy(cpu).cuda()
+    a = resize(rgb, (4, 256, 256, 3), "bilinear") * 2 - 1
+    b = a.flip(2)
+    with torch.no_grad():
+        lp_err = _rel_err(gpu(a.cuda(), b.cuda()), cpu(a, b))
+        lp_ms = cuda_ms(lambda: gpu(a.cuda(), b.cuda()))
+    log(f"[iqa] clip_preprocess 4 x 512^2 -> 224^2 card against CPU {pre_err:.3e} ({ms:.3f} "
+        f"ms); LPIPS 4 x 256^2 {lp_err:.3e} ({lp_ms:.3f} ms) (bound {IQA_RTOL}) [{card}]")
+    if not (pre_err <= IQA_RTOL and lp_err <= IQA_RTOL):
+        raise AssertionError(f"iqa: clip_preprocess {pre_err:.3e}, LPIPS {lp_err:.3e}")
+    return dict(clip_preprocess_err=pre_err, clip_preprocess_ms=ms, lpips_err=lp_err,
+                lpips_ms=lp_ms)
+
+
+def result_tools(work, root, tower_path, card):
+    """Phase 19 (d): the FID tool and ``analyze_results`` as subprocesses on
+    phase 16's predictions and their ground truths (the NDCT slices as the
+    test set gives them): the FID tool with (a)'s file (its batch-norm
+    statistics set from the ground truths) against ``compute_fid`` in
+    process, the FID tool without weights, and the report against the
+    port's metrics on the same files."""
+    from founddiff_tpu_torch.config import Config
+    from founddiff_tpu_torch.data import PDFDataset, define_label
+    from founddiff_tpu_torch.models.clip import CLIPIQA
+    from founddiff_tpu_torch.ops.metrics import compute_psnr, compute_rmse, compute_ssim
+    from founddiff_tpu_torch.tools import fid_and_inception_score as fid_tool
+    from founddiff_tpu_torch.utils.fid import compute_fid, make_clip_extractor
+
+    pred = os.path.join(work, "checkpoints", "eval", "test_final_npy")
+    gt = os.path.join(work, "gt")
+    os.makedirs(gt, exist_ok=True)
+    d = Config().data
+    ds = PDFDataset("test", root=root, subset=d.subset, doses=d.doses, num=d.num,
+                    stride=d.stride)
+    names = {ds.load_name(i): i for i in range(len(ds))}
+    preds = sorted(os.listdir(pred))
+    if not preds or any(p not in names for p in preds):
+        raise AssertionError(f"phase 16's predictions {preds[:4]} are not the test set's")
+    for p in preds:
+        np.save(os.path.join(gt, p), ds[names[p]][0][..., 0])
+
+    # (a)'s tower with its batch-norm statistics set from the ground truths, as
+    # phase 16 sets its tower's: at the seeded statistics the features hardly
+    # move between slices and FID reads the eps offset alone
+    tower = CLIPIQA()
+    tower.load_state_dict(torch.load(tower_path, map_location="cpu", weights_only=True),
+                          strict=True)
+    tower = tower.cuda().eval()
+    calibrate_tower(tower, torch.from_numpy(fid_tool.load_dir(gt)[:8]).cuda())
+    calibrated = os.path.join(work, "dose_clip_calibrated.pth")
+    torch.save({k: v.cpu() for k, v in tower.state_dict().items()}, calibrated)
+    r = _run_tool("fid_and_inception_score", pred, "--reference_dir", gt, "--clip_weights",
+                  calibrated, "--device", "cuda", tag="fid tool")
+    if r.returncode != 0:
+        raise AssertionError(f"fid tool: rc {r.returncode}: {r.stderr[-2000:]}")
+    line = json.loads(r.stdout.strip().splitlines()[-1])
+    fid_in = compute_fid(fid_tool.load_dir(pred), fid_tool.load_dir(gt),
+                         make_clip_extractor(tower))
+    del tower
+    fid_err = abs(line["fid_doseclip"] - fid_in) / abs(fid_in)
+    refused = _run_tool("fid_and_inception_score", pred, "--reference_dir", gt, "--device",
+                        "cuda", tag="fid tool, no weights")
+    log(f"[fid tool] {line['n_generated']} against {line['n_reference']} slices: fid_doseclip "
+        f"{line['fid_doseclip']!r}, in process {fid_in!r} ({fid_err:.3e} relative, bound "
+        f"{FID_TOOL_RTOL}); keys {sorted(line)}; without weights rc {refused.returncode}")
+    if (set(line) != FID_KEYS or fid_err > FID_TOOL_RTOL or line["n_generated"] != len(preds)
+            or not fid_in > 0
+            or refused.returncode == 0 or fid_tool.REFUSAL not in refused.stderr):
+        raise AssertionError(f"fid tool: {line}, in process {fid_in!r}, refusal rc "
+                             f"{refused.returncode}: {refused.stderr[-500:]}")
+
+    r = _run_tool("analyze_results", pred, gt, "--device", "cuda", tag="analyze")
+    if r.returncode != 0:
+        raise AssertionError(f"analyze_results: rc {r.returncode}: {r.stderr[-2000:]}")
+    report = json.loads(r.stdout)
+    groups = {}
+    for p in preds:
+        a, b = (torch.from_numpy(np.load(os.path.join(dd, p)).astype(np.float32))
+                [None, ..., None].cuda() for dd in (pred, gt))
+        groups.setdefault(f"{p.split('-')[0]}/dose_1_{define_label(os.path.join(pred, p))}",
+                          []).append([float(f(a, b)) for f in (compute_psnr, compute_ssim,
+                                                               compute_rmse)])
+    worst = 0.0
+    for k, ms in groups.items():
+        want = np.round(np.asarray(ms).mean(axis=0), 4)
+        got = [report[k][m] for m in ("psnr", "ssim", "rmse")]
+        worst = max(worst, float(np.abs(np.asarray(got) - want).max()))
+        if report[k]["n"] != len(ms):
+            raise AssertionError(f"analyze_results {k}: n {report[k]['n']}, want {len(ms)}")
+    log(f"[analyze] {len(report)} groups over {len(preds)} slices, PSNR/SSIM/RMSE against the "
+        f"port's metrics: max |diff| {worst:.3e} (bound {REPORT_ATOL}); groups {sorted(report)}")
+    if sorted(report) != sorted(groups) or worst > REPORT_ATOL:
+        raise AssertionError(f"analyze_results: {sorted(report)} against {sorted(groups)}, "
+                             f"{worst:.3e}")
+    return dict(fid_tool=line["fid_doseclip"], fid_in_process=fid_in, fid_err=fid_err,
+                refusal_rc=refused.returncode, report_groups=len(report), report_err=worst)
+
+
+def trace_hook(work, wrappers, train, card):
+    """Phase 19 (e): ``Trainer.train(profile_dir=..., profile_steps=(1, 3))``
+    over 4 fp32 steps of ``Config()`` at 512^2: the Chrome trace holds each
+    of the port's kernels, by its CUDA symbol, at twice its launches in
+    phase 7's profiled step, grouped as TRACE_UNITS; the wrappers launch
+    PER_STEP a step."""
+    import shutil
+
+    from founddiff_tpu_torch.config import Config
+    from founddiff_tpu_torch.factory import build
+    from founddiff_tpu_torch.train.trainer import Trainer
+
+    per_step = {}
+    for r in train["profile"]["kernels"]:
+        if PROFILE_GROUPS[0][1](r["name"]):
+            per_step[r["name"]] = per_step.get(r["name"], 0) + r["calls"]
+    if not per_step:
+        raise AssertionError("phase 7's profiled step holds no kernel of the port")
+    cfg = Config()
+    cfg.train.train_num_steps = 4
+    cfg.train.mixed_precision = "no"
+    cfg.train.checkpoint_folder = os.path.join(work, "trace_train")
+    diffusion, model = build(cfg, device="cuda", seed=0, train=True)
+    perturb_gates(model, seed=0)
+    trainer = Trainer(diffusion, model, cfg)
+    B, S = cfg.train.train_batch_size * cfg.train.gradient_accumulate_every, 512
+    gen = torch.Generator().manual_seed(190)
+    batches = []
+    for _ in range(4):
+        gt = torch.rand((B, S, S, 1), generator=gen)
+        batches.append((gt, (gt + 0.1 * torch.randn((B, S, S, 1), generator=gen)).clamp(0, 1)))
+    prof_dir = os.path.join(work, "trace")
+    for w in wrappers.values():
+        w.launches = 0
+    t = time.perf_counter()
+    trainer.train(batches, log_every=10, profile_dir=prof_dir, profile_steps=(1, 3))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    del trainer, model, diffusion
+    torch.cuda.empty_cache()
+    files = [os.path.join(prof_dir, f) for f in os.listdir(prof_dir)]
+    size_mb = sum(os.path.getsize(f) for f in files) / 2 ** 20
+    t = time.perf_counter()
+    events = json.load(open(files[0]))["traceEvents"]
+    shutil.rmtree(prof_dir)
+    counts = {}
+    for e in events:
+        if e.get("cat") == "kernel" and PROFILE_GROUPS[0][1](e["name"]):
+            counts[e["name"][:120]] = counts.get(e["name"][:120], 0) + 1
+    parse_s = time.perf_counter() - t
+    del events
+    if len(files) != 1 or launches != {k: 4 * n for k, n in PER_STEP.items()}:
+        raise AssertionError(f"trace hook: {len(files)} trace files, launches {launches}")
+    wrong = {k: (counts.get(k, 0), 2 * per_step.get(k, 0)) for k in set(counts) | set(per_step)
+             if counts.get(k, 0) != 2 * per_step.get(k, 0)}
+    units = {}
+    for k, n in counts.items():
+        unit = next((u for u, _, keys in TRACE_UNITS if any(key in k for key in keys)), None)
+        if unit is None:
+            raise AssertionError(f"trace hook: no unit for the port's kernel {k}")
+        group = units.setdefault(unit, {})
+        group[_kernel_name(k)] = group.get(_kernel_name(k), 0) + n
+    log(f"[trace] Config() 512^2 fp32, 4 steps with profile_steps (1, 3): {train_s:.2f} s, "
+        f"trace {size_mb:.1f} MiB parsed in {parse_s:.2f} s [{card}]")
+    for unit, wr, _ in TRACE_UNITS:
+        got = units.get(unit, {})
+        log(f"[trace] {unit}: {sum(got.values())} kernels in steps 1-2 (wrapper launches "
+            f"{sum(2 * PER_STEP[w] for w in wr)}): " + ", ".join(
+                f"{k} {n}" for k, n in sorted(got.items())))
+    if wrong or any(not units.get(u) for u, _, _ in TRACE_UNITS):
+        raise AssertionError(f"trace hook: (trace, 2 x phase 7) differ {wrong}; units "
+                             f"{sorted(units)}")
+    return dict(train_s=train_s, trace_mib=size_mb, units=units, launches=launches)
+
+
+def doseclip_and_tools(model, diffusion, wrappers, record, card):
+    """Phase 19: the Dose-CLIP family and the tools, on phase 16's tree and
+    predictions, in phase 16's working directory (``main`` removes it)."""
+    from founddiff_tpu_torch.data import PDFDataset
+
+    t19 = time.perf_counter()
+    work = record["eval"]["work"]
+    root = os.path.join(work, "mayo")
+    out = {}
+    out["doseclip"], tower_path = doseclip_training(work, root, model, diffusion, wrappers,
+                                                    card)
+    ds = PDFDataset("test", root=root)
+    slices = torch.from_numpy(np.stack([ds[i][0] for i in range(4)]))
+    out["clip"] = clip_families(slices, card)
+    out["iqa"] = lpips_and_preprocess(slices, card)
+    out["tools"] = result_tools(work, root, tower_path, card)
+    torch.cuda.empty_cache()
+    out["trace"] = trace_hook(work, wrappers, record["train"], card)
+    out["seconds"] = time.perf_counter() - t19
+    log(f"[phase 19] {out['seconds']:.1f} s")
+    return out
+
+
 def psnr(a, b) -> float:
     mse = float(((a.float() - b.float()) ** 2).mean())
     return float("inf") if mse == 0 else 10 * math.log10(1.0 / mse)
@@ -3186,23 +3656,31 @@ def main() -> int:
     # phase 15: a five-level UNet, d_state 64 at its 32^2 level
     torch.cuda.empty_cache()
     record["five_level"] = five_level(wrappers, plain_default, x_all[:1], card)
-    # phase 16: the evaluation entry point
-    torch.cuda.empty_cache()
-    record["eval"] = eval_entry(wrappers, plain_default, card)
-    # phase 17: distribution
-    torch.cuda.empty_cache()
-    t17 = time.perf_counter()
-    record["seq_shards"] = seq_virtual_shards(wrappers, card)
-    record["distributed"] = distributed(wrappers, plain_default, card, model, diffusion,
-                                        record["train"])
-    record["phase17_s"] = time.perf_counter() - t17
-    log(f"[phase 17] {record['phase17_s']:.1f} s")
-    # phase 18: the model and loss options
-    torch.cuda.empty_cache()
-    record["options"] = options(
-        request, x_all, outs, wrappers, plain_default,
-        {**plain_all, (blocks_mod, "flash_attention"): flash_mod.flash_attention_plain},
-        steps, record, card)
+    try:
+        # phase 16: the evaluation entry point
+        torch.cuda.empty_cache()
+        record["eval"] = eval_entry(wrappers, plain_default, card)
+        # phase 17: distribution
+        torch.cuda.empty_cache()
+        t17 = time.perf_counter()
+        record["seq_shards"] = seq_virtual_shards(wrappers, card)
+        record["distributed"] = distributed(wrappers, plain_default, card, model, diffusion,
+                                            record["train"])
+        record["phase17_s"] = time.perf_counter() - t17
+        log(f"[phase 17] {record['phase17_s']:.1f} s")
+        # phase 18: the model and loss options
+        torch.cuda.empty_cache()
+        record["options"] = options(
+            request, x_all, outs, wrappers, plain_default,
+            {**plain_all, (blocks_mod, "flash_attention"): flash_mod.flash_attention_plain},
+            steps, record, card)
+        # phase 19: the Dose-CLIP family and the tools
+        torch.cuda.empty_cache()
+        record["doseclip_tools"] = doseclip_and_tools(model, diffusion, wrappers, record, card)
+    finally:
+        import shutil
+
+        shutil.rmtree(EVAL_WORK, ignore_errors=True)
 
     kernels = []
     for k, (src, tpu) in SOURCES.items():

@@ -1,5 +1,6 @@
-"""CT data layer (mirror of ``founddiff_tpu/data``): numpy/scipy datasets
-and transforms, the native slice reader and the prefetching loader."""
+"""Data (mirror of ``founddiff_tpu/data``): the CT datasets and transforms,
+the native slice reader, the prefetching loader, and the generation and
+restoration image datasets."""
 
 from founddiff_tpu_torch.data.datasets import (
     DOSE_DIRS,
@@ -8,6 +9,15 @@ from founddiff_tpu_torch.data.datasets import (
     PDFDataset,
     define_label,
     sorted_list,
+)
+from founddiff_tpu_torch.data.generation import (
+    ImageFolderDataset,
+    LSUNLmdbDataset,
+    data_transform,
+    get_generation_dataset,
+    inverse_data_transform,
+    logit_transform,
+    pad_to_multiple,
 )
 from founddiff_tpu_torch.data.loader import Loader, cycle
 from founddiff_tpu_torch.data.transforms import (
@@ -23,6 +33,8 @@ __all__ = [
     "Compose",
     "DOSE_DIRS",
     "DoseDataset",
+    "ImageFolderDataset",
+    "LSUNLmdbDataset",
     "Loader",
     "Mayo16Dataset",
     "Normalize",
@@ -31,7 +43,12 @@ __all__ = [
     "RandomRotate90",
     "ToArray",
     "cycle",
+    "data_transform",
     "define_label",
+    "get_generation_dataset",
+    "inverse_data_transform",
+    "logit_transform",
     "make_paired_transforms",
+    "pad_to_multiple",
     "sorted_list",
 ]

@@ -33,10 +33,30 @@ def gen_coefficients(timesteps: int, schedule: str = "increased",
     return (alphas * sum_scale).astype(np.float32)
 
 
-def make_beta_schedule(timesteps: int, beta_start: float = 0.0001,
-                       beta_end: float = 0.02) -> np.ndarray:
-    """Linear base beta schedule (src/DADiff.py:952-970)."""
-    return np.linspace(beta_start, beta_end, timesteps, dtype=np.float32)
+def betas_for_alpha_bar(num_diffusion_timesteps: int, max_beta: float = 0.999) -> np.ndarray:
+    """Glide / squaredcos_cap_v2 cosine beta schedule (src/DADiff.py:878-906)."""
+
+    def alpha_bar(time_step: float) -> float:
+        return math.cos((time_step + 0.008) / 1.008 * math.pi / 2) ** 2
+
+    betas = [min(1 - alpha_bar((i + 1) / num_diffusion_timesteps)
+                 / alpha_bar(i / num_diffusion_timesteps), max_beta)
+             for i in range(num_diffusion_timesteps)]
+    return np.asarray(betas, dtype=np.float32)
+
+
+def make_beta_schedule(timesteps: int, beta_schedule: str = "linear",
+                       beta_start: float = 0.0001, beta_end: float = 0.02) -> np.ndarray:
+    """Base beta schedule of the DDIM-converted residual schedule
+    (src/DADiff.py:952-970): ``linear``, ``scaled_linear`` or
+    ``squaredcos_cap_v2``; another name raises ``NotImplementedError``."""
+    if beta_schedule == "linear":
+        return np.linspace(beta_start, beta_end, timesteps, dtype=np.float32)
+    if beta_schedule == "scaled_linear":
+        return np.linspace(beta_start ** 0.5, beta_end ** 0.5, timesteps, dtype=np.float32) ** 2
+    if beta_schedule == "squaredcos_cap_v2":
+        return betas_for_alpha_bar(timesteps)
+    raise NotImplementedError(f"unknown beta schedule {beta_schedule!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,12 +90,15 @@ def _pad_prev(x: np.ndarray, value: float) -> np.ndarray:
 
 
 def make_residual_schedule(timesteps: int = 1000, *, test: bool = False,
-                           convert_to_ddim: bool = True,
+                           convert_to_ddim: bool = True, beta_schedule: str = "linear",
+                           beta_start: float = 0.0001, beta_end: float = 0.02,
                            sum_scale: float = 1.0) -> ResidualSchedule:
     """``test=False``: the reference ctor (src/DADiff.py:946-1027);
-    ``test=True``: ``ResidualDiffusion.init()`` (src/DADiff.py:1033-1118)."""
+    ``test=True``: ``ResidualDiffusion.init()`` (src/DADiff.py:1033-1118).
+    ``beta_schedule``, ``beta_start`` and ``beta_end`` go to
+    :func:`make_beta_schedule` on the DDIM-converted route."""
     if convert_to_ddim:
-        betas = make_beta_schedule(timesteps)
+        betas = make_beta_schedule(timesteps, beta_schedule, beta_start, beta_end)
         alphas_cumprod = np.cumprod((1.0 - betas).astype(np.float32))
         alphas_cumsum = 1.0 - alphas_cumprod**0.5
         betas2_cumsum = 1.0 - alphas_cumprod

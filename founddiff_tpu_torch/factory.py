@@ -26,7 +26,8 @@ from founddiff_tpu_torch.models.blocks import (
     RandomOrLearnedSinusoidalPosEmb,
     TransposedAttention,
 )
-from founddiff_tpu_torch.models.clip import CLIP, AttentionPool2d, PromptLearner, _MHAWeights
+from founddiff_tpu_torch.models.clip import (CLIP, AttentionPool2d, PromptLearner,
+                                            VisionTransformer, _MHAWeights)
 from founddiff_tpu_torch.models.founddiff import FoundDiffDenoiser
 from founddiff_tpu_torch.models.ss2d import SS2D, MambaBlock
 from founddiff_tpu_torch.models.unet import Unet, UnetRes
@@ -86,6 +87,12 @@ def init_params(model: nn.Module, gen: torch.Generator) -> None:
             _fill(mod.positional_embedding, gen, "normal", 0.0, 0.01)
             _fill(mod.text_projection, gen, "normal", 0.0, width ** -0.5)
             mod.logit_scale.fill_(math.log(1 / 0.07))
+        elif isinstance(mod, VisionTransformer):
+            scale = mod.class_embedding.shape[0] ** -0.5
+            for t in (mod.class_embedding, mod.positional_embedding, mod.proj):
+                _fill(t, gen, "normal", 0.0, scale)
+        elif isinstance(mod, nn.Embedding):  # CLIP's token embedding
+            _fill(mod.weight, gen, "normal", 0.0, 0.02)
         elif isinstance(mod, PromptLearner):
             _fill(mod.ctx, gen, "normal", 0.0, 0.02)
             _fill(mod.token_prefix, gen, "normal", 0.0, 0.01)

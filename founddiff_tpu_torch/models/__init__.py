@@ -1,4 +1,4 @@
-"""The port's models (``founddiff_tpu/models/__init__.py``), LPIPS aside."""
+"""The port's models (``founddiff_tpu/models/__init__.py``)."""
 
 from founddiff_tpu_torch.models.blocks import (
     Attention,
@@ -20,6 +20,7 @@ from founddiff_tpu_torch.models.ss2d import SS2D, MambaBlock, PatchMerging2D
 from founddiff_tpu_torch.models.unet import Unet, UnetRes
 from founddiff_tpu_torch.models.vanilla_unet import TimeResnetBlock, VanillaUnet
 from founddiff_tpu_torch.models.clip import CLIP, CLIPIQA, PromptLearner
+from founddiff_tpu_torch.models.lpips import LPIPS
 from founddiff_tpu_torch.models.founddiff import FoundDiffDenoiser
 
 __all__ = [
@@ -32,6 +33,7 @@ __all__ = [
     "CrossAttention",
     "Downsample",
     "FoundDiffDenoiser",
+    "LPIPS",
     "LinearAttention",
     "MambaBlock",
     "PatchMerging2D",

@@ -1,11 +1,17 @@
-"""Dose-CLIP tower (CLIPIQA over CLIP RN50) in PyTorch, frozen.
+"""CLIP and the Dose-CLIP tower (CLIPIQA) in PyTorch.
 
-Mirror of ``founddiff_tpu/models/clip.py`` for the pieces the serving path
-runs: the ModifiedResNet visual tower with its mean-token attention pool
-(reference src/DACLIP.py:168-349), the QuickGELU text transformer over the
-learned prompts (src/DACLIP.py:352-398, 895-969) and the CLIPIQA heads
-(src/DACLIP.py:1135-1221).  Parameter names follow the reference state dict;
-BatchNorms are eval-mode affines.  The tower runs in float32.
+Mirror of ``founddiff_tpu/models/clip.py``: the ModifiedResNet visual tower
+with its mean-token attention pool (reference src/DACLIP.py:168-349), the
+VisionTransformer tower (src/DACLIP.py:401-447), the QuickGELU text
+transformer (src/DACLIP.py:352-398), ``CLIP`` with its token embedding,
+``encode_text`` and forward (src/DACLIP.py:450-581), the prompt learner
+(src/DACLIP.py:895-969) and the CLIPIQA heads (src/DACLIP.py:1135-1221).
+Parameter names follow the reference state dict, so a stock OpenAI CLIP of
+either family loads as it is (``utils/clip_build.py``); BatchNorms are
+eval-mode affines.  The positional embedding, when it is used at another
+token count, is resized as JAX does it: ``jax.image.resize`` bicubic along
+the flattened token axis, the class token's row included
+(``utils/resize.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from founddiff_tpu_torch.models.blocks import Dense, conv
+from founddiff_tpu_torch.utils.resize import resize
 
 
 class FrozenBatchNorm(nn.Module):
@@ -76,9 +83,18 @@ class Bottleneck(nn.Module):
         return F.relu(out + identity)
 
 
+def _positional(pos: torch.Tensor, tokens: int) -> torch.Tensor:
+    """``pos`` [L, C] at ``tokens`` rows: bicubic along the token axis when
+    the count differs (clip.py:134-139, 253-258)."""
+    if tokens == pos.shape[0]:
+        return pos
+    return resize(pos, (tokens, pos.shape[1]), "bicubic")
+
+
 class AttentionPool2d(nn.Module):
-    """QKV attention pooling of the mean token (src/DACLIP.py:214-259); the
-    positional embedding is skipped (``pos_embedding=False`` at 512 px)."""
+    """QKV attention pooling of the mean token (src/DACLIP.py:214-259).
+    ``pos_embedding=False`` (the FoundDiff path at 512 px) skips the
+    positional embedding, as the reference does."""
 
     def __init__(self, spacial_dim: int, embed_dim: int, num_heads: int, output_dim: int):
         super().__init__()
@@ -89,10 +105,12 @@ class AttentionPool2d(nn.Module):
         self.v_proj = Dense(embed_dim, embed_dim)
         self.c_proj = Dense(embed_dim, output_dim)
 
-    def forward(self, x):
+    def forward(self, x, pos_embedding: bool = False):
         B, H, W, C = x.shape
         tokens = x.reshape(B, H * W, C)
         tokens = torch.cat([tokens.mean(dim=1, keepdim=True), tokens], dim=1)
+        if pos_embedding:
+            tokens = tokens + _positional(self.positional_embedding, tokens.shape[1])[None]
         hd = C // self.num_heads
         heads = lambda u: u.reshape(B, -1, self.num_heads, hd).transpose(1, 2)
         q = heads(self.q_proj(tokens[:, :1]))
@@ -125,7 +143,7 @@ class ModifiedResNet(nn.Module):
             setattr(self, f"layer{li}", nn.Sequential(*seq))
         self.attnpool = AttentionPool2d(input_resolution // 32, w * 32, heads, output_dim)
 
-    def forward(self, x):
+    def forward(self, x, pos_embedding: bool = False, return_features: bool = False):
         B, H, W, C = x.shape
         if H < 32 or W < 32:
             # micro towers: the 32x reduction would leave no grid (clip.py:170-177)
@@ -136,7 +154,9 @@ class ModifiedResNet(nn.Module):
         x = F.relu(self.bn3(self.conv3(x)))
         x = _avg_pool(x, 2)
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
-        return self.attnpool(x)
+        if return_features:
+            return x
+        return self.attnpool(x, pos_embedding=pos_embedding)
 
 
 class QuickGELU(nn.Module):
@@ -198,25 +218,91 @@ class TextTransformer(nn.Module):
         return x
 
 
+class VisionTransformer(nn.Module):
+    """CLIP ViT visual tower (src/DACLIP.py:401-447): patchify conv, the
+    class token, the optional positional embedding (resized when the token
+    count differs), ln_pre, the QuickGELU blocks, ln_post on the class token
+    and ``proj``; ``return_token`` also returns ln_post of the patch tokens."""
+
+    def __init__(self, input_resolution: int, patch_size: int, width: int, layers: int,
+                 heads: int, output_dim: int):
+        super().__init__()
+        self.conv1 = conv(3, width, patch_size, stride=patch_size, padding=0, bias=False)
+        self.class_embedding = nn.Parameter(torch.empty(width))
+        self.positional_embedding = nn.Parameter(
+            torch.empty((input_resolution // patch_size) ** 2 + 1, width))
+        self.ln_pre = nn.LayerNorm(width)
+        self.transformer = TextTransformer(width, layers, heads)
+        self.ln_post = nn.LayerNorm(width)
+        self.proj = nn.Parameter(torch.empty(width, output_dim))
+
+    def forward(self, x, pos_embedding: bool = False, return_token: bool = False):
+        B = x.shape[0]
+        x = self.conv1(x)
+        x = x.reshape(B, -1, x.shape[-1])
+        cls = self.class_embedding.to(x.dtype).expand(B, 1, -1)
+        x = torch.cat([cls, x], dim=1)
+        if pos_embedding:
+            x = x + _positional(self.positional_embedding, x.shape[1])[None].to(x.dtype)
+        x = self.ln_pre(x)
+        for blk in self.transformer.resblocks:  # no mask: every token sees every token
+            x = blk(x)
+        token = self.ln_post(x[:, 1:]) if return_token else None
+        x = self.ln_post(x[:, 0]) @ self.proj.to(x.dtype)
+        return (x, token) if return_token else x
+
+
 class CLIP(nn.Module):
-    """CLIP with the RN visual tower (src/DACLIP.py:450-581); the token
-    embedding and ``encode_text`` are not part of the serving path."""
+    """CLIP (src/DACLIP.py:450-581).  ``vision_layers`` picks the visual
+    tower as the reference does (src/DACLIP.py:469-487): a tuple the
+    ModifiedResNet, an int the VisionTransformer with ``vision_patch_size``
+    patches.  ``with_token_embedding=False`` leaves out the ``[vocab_size,
+    width]`` token embedding, which only ``encode_text`` reads: the JAX
+    Dose-CLIP tree never holds it (flax makes it at first use), and the
+    tower inside ``CLIPIQA`` has none."""
 
     def __init__(self, embed_dim=1024, image_resolution=224, vision_layers=(3, 4, 6, 3),
-                 vision_width=64, context_length=77, transformer_width=512,
-                 transformer_heads=8, transformer_layers=12):
+                 vision_width=64, vision_patch_size=32, context_length=77, vocab_size=49408,
+                 transformer_width=512, transformer_heads=8, transformer_layers=12,
+                 with_token_embedding=True):
         super().__init__()
-        self.visual = ModifiedResNet(tuple(vision_layers), embed_dim,
-                                     vision_width * 32 // 64, image_resolution, vision_width)
+        if isinstance(vision_layers, (tuple, list)):
+            self.visual = ModifiedResNet(tuple(vision_layers), embed_dim,
+                                         vision_width * 32 // 64, image_resolution,
+                                         vision_width)
+        else:
+            self.visual = VisionTransformer(image_resolution, vision_patch_size, vision_width,
+                                            int(vision_layers), vision_width // 64, embed_dim)
         self.transformer = TextTransformer(transformer_width, transformer_layers,
                                            transformer_heads)
+        if with_token_embedding:
+            self.token_embedding = nn.Embedding(vocab_size, transformer_width)
         self.positional_embedding = nn.Parameter(torch.empty(context_length, transformer_width))
         self.ln_final = nn.LayerNorm(transformer_width)
         self.text_projection = nn.Parameter(torch.empty(transformer_width, embed_dim))
         self.logit_scale = nn.Parameter(torch.tensor(float(np.log(1 / 0.07))))
 
-    def encode_image(self, image):
-        return self.visual(image)
+    def encode_image(self, image, pos_embedding: bool = False):
+        return self.visual(image, pos_embedding=pos_embedding)
+
+    def encode_text(self, text_ids):
+        """``text_ids`` [B, context_length] BPE ids; the EOT token, the
+        largest id, marks the feature row (src/DACLIP.py:541-558)."""
+        x = self.token_embedding(text_ids) + self.positional_embedding[None]
+        x = self.ln_final(self.transformer(x))
+        eot = text_ids.argmax(dim=-1)
+        return x[torch.arange(x.shape[0], device=x.device), eot] @ self.text_projection
+
+    def forward(self, image, text_ids):
+        """``(logits_per_image, image_features)``, the image features
+        L2-normalized, as the reference's modified forward returns them
+        (src/DACLIP.py:560-581)."""
+        image_features = self.encode_image(image)
+        text_features = self.encode_text(text_ids)
+        image_features = image_features / image_features.norm(dim=-1, keepdim=True)
+        text_features = text_features / text_features.norm(dim=-1, keepdim=True)
+        logits = self.logit_scale.exp() * image_features @ text_features.t()
+        return logits, image_features
 
     def encode_prompt_embedding(self, prompt_embeds, eot_indices):
         """Already-embedded prompts through the text tower (src/DACLIP.py:956-969)."""
@@ -270,25 +356,29 @@ class CLIPIQA(nn.Module):
         self.clip_model = CLIP(embed_dim, backbone_resolution, vision_layers, vision_width,
                                transformer_width=transformer_width,
                                transformer_heads=transformer_heads,
-                               transformer_layers=transformer_layers)
+                               transformer_layers=transformer_layers,
+                               with_token_embedding=False)
         self.prompt_learner = PromptLearner(width=transformer_width,
                                             name_lens=prompt_name_lens,
                                             eot_indices=prompt_eot_indices)
         self.head1 = nn.Sequential(Dense(embed_dim, 1024), nn.ReLU(), Dense(1024, embed_dim))
         self.head2 = nn.Sequential(Dense(embed_dim, 1024), nn.ReLU(), Dense(1024, 256))
 
-    def embed(self, x):
+    def embed(self, x, features=None):
         """(dose_embedding, content_embedding), both L2-normalized; x [B,H,W,3]
-        in the model's [-1, 1] domain (no CLIP mean/std normalization)."""
-        features = self.clip_model.encode_image(x)
+        in the model's [-1, 1] domain (no CLIP mean/std normalization).
+        ``features``: the visual tower's output for ``x``, when the caller
+        has it (the Dose-CLIP trainer runs the frozen tower without autograd)."""
+        if features is None:
+            features = self.clip_model.encode_image(x)
         image_features = self.head1(features)
         content = self.head2(features)
         image_features = image_features / image_features.norm(dim=-1, keepdim=True)
         content = content / content.norm(dim=-1, keepdim=True)
         return image_features, content
 
-    def forward(self, x):
-        image_features, content = self.embed(x)
+    def forward(self, x, features=None):
+        image_features, content = self.embed(x, features)
         text = self.prompt_learner(self.clip_model)
         text = text / text.norm(dim=-1, keepdim=True)
         logits = math.exp(math.log(1 / 0.07)) * image_features @ text.t()

@@ -68,6 +68,26 @@ from founddiff_tpu_torch.utils.logger import get_logger
 from founddiff_tpu_torch.utils.metrics_log import MetricsLogger
 
 
+def _start_trace():
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities, record_shapes=True)
+    prof.__enter__()
+    return prof
+
+
+def _stop_trace(prof, profile_dir: str) -> None:
+    """Ends ``prof`` and writes its Chrome trace under ``profile_dir``."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    prof.__exit__(None, None, None)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, f"trace-{os.getpid()}.json"))
+
+
 class Trainer:
     """Trains ``model`` (from ``factory.build(..., train=True)``) under
     ``diffusion``'s loss with ``config.train``; ``train_dataset`` /
@@ -184,12 +204,19 @@ class Trainer:
             g.copy_(avg)
         return out[-1]
 
-    def train(self, batches: Optional[Iterable] = None, log_every: int = 50) -> None:
+    def train(self, batches: Optional[Iterable] = None, log_every: int = 50,
+              profile_dir: Optional[str] = None, profile_steps: tuple = (10, 15)) -> None:
         """The training loop (src/DADiff.py:1673-1763) until
         ``train_num_steps``, over ``(gt, ld)`` ``batches`` or, when none are
         given, the ``train_dataset`` loader; logs to ``train.log`` and
         ``metrics.jsonl`` in the checkpoint folder, previews, evaluates and
-        saves at the JAX trainer's cadence (trainer.py:220-281)."""
+        saves at the JAX trainer's cadence (trainer.py:220-281).
+
+        ``profile_dir`` traces the steps from ``profile_steps[0]`` up to
+        ``profile_steps[1]`` with ``torch.profiler`` (CPU and, on the card,
+        CUDA activities, shapes recorded), as the JAX loop does with
+        ``jax.profiler``, and writes a Chrome trace under ``profile_dir``;
+        without it no profiler is made."""
         tcfg = self.config.train
         os.makedirs(self.checkpoint_folder, exist_ok=True)
         log = None
@@ -197,8 +224,14 @@ class Trainer:
             self.train_logger = log = get_logger(os.path.join(self.checkpoint_folder,
                                                               "train.log"))
         stream = iter(batches) if batches is not None else self.dl
+        prof = None
         t0 = time.time()
         while self.step < tcfg.train_num_steps:
+            if profile_dir and self.step == profile_steps[0]:
+                prof = _start_trace()
+            if prof is not None and self.step == profile_steps[1]:
+                _stop_trace(prof, profile_dir)
+                prof = None
             batch = next(stream, None)
             if batch is None:
                 break
@@ -221,6 +254,8 @@ class Trainer:
                     self.save(milestone)
                     if self.sample_dataset is not None:
                         self.test(last=True, fid=tcfg.fid_eval)
+        if prof is not None:  # the loop ended inside the traced steps
+            _stop_trace(prof, profile_dir)
         if log is not None:
             log.info("training complete")
 

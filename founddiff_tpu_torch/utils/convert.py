@@ -17,6 +17,14 @@ sinusoidal) -> ``time_mlp.0.weights``, CrossAttention ``to_out`` ->
 ``attention.3``, TimestepEmbedder's two denses -> ``mlp.0`` / ``mlp.2``;
 PatchMerging2D (``norm``, ``reduction``) and the SS2D biases keep theirs.
 
+The CLIP family: a bare JAX ``CLIP`` tree (``visual``, ``transformer``,
+``token_embedding``, ...) or a ``CLIPIQA`` tree takes the reference CLIP
+names; flax Embed ``embedding`` -> ``token_embedding.weight``; the ViT
+tower's blocks, which JAX holds as ``visual/resblock_<i>``, sit under
+``visual.transformer.resblocks.<i>`` (JAX ``convert_visual_vit``).  An LPIPS
+tree (``net/conv<k>``, ``lin<i>``) takes the ``lpips`` package's names
+(``net.slice<k>.<index>``, ``lin<i>.model.1``) and its two scaling buffers.
+
 Layout changes: Dense ``kernel [in, out]`` -> Linear ``weight [out, in]``;
 conv ``kernel [kh, kw, I/g, O]`` -> ``weight [O, I/g, kh, kw]`` (depthwise
 ``[3, 3, 1, D]`` -> ``[D, 1, 3, 3]``); norm ``scale`` -> ``weight``;
@@ -68,7 +76,13 @@ _VANILLA_RENAMES = [(re.compile(p), r) for p, r in [
     (r"^to_out_norm$", "to_out.1"), (r"^sinu_pos_emb$", "time_mlp.0"),
 ]]
 _LEAVES = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
-           "var": "running_var"}
+           "var": "running_var", "embedding": "weight"}
+# LPIPS (JAX lpips.py:28-100 -> the lpips package): the AlexNet convs at
+# their torchvision indices inside the five slices, the 1x1 heads
+_LPIPS_RENAMES = [(re.compile(p), r) for p, r in [
+    (r"^conv0$", "slice1.0"), (r"^conv1$", "slice2.3"), (r"^conv2$", "slice3.6"),
+    (r"^conv3$", "slice4.8"), (r"^conv4$", "slice5.10"), (r"^lin(\d)$", r"lin\1.model.1"),
+]]
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], object]]:
@@ -90,6 +104,8 @@ def _module_name(parts, renames) -> str:
         if p == "attn_in_proj":
             out.append("attn.in_proj")
             continue
+        if p.startswith("resblock_") and out and out[-1] == "visual":
+            out.append("transformer")  # the ViT's blocks (torch_convert.py:260-269)
         if p == "to_out" and out and re.match(r"^(downs|ups)\.\d+\.2\.fn\.fn$", out[-1]):
             out.append("to_out.0")  # LinearAttention's to_out = Sequential(conv, norm)
             continue
@@ -125,12 +141,20 @@ def _value(path: Tuple[str, ...], arr) -> torch.Tensor:
         a = a.reshape(-1)
     elif leaf == "g":
         a = a.reshape(1, -1, 1, 1)
-    return torch.tensor(np.ascontiguousarray(a))
+    return torch.tensor(np.array(a, order="C"))  # a 0-d leaf (logit_scale) stays 0-d
 
 
 def from_jax_params(params: Mapping, vanilla: Optional[bool] = None) -> Dict[str, torch.Tensor]:
     """The JAX param tree as this package's ``state_dict``.  ``vanilla``
-    names the family; by default a tree with ``mid_block1`` is a VanillaUnet."""
+    names the family; by default a tree with ``mid_block1`` is a VanillaUnet.
+    A tree with ``lin0`` is an LPIPS."""
+    if "lin0" in params:
+        from founddiff_tpu_torch.models.lpips import SCALE, SHIFT
+
+        sd = {_torch_key(p, _LPIPS_RENAMES): _value(p, v) for p, v in _leaves(params)}
+        sd["scaling_layer.shift"] = torch.tensor(SHIFT).reshape(1, 3, 1, 1)
+        sd["scaling_layer.scale"] = torch.tensor(SCALE).reshape(1, 3, 1, 1)
+        return sd
     if vanilla is None:
         vanilla = "mid_block1" in params
     renames = _VANILLA_RENAMES if vanilla else _RENAMES

@@ -7,7 +7,9 @@ the bits of the kernels the newer tree leaves alone.
 Each DIR holds a checkout of the repository (for example ``git archive`` of
 a commit unpacked into a directory that git ignores); ``--change`` defaults
 to the tree this script lies in.  The trees run in turns, parent, change,
-change, parent (``--turns 2``), each turn a worker process started from its
+change, parent, ... cut to ``--turns`` turns a tree (:func:`turn_order`:
+``--turns 1`` is parent, change; ``--turns 2`` parent, change, change,
+parent), each turn a worker process started from its
 tree, so that each imports its own ``founddiff_tpu_torch`` and
 ``chip_smoke.py`` and builds its own kernels.  A worker measures, on inputs
 made from a seed here (the same in both trees):
@@ -18,9 +20,10 @@ made from a seed here (the same in both trees):
   fp32 and bf16, beside the backward of ``scaled_dot_product_attention``
   (dq, dk and dv in one call): event time (CUDA events, median of 7 after 2
   warm-ups) and, from ``torch.profiler`` over 10 calls, device time and by
-  kernel the device time and launches of one call; and their sums over a
-  unit: an fp32 train step (two calls, one per microbatch) or one bf16
-  call;
+  kernel the device time and launches of one call (``port`` where the name
+  is a ``__global__`` function of the tree's sources, else ``torch``); and
+  their sums over a unit: an fp32 train step (two calls, one per
+  microbatch) or one bf16 call;
 - ``vanilla``: UNet forwards/s of the vanilla path (``Config()`` with
   ``original_ddim_ddpm``, 512^2, fp32) at bs1 and bs4 on each route (median
   of 5 after a warm-up, host clock around work that ends in a synchronize);
@@ -45,9 +48,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import glob
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -181,14 +186,27 @@ def _kernel_name(key: str) -> str:
     return key.split("(")[0]
 
 
-def _is_port(name: str) -> bool:
-    """A kernel of the port (namespace fd or a file's anonymous namespace),
-    as chip_smoke's PROFILE_GROUPS tells them apart."""
-    return name.startswith(("void fd::", "void (anonymous namespace)::", "fd::",
-                            "(anonymous namespace)::"))
+def _port_names(tree: str) -> set:
+    """The ``__global__`` functions of the tree's CUDA sources."""
+    names = set()
+    for path in glob.glob(os.path.join(tree, "founddiff_tpu_torch", "csrc", "*.cu*")):
+        with open(path) as f:
+            names.update(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", f.read()))
+    return names
 
 
-def _device_split(fn, n: int = 10):
+def _is_port(name: str, port_names: set) -> bool:
+    """A kernel of the port: in namespace fd or a file's anonymous namespace,
+    and one of the tree's ``__global__`` functions (PyTorch has
+    anonymous-namespace kernels too: ``softmax_warp_forward``), the rule of
+    chip_smoke's "port kernels" group."""
+    return (name.startswith(("void fd::", "void (anonymous namespace)::", "fd::",
+                             "(anonymous namespace)::"))
+            and _kernel_name(name).split("<")[0] in port_names)
+
+
+def _device_split(fn, port_names: set, n: int = 10):
     """Device ms and launches of one call by kernel, from ``torch.profiler``
     over n calls (the rest of its event-timed time is the host's)."""
     import torch
@@ -208,7 +226,7 @@ def _device_split(fn, n: int = 10):
     # and then drops an event
     ms, launches = {}, {}
     for e in events:
-        k = ("port " if _is_port(e.key) else "torch ") + _kernel_name(e.key)
+        k = ("port " if _is_port(e.key, port_names) else "torch ") + _kernel_name(e.key)
         per_call = max(1, round(e.count / n))
         ms[k] = ms.get(k, 0.0) + e.self_device_time_total / 1e3 / e.count * per_call
         launches[k] = launches.get(k, 0) + per_call
@@ -236,14 +254,14 @@ def _unit_calls(cs):
             yield unit, label, n, lambda args=args, fn=fn: fn(*args), library
 
 
-def _kernel_rows(cs) -> dict:
+def _kernel_rows(cs, tree: str) -> dict:
     """Event ms, device ms, and device ms and launches by kernel of one call
     of each of _unit_calls, with the library call's event ms beside it."""
     import torch
 
-    rows = {}
+    rows, port_names = {}, _port_names(tree)
     for unit, label, n, fn, library in _unit_calls(cs):
-        split, launches = _device_split(fn)
+        split, launches = _device_split(fn, port_names)
         rows[label] = dict(unit=unit, per_unit=n, ms=cs.cuda_ms(fn),
                            device_ms=sum(split.values()), split=split, launches=launches,
                            library_ms=None if library is None else cs.cuda_ms(library))
@@ -337,7 +355,7 @@ def worker(tree: str, out_path: str, parts) -> None:
                 del args, kw
             torch.cuda.empty_cache()
     if "kernels" in parts:
-        rec["rows"] = _kernel_rows(cs)
+        rec["rows"] = _kernel_rows(cs, tree)
         _print_units(rec["rows"], card, os.path.basename(tree))
     if "vanilla" in parts:
         rec["vanilla"] = _vanilla(cs)
@@ -382,6 +400,16 @@ def _print_units(rows, card, tag) -> None:
                                                             key=lambda x: -x[1])))
 
 
+def turn_order(turns: int) -> list:
+    """The trees' turns: parent, change, change, parent, ... cut to ``turns``
+    turns of each tree, so that each tree runs at least once (the ``hash``
+    part needs one turn a side)."""
+    if turns < 1:
+        raise ValueError(f"--turns must be at least 1, not {turns}")
+    pattern = ("parent", "change", "change", "parent")
+    return [pattern[i % 4] for i in range(2 * turns)]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent")
@@ -402,7 +430,7 @@ def main() -> int:
     out_dir = os.path.join(os.getcwd(), "chiprun_out", "port_ab")
     os.makedirs(out_dir, exist_ok=True)
     trees = {"parent": os.path.abspath(a.parent), "change": os.path.abspath(a.change)}
-    order = ["parent", "change", "change", "parent"] * (a.turns // 2)
+    order = turn_order(a.turns)
     runs = {"parent": [], "change": []}
     for i, name in enumerate(order):
         path = os.path.join(out_dir, f"{i}_{name}.json")

@@ -22,6 +22,7 @@ the kernels) against the same Function on CPU copies (plain versions), per
 input ||g_card - g_cpu|| / ||g_cpu|| <= 1e-3.
 """
 
+import copy
 import math
 
 import pytest
@@ -1156,3 +1157,101 @@ def test_auxiliary_losses_on_the_card(dev):
         card, cpu = fn(a.to(dev), b.to(dev)), fn(a, b)
         assert card.device.type == "cuda", name
         assert abs(float(card) - float(cpu)) <= 1e-5 * abs(float(cpu)), name
+
+
+# --- the CLIP family, the Dose-CLIP trainer, IQA and LPIPS: the card against the CPU ---
+
+_MICRO_CLIPIQA = dict(vision_layers=(1, 1, 1, 1), vision_width=8, embed_dim=64,
+                      transformer_width=32, transformer_layers=2, transformer_heads=4,
+                      backbone_resolution=64)
+
+
+def _rel(card, cpu):
+    card = card.float().cpu()
+    return float((card - cpu).norm() / cpu.norm())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["rn", "vit"])
+def test_clip_family_on_the_card(dev, family):
+    """A micro CLIP of each family (seeded weights): the forward's logits and
+    image features, ``encode_text``, and ``encode_image`` with the positional
+    embedding at a resolution whose token count differs (resized)."""
+    from founddiff_tpu_torch.factory import init_params
+    from founddiff_tpu_torch.models.clip import CLIP
+
+    vision = (dict(vision_layers=(1, 1, 1, 1), vision_width=8) if family == "rn" else
+              dict(vision_layers=2, vision_width=64, vision_patch_size=16))
+    cpu = CLIP(embed_dim=48, image_resolution=64, vocab_size=533, transformer_width=32,
+               transformer_heads=4, transformer_layers=2, **vision)
+    init_params(cpu, _gen(11))
+    cpu.eval()
+    card = copy.deepcopy(cpu).to(dev)
+    g = _gen(12)
+    x = torch.rand(2, 64, 64, 3, generator=g) * 2 - 1
+    ids = torch.randint(1, 531, (3, 77), generator=g)
+    ids[:, 9] = 532
+    other = torch.rand(2, 96, 96, 3, generator=g) * 2 - 1
+    with torch.no_grad():
+        for got, want in zip(card(x.to(dev), ids.to(dev)), cpu(x, ids)):
+            assert _rel(got, want) <= 1e-4
+        assert _rel(card.encode_text(ids.to(dev)), cpu.encode_text(ids)) <= 1e-4
+        assert _rel(card.encode_image(other.to(dev), pos_embedding=True),
+                    cpu.encode_image(other, pos_embedding=True)) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_doseclip_step_on_the_card(dev):
+    """The Dose-CLIP trainer's loss terms and the gradients of its trained
+    tensors on the card against the CPU, one micro batch.  The tower's
+    batch-norm statistics are set from the batch first: at the seeded ones
+    every slice gets nearly the same embeddings, BMC's distances are
+    rounding and the heads' gradients about 1e-10."""
+    from founddiff_tpu_torch.factory import init_params
+    from founddiff_tpu_torch.models.clip import CLIPIQA
+    from founddiff_tpu_torch.tools import train_doseclip as tool
+    from torch_parity import set_bn_stats
+
+    cpu = CLIPIQA(**_MICRO_CLIPIQA)
+    init_params(cpu, _gen(13))
+    g = _gen(14)
+    v = torch.rand(3, 1, 1, 1, generator=g) * 0.5 + 0.5 * torch.rand(3, 64, 64, 1, generator=g)
+    batch = ((v, v.flip(2)), torch.tensor([1.0, 4.0, 10.0]))
+    set_bn_stats(cpu, v)
+    card = copy.deepcopy(cpu).to(dev)
+    out = {}
+    for name, m in (("cpu", cpu), ("card", card)):
+        trained = tool.freeze_towers(m.eval())
+        loss, aux = tool.loss_fn(m, batch)
+        loss.backward()
+        out[name] = ({k: float(t.detach()) for k, t in aux.items()},
+                     {k: t.grad.float().cpu() for k, t in trained.items()})
+    for k, v in out["cpu"][0].items():
+        assert abs(out["card"][0][k] - v) <= 1e-4 * abs(v), k
+    for k, v in out["cpu"][1].items():
+        assert _rel(out["card"][1][k], v) <= 1e-4, k
+
+
+@pytest.mark.gpu
+def test_iqa_and_lpips_on_the_card(dev):
+    """``clip_preprocess`` of 512^2 slices to 224^2, ``random_crop`` and a
+    seeded LPIPS at 96^2, the card against the CPU."""
+    import numpy as np
+
+    from founddiff_tpu_torch.factory import init_params
+    from founddiff_tpu_torch.models.lpips import LPIPS
+    from founddiff_tpu_torch.utils import iqa
+
+    g = _gen(15)
+    x = torch.rand(2, 512, 512, 3, generator=g)
+    got = iqa.clip_preprocess(x.to(dev))
+    assert got.device.type == "cuda"
+    assert _rel(got, iqa.clip_preprocess(x)) <= 1e-5
+    crops = iqa.random_crop(x.to(dev), 100, 3, np.random.RandomState(0))
+    assert torch.equal(crops.cpu(), iqa.random_crop(x, 100, 3, np.random.RandomState(0)))
+    cpu = LPIPS()
+    init_params(cpu, _gen(16))
+    card = copy.deepcopy(cpu).to(dev)
+    a, b = (torch.rand(2, 96, 96, 3, generator=g) * 2 - 1 for _ in range(2))
+    with torch.no_grad():
+        assert _rel(card(a.to(dev), b.to(dev)), cpu(a, b)) <= 1e-5

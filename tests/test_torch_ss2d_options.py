@@ -295,8 +295,8 @@ def test_scan_layouts_and_exports():
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5)
-    # every JAX export but LPIPS (not ported yet), the TPU kernel entry
-    # selective_scan_pallas and the two names that are the port's modules
-    assert set(jmodels.__all__) - set(tmodels.__all__) == {"LPIPS"}
+    # every JAX export but the TPU kernel entry selective_scan_pallas and the
+    # two names that are the port's modules
+    assert set(jmodels.__all__) - set(tmodels.__all__) == set()
     assert set(jops.__all__) - set(tops.__all__) == {"flash_attention", "selective_scan",
                                                      "selective_scan_pallas"}

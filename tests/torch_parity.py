@@ -1,9 +1,10 @@
 """Helpers shared by the ``test_torch_*`` parity tests: seeded numpy inputs,
-non-zero adaLN/prompt weights, and JAX params loaded into port modules."""
+non-zero adaLN/prompt weights, and JAX params loaded into port modules.
+JAX is imported only by the functions that call it, so that the card's
+tests, which run without JAX, can use the others."""
 
 from __future__ import annotations
 
-import jax
 import numpy as np
 import torch
 
@@ -30,6 +31,8 @@ _QUICK_COMPILE = {"xla_backend_optimization_level": 0,
 def jit_quick(fn, options=_QUICK_COMPILE):
     """``jax.jit(fn)`` compiled with ``options`` (by default
     :data:`_QUICK_COMPILE`), for one call."""
+
+    import jax
 
     def call(*args, **kwargs):
         return jax.jit(fn).lower(*args, **kwargs).compile(options)(*args, **kwargs)
@@ -58,6 +61,8 @@ def filled_params(model, seed: int, *args, **kwargs):
     """``model``'s param tree for a call on ``args`` from its shapes
     (``eval_shape``, which compiles nothing), filled as
     :func:`micro_vanilla_params` fills it."""
+    import jax
+
     shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), *args, **kwargs)["params"]
     rng = np.random.default_rng(seed)
 
@@ -120,3 +125,53 @@ def check_param_grads(model: torch.nn.Module, want) -> None:
         assert err <= 1e-3 * float(w.norm()) + 1e-6, (name, err, float(w.norm()))
         checked += 1
     assert checked == len(want)
+
+
+def set_bn_stats(model, slices: torch.Tensor) -> None:
+    """Each batch-norm's running statistics of the ``CLIPIQA`` ``model`` set
+    to those of its input in one image-tower pass over ``slices`` ([N, H, W,
+    1] in [0, 1], without autograd): a trained tower's statistics are those
+    of its data."""
+    from founddiff_tpu_torch.models.clip import FrozenBatchNorm
+
+    def set_stats(bn, args):
+        flat = args[0].reshape(-1, args[0].shape[-1]).double()
+        bn.running_mean.copy_(flat.mean(0))
+        bn.running_var.copy_(flat.var(0))
+
+    hooks = [m.register_forward_pre_hook(set_stats) for m in model.modules()
+             if isinstance(m, FrozenBatchNorm)]
+    try:
+        with torch.no_grad():
+            model.clip_model.encode_image((slices * 2 - 1).repeat_interleave(3, dim=-1))
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def calibrated_micro_clipiqa(seed: int, slices: np.ndarray, size: int):
+    """The port's seeded micro Dose-CLIP tower (``MICRO_CLIP``) with each
+    batch-norm's statistics set to those of its input over ``slices``
+    ([N, H, W, 1] in [0, 1]), and the same weights as a JAX ``CLIPIQA``
+    tree (the JAX converter's).  At the seeded statistics the tower gives
+    nearly the same features for every image (their spread is about 1e-4 of
+    their size), which leaves the distances between them to rounding."""
+    import jax
+    import jax.numpy as jnp
+
+    from founddiff_tpu.models.clip import CLIPIQA as JCLIPIQA
+    from founddiff_tpu.utils.torch_convert import Converter, _apply, convert_clipiqa
+    from founddiff_tpu_torch.factory import init_params
+    from founddiff_tpu_torch.models.clip import CLIPIQA
+
+    model = CLIPIQA(**dict(MICRO_CLIP))
+    init_params(model, torch.Generator().manual_seed(seed))
+    set_bn_stats(model, torch.from_numpy(np.asarray(slices, np.float32)))
+    jm = JCLIPIQA(**dict(MICRO_CLIP))
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.zeros((1, size, size, 3)))
+    template = jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype), shapes["params"])
+    c = Converter({"m." + k: v.numpy() for k, v in model.state_dict().items()})
+    convert_clipiqa(c, "", "m", vision_layers=(1, 1, 1, 1), transformer_layers=2)
+    assert c.missing == []
+    params, _ = _apply(template, {tuple(p for p in k if p): v for k, v in c.out.items()})
+    return model.eval(), jm, params
