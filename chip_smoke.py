@@ -1556,10 +1556,9 @@ def check_autograd(plain, wrappers, tag="autograd", shapes=((256, 128, 8), (64, 
             loss = (block(xi, c, t) * w).sum()
             return torch.autograd.grad(loss, [xi] + list(block.parameters()))
 
-        for fn in wrappers.values():
-            fn.launches = 0
+        wrappers.reset()
         g_kernel = grads()
-        used = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+        used = wrappers.used()
         with swapped(plain):
             g_plain = grads()
         label = f"MambaBlock {H}^2 C={C} N={N}"
@@ -1630,11 +1629,10 @@ def check_gn_autograd(wrappers):
             out = block(xi, scale_shift=tuple(si)) if si else block(xi, residual=xi)
             return torch.autograd.grad((out * w).sum(), [xi] + si + list(block.parameters()))
 
-        for fn in wrappers.values():
-            fn.launches = 0
+        wrappers.reset()
         with routes_on(FOUNDDIFF_GN=ROUTES["FOUNDDIFF_GN"]):
             g_kernel = grads()
-        used = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+        used = wrappers.used()
         if used != {"gn_stats": 1, "gn_apply": 1}:
             raise AssertionError(f"{family} autograd: kernel launches {used}")
         g_plain = grads()
@@ -1688,17 +1686,15 @@ def train_full_width(wrappers, card, cfg, per_step, tag, full=True, aux=None):
     def run(mp, b, counts, check=True):
         cfg.train.mixed_precision = mp
         torch.cuda.synchronize()
-        for fn in wrappers.values():
-            fn.launches = 0
-        wrappers["ss2d_image_block"].launches_silu = 0
+        wrappers.reset()
         t0 = time.perf_counter()
         losses = trainer.train_step(b)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        for k, fn in wrappers.items():
-            counts.setdefault(k, []).append(fn.launches)
+        for k, n in wrappers.counts().items():
+            counts.setdefault(k, []).append(n)
         counts.setdefault("ss2d_image_block silu_input", []).append(
-            wrappers["ss2d_image_block"].launches_silu)
+            wrappers.silu())
         if check:
             look_at_grads()
         return losses, dt
@@ -1817,12 +1813,11 @@ def vanilla_serving(wrappers, card, want, tag="vanilla", reference=None):
     with torch.no_grad():
         prof = profile_device(lambda: model(x1, t1), f"{tag} forward bs1")
     torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers.reset()
     t0 = time.perf_counter()
     out = sample(0)
     t_sample = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in wrappers.items()}
+    launches = wrappers.counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     want = {k: want.get(k, 0) for k in wrappers}
     if launches != want:
@@ -1884,10 +1879,9 @@ def check_attention_autograd(wrappers):
         loss = (attn(xi) * w).sum()
         return torch.autograd.grad(loss, [xi] + list(attn.parameters()))
 
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers.reset()
     g_kernel = grads()
-    used = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    used = wrappers.used()
     if used != {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}:
         raise AssertionError(f"Attention autograd: kernel launches {used}")
     saved = blocks_mod.flash_attention
@@ -1914,9 +1908,7 @@ def serve_requests(request, x_all, wrappers, per_forward, steps, tag):
     request(x_all[:1], 0)  # warm-up, outside the counted run
     request(x_all, 0)
     torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers.values():
-        fn.launches = 0
-    wrappers["ss2d_image_block"].launches_silu = 0
+    wrappers.reset()
     t_bs1, t_bs4, outs = [], [], []
     for i in range(4):
         t0 = time.perf_counter()
@@ -1926,8 +1918,8 @@ def serve_requests(request, x_all, wrappers, per_forward, steps, tag):
         t0 = time.perf_counter()
         outs.append(request(x_all, 200 + i))
         t_bs4.append(time.perf_counter() - t0)
-    launches = {k: fn.launches for k, fn in wrappers.items()}
-    launches_silu = wrappers["ss2d_image_block"].launches_silu
+    launches = wrappers.counts()
+    launches_silu = wrappers.silu()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     forwards = (4 + 2) * steps
     for k, n in launches.items():
@@ -1996,13 +1988,12 @@ def plain_gate(request, x, plain, wrappers, tag, steps):
     :func:`swapped`; it must launch no kernel), PSNR >= 40 dB on the [0, 1]
     output window."""
     fused = request(x, 7)
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers.reset()
     with swapped(plain):
         t0 = time.perf_counter()
         ref = request(x, 7)
         t_plain = time.perf_counter() - t0
-    launched = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+    launched = wrappers.used()
     if launched:
         raise AssertionError(f"{tag}: the plain path launched kernels {launched}")
     gate_db = psnr(fused, ref)
@@ -2044,12 +2035,11 @@ def five_level(wrappers, plain, x, card):
         return out
 
     request(x, 0)  # warm-up
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers.reset()
     t0 = time.perf_counter()
     out = request(x, 100)
     request_s = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in wrappers.items()}
+    launches = wrappers.counts()
     for k, n in launches.items():
         if n != PER_FORWARD_5.get(k, 0) * steps:
             raise AssertionError(f"five-level: {k} {n} launches in {steps} UNet forwards, want "
@@ -2203,13 +2193,12 @@ def eval_entry(wrappers, plain, card):
 
     def counted(fn, forwards, tag):
         """``fn()`` with the launches of phase 3's PER_FORWARD per UNet forward."""
-        for w in wrappers.values():
-            w.launches = 0
+        wrappers.reset()
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
-        launches = {k: w.launches for k, w in wrappers.items()}
+        launches = wrappers.counts()
         for k, n in launches.items():
             if n != PER_FORWARD.get(k, 0) * forwards:
                 raise AssertionError(f"{tag}: {k} {n} launches in {forwards} UNet forwards, "
@@ -2305,11 +2294,10 @@ def eval_entry(wrappers, plain, card):
                                   use_test_schedule=True) for (_, ld), z in zip(items, noises)]
 
         kernel_preds = four()
-        for w in wrappers.values():
-            w.launches = 0
+        wrappers.reset()
         with swapped(plain):
             plain_preds = four()
-        launched = {k: w.launches for k, w in wrappers.items() if w.launches}
+        launched = wrappers.used()
         if launched:
             raise AssertionError(f"eval plain: the plain path launched kernels {launched}")
         gates = [psnr(a, b) for a, b in zip(kernel_preds, plain_preds)]
@@ -2431,10 +2419,10 @@ def seq_virtual_shards(wrappers, card):
         Ll = L // n
         part = lambda t, i: t[:, :, i * Ll:(i + 1) * Ll]
         torch.cuda.synchronize()
-        wrappers["scan_forward"].launches = 0
+        wrappers.reset()
         shards = [local_summary(part(u, i), part(delta, i), A, part(Bm, i), part(Cm, i), Ds,
                                 bias) for i in range(n)]
-        launches = wrappers["scan_forward"].launches
+        launches = wrappers.counts()["scan_forward"]
         all_Ap = torch.stack([sh[1] for sh in shards])
         all_he = torch.stack([sh[2] for sh in shards])
         last = shards[-1]
@@ -2552,14 +2540,13 @@ def _dp_step(wrappers, card, mesh, work, train):
     counts, times, losses = {}, [], []
     for b in (first, batch(), batch()):
         torch.cuda.synchronize()
-        for fn in wrappers.values():
-            fn.launches = 0
+        wrappers.reset()
         t0 = time.perf_counter()
         losses.append(dp.train_step(b))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        for k, fn in wrappers.items():
-            counts.setdefault(k, []).append(fn.launches)
+        for k, n in wrappers.counts().items():
+            counts.setdefault(k, []).append(n)
         if len(times) == 1:
             got = {n: p.grad.detach().clone() for n, p in dp.model.named_parameters()
                    if p.grad is not None}
@@ -2602,15 +2589,14 @@ def _volume(wrappers, plain, card, model, diffusion, mesh):
                                    compute_dtype=bf16)
     denoise(vol[:VOLUME_BPD], generator=torch.Generator().manual_seed(1))  # warm-up
     torch.cuda.synchronize()
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers.reset()
     t0 = time.perf_counter()
     got = denoise(vol, generator=torch.Generator().manual_seed(18))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     waves = -(-VOLUME_Z // VOLUME_BPD)
     forwards = waves * diffusion.sampling_timesteps
-    launches = {k: fn.launches for k, fn in wrappers.items()}
+    launches = wrappers.counts()
     for k, n in launches.items():
         if n != PER_FORWARD.get(k, 0) * forwards:
             raise AssertionError(f"volume: {k} {n} launches in {forwards} UNet forwards")
@@ -2762,8 +2748,7 @@ def no_tower_options(wrappers, card):
         if lv:
             opt = torch.optim.Adam([p for p in model.parameters() if p.requires_grad], lr=2e-4)
             before = {n: p.detach().clone() for n, p in model.named_parameters()}
-            for fn in wrappers.values():
-                fn.launches = 0
+            wrappers.reset()
             t0 = time.perf_counter()
             loss = sum(diffusion.loss([gt, ld, mask], generator=torch.Generator().manual_seed(1)))
             loss.backward()
@@ -2773,7 +2758,7 @@ def no_tower_options(wrappers, card):
             opt.step()
             torch.cuda.synchronize()
             step_s = time.perf_counter() - t0
-            launches = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+            launches = wrappers.used()
             moved = sum(not torch.equal(p, before[n]) for n, p in model.named_parameters())
             out_ch = model.unet0.final_conv.weight.shape[0]
             # the dose-prompt weights see zero embeddings without the tower: no gradient
@@ -2797,13 +2782,12 @@ def no_tower_options(wrappers, card):
                 f"{launches}; its DDIM-2 sample raises TypeError as the JAX scan does ({refused})"
                 f" [{card}]")
         else:
-            for fn in wrappers.values():
-                fn.launches = 0
+            wrappers.reset()
             with torch.no_grad():
                 out = diffusion.sample([ld, mask], use_test_schedule=True,
                                        generator=torch.Generator().manual_seed(2))
             torch.cuda.synchronize()
-            launches = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+            launches = wrappers.used()
             img = out[-1]
             ok = (img.shape == ld.shape and bool(torch.isfinite(img).all())
                   and 0.0 <= float(img.min()) and float(img.max()) <= 1.0)
@@ -2853,17 +2837,15 @@ def ss2d_variants(wrappers, plain, card):
     result, failed, sites = {}, [], {}
 
     def run(fn):
-        for w in wrappers.values():
-            w.launches = 0
+        wrappers.reset()
         with torch.no_grad():
             got = fn()
         torch.cuda.synchronize()
-        used = {k: w.launches for k, w in wrappers.items() if w.launches}
-        for w in wrappers.values():
-            w.launches = 0
+        used = wrappers.used()
+        wrappers.reset()
         with torch.no_grad(), swapped(plain):
             want = fn()
-        launched = {k: w.launches for k, w in wrappers.items() if w.launches}
+        launched = wrappers.used()
         if launched:
             raise AssertionError(f"the plain path launched kernels {launched}")
         return got, want, used
@@ -3092,13 +3074,12 @@ def doseclip_training(work, root, model, diffusion, wrappers, card):
     sampler = make_hoisted_sampler(model, diffusion, compute_dtype=torch.bfloat16)
     x = torch.from_numpy(np.random.default_rng(19).random((1, 512, 512, 1),
                                                           dtype=np.float32)).cuda()
-    for w in wrappers.values():
-        w.launches = 0
+    wrappers.reset()
     t = time.perf_counter()
     y = sampler(x, generator=torch.Generator().manual_seed(19))
     torch.cuda.synchronize()
     request_s = time.perf_counter() - t
-    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    launches = wrappers.used()
     forwards = 2
     want = {k: n * forwards for k, n in PER_FORWARD.items()}
     if launches != want or not bool(torch.isfinite(y).all()):
@@ -3321,13 +3302,12 @@ def trace_hook(work, wrappers, train, card):
         gt = torch.rand((B, S, S, 1), generator=gen)
         batches.append((gt, (gt + 0.1 * torch.randn((B, S, S, 1), generator=gen)).clamp(0, 1)))
     prof_dir = os.path.join(work, "trace")
-    for w in wrappers.values():
-        w.launches = 0
+    wrappers.reset()
     t = time.perf_counter()
     trainer.train(batches, log_every=10, profile_dir=prof_dir, profile_steps=(1, 3))
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t
-    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    launches = wrappers.used()
     del trainer, model, diffusion
     torch.cuda.empty_cache()
     files = [os.path.join(prof_dir, f) for f in os.listdir(prof_dir)]
@@ -3391,6 +3371,53 @@ def doseclip_and_tools(model, diffusion, wrappers, record, card):
 def psnr(a, b) -> float:
     mse = float(((a.float() - b.float()) ** 2).mean())
     return float("inf") if mse == 0 else 10 * math.log10(1.0 / mse)
+
+
+class Launches:
+    """The port's kernel launches by wrapper, read from the program's
+    counter registry (``founddiff_tpu_torch.utils.trace``, one count per
+    launch under the C entry's name) since the last :meth:`reset`.
+    Iterating gives the wrappers' names."""
+
+    ENTRIES = {
+        "ss2d_image_block": ("ss2d_block_forward", "ss2d_block_forward.silu"),
+        "attn_block": ("attn_block_forward",), "layer_norm_modulated": ("ln_mod_forward",),
+        "scan_forward": ("scan_forward",), "scan_backward": ("scan_backward",),
+        "scan_image_forward": ("scan_image_forward",), "flash_fwd": ("flash_fwd",),
+        "flash_bwd_dq": ("flash_bwd_dq",), "flash_bwd_dkv": ("flash_bwd_dkv",),
+        "gn_stats": ("gn_stats_forward",), "gn_apply": ("gn_apply_forward",),
+        "ss2d_mamba_block": ("mamba_block_forward",), "scan_fused_forward": ("scan_fused_forward",),
+        "layer_norm": ("ln_forward",), "merge_ln_gate": ("ss2d_epilogue_forward",),
+    }
+
+    def __init__(self):
+        self.reset()
+
+    def __iter__(self):
+        return iter(self.ENTRIES)
+
+    def reset(self):
+        from founddiff_tpu_torch.utils import trace
+
+        self._since = trace.counters()
+
+    def _delta(self):
+        from founddiff_tpu_torch.utils import trace
+
+        return trace.counters(self._since)
+
+    def counts(self) -> dict:
+        """Launches of every wrapper (``ss2d_image_block``'s with and without
+        ``silu_input``)."""
+        delta = self._delta()
+        return {k: sum(delta.get(e, 0) for e in entries) for k, entries in self.ENTRIES.items()}
+
+    def used(self) -> dict:
+        return {k: n for k, n in self.counts().items() if n}
+
+    def silu(self) -> int:
+        """The ``ss2d_image_block`` launches with ``silu_input``."""
+        return self._delta().get("ss2d_block_forward.silu", 0)
 
 
 def main() -> int:
@@ -3478,14 +3505,7 @@ def main() -> int:
             lambda *a, **k: ss2d_mod.ss2d_image_block_plain(*a, silu_input=True, **k)),
     }
     ops.update({k: ops[SITE_WRAPPER[k]] for k in SITES[1:]})
-    wrappers = {k: getattr(mod, k) for k, mod in (
-        ("ss2d_image_block", ss2d_mod), ("attn_block", attn_mod),
-        ("layer_norm_modulated", norm_mod), ("scan_forward", scan_mod),
-        ("scan_backward", scan_mod), ("scan_image_forward", scan_mod), ("flash_fwd", flash_mod),
-        ("flash_bwd_dq", flash_mod), ("flash_bwd_dkv", flash_mod), ("gn_stats", gn_mod),
-        ("gn_apply", gn_mod), ("ss2d_mamba_block", unified_mod),
-        ("scan_fused_forward", scan_mod), ("layer_norm", norm_mod),
-        ("merge_ln_gate", fused_mod))}
+    wrappers = Launches()
 
     # phase 2: kernels against their plain versions
     cases = [(b, *c) for b in (1, 4) for c in kernel_cases(b)]

@@ -28,6 +28,7 @@ from founddiff_tpu_torch.diffusion.schedules import (
     make_gaussian_schedule,
     same_shape,
 )
+from founddiff_tpu_torch.utils import trace
 from founddiff_tpu_torch.utils.device import resolve
 
 ModelFn = Callable[..., torch.Tensor]
@@ -173,11 +174,12 @@ class GaussianDiffusion:
         draws = self._draws(shape, self.num_timesteps, generator, noise, device)
         img = next(draws)
         for t in range(self.num_timesteps - 1, -1, -1):
-            bt = torch.full((shape[0],), t, dtype=torch.long, device=device)
-            mean, _, log_var, _ = self.p_mean_variance(img, bt)
-            z = next(draws)
-            img = mean + torch.exp(0.5 * log_var) * z if t > 0 else mean
-            same_shape(img, shape)
+            with trace.span("ddim.step", device=True, t=t, t_next=t - 1):
+                bt = torch.full((shape[0],), t, dtype=torch.long, device=device)
+                mean, _, log_var, _ = self.p_mean_variance(img, bt)
+                z = next(draws)
+                img = mean + torch.exp(0.5 * log_var) * z if t > 0 else mean
+                same_shape(img, shape)
         return unnormalize_to_zero_to_one(img)
 
     @torch.no_grad()
@@ -195,19 +197,20 @@ class GaussianDiffusion:
         draws = self._draws(shape, self.sampling_timesteps, generator, noise, device)
         img = next(draws)
         for time, time_next in zip(times[:-1], times[1:]):
-            bt = torch.full((shape[0],), time, dtype=torch.long, device=device)
-            pred_noise, x_start = self.model_predictions(img, bt,
-                                                         clip_x_start=self.clip_denoised)
-            z = next(draws)
-            if time_next < 0:
-                img = x_start
+            with trace.span("ddim.step", device=True, t=time, t_next=time_next):
+                bt = torch.full((shape[0],), time, dtype=torch.long, device=device)
+                pred_noise, x_start = self.model_predictions(img, bt,
+                                                             clip_x_start=self.clip_denoised)
+                z = next(draws)
+                if time_next < 0:
+                    img = x_start
+                    same_shape(img, shape)
+                    continue
+                alpha, alpha_next = acp[time], acp[time_next]
+                sigma = eta * torch.sqrt((1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha))
+                c = torch.sqrt(1 - alpha_next - sigma ** 2)
+                img = x_start * torch.sqrt(alpha_next) + c * pred_noise + sigma * z
                 same_shape(img, shape)
-                continue
-            alpha, alpha_next = acp[time], acp[time_next]
-            sigma = eta * torch.sqrt((1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha))
-            c = torch.sqrt(1 - alpha_next - sigma ** 2)
-            img = x_start * torch.sqrt(alpha_next) + c * pred_noise + sigma * z
-            same_shape(img, shape)
         return unnormalize_to_zero_to_one(img)
 
     def sample(self, batch_size: int = 16, generator: Optional[torch.Generator] = None,
@@ -226,9 +229,10 @@ class GaussianDiffusion:
         """The p2-weighted l1/l2 loss at timesteps ``t`` [B] of ``x_start``
         in [-1, 1].  ``noise`` and the self-conditioning coin are drawn from
         ``generator`` on the CPU when not given."""
-        if noise is None:
-            noise = torch.randn(tuple(x_start.shape), generator=generator)
-        noise = noise.to(device=x_start.device, dtype=x_start.dtype)
+        with trace.span("train.draws"):
+            if noise is None:
+                noise = torch.randn(tuple(x_start.shape), generator=generator)
+            noise = noise.to(device=x_start.device, dtype=x_start.dtype)
         x = self.q_sample(x_start, t, noise)
         x_self_cond = None
         if self.self_condition:
@@ -257,9 +261,11 @@ class GaussianDiffusion:
              generator: Optional[torch.Generator] = None):
         """The loss of images ``img`` in [0, 1]; ``t`` uniform in [0, T) from
         ``generator`` when not given."""
-        if t is None:
-            t = torch.randint(0, self.num_timesteps, (img.shape[0],), generator=generator)
-        return self.p_losses(normalize_to_neg_one_to_one(img), t.to(img.device), noise,
+        with trace.span("train.draws"):
+            if t is None:
+                t = torch.randint(0, self.num_timesteps, (img.shape[0],), generator=generator)
+            t = t.to(img.device)
+        return self.p_losses(normalize_to_neg_one_to_one(img), t, noise,
                              generator)
 
 

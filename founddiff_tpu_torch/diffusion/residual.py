@@ -29,6 +29,7 @@ from founddiff_tpu_torch.diffusion.schedules import (
     same_shape,
 )
 from founddiff_tpu_torch.ops.losses import grad_loss, wt_decomp
+from founddiff_tpu_torch.utils import trace
 from founddiff_tpu_torch.utils.device import resolve
 
 ModelFn = Callable[..., Sequence[torch.Tensor]]
@@ -224,16 +225,17 @@ class ResidualDiffusion:
         imgs = []
         x_start_prev = torch.zeros(shape, device=device) if self.self_condition else None
         for t in range(self.num_timesteps - 1, -1, -1):
-            bt = torch.full((shape[0],), t, dtype=torch.long, device=device)
-            mean, _, log_var, x_start = self.p_mean_variance(sch, x_input, img, bt,
-                                                             x_input_condition, x_start_prev)
-            z = next(draws)
-            img = mean + torch.exp(0.5 * log_var) * z if t > 0 else mean
-            same_shape(img, shape)
-            if self.self_condition:
-                x_start_prev = x_start
-            if not last:
-                imgs.append(img)
+            with trace.span("ddim.step", device=True, t=t, t_next=t - 1):
+                bt = torch.full((shape[0],), t, dtype=torch.long, device=device)
+                mean, _, log_var, x_start = self.p_mean_variance(sch, x_input, img, bt,
+                                                                 x_input_condition, x_start_prev)
+                z = next(draws)
+                img = mean + torch.exp(0.5 * log_var) * z if t > 0 else mean
+                same_shape(img, shape)
+                if self.self_condition:
+                    x_start_prev = x_start
+                if not last:
+                    imgs.append(img)
         return self._package_samples(img, imgs, input_add_noise, last)
 
     def _draws(self, shape, steps: int, generator, noise, device):
@@ -282,35 +284,36 @@ class ResidualDiffusion:
         imgs = []
         x_start_prev = torch.zeros(shape, device=device) if self.self_condition else None
         for time, time_next in zip(t_cur, t_next):
-            bt = torch.full((shape[0],), time, dtype=torch.long, device=device)
-            preds = self.model_predictions(sch, x_input, img, bt, x_input_condition,
-                                           x_start_prev)
-            pred_res, x_start = preds.pred_res, preds.pred_x_start
-            if time_next < 0:
-                img = x_start  # final step returns x_start (src/DADiff.py:1320-1324)
-            else:
-                alpha_cumsum = sch.alphas_cumsum[time]
-                alpha_cumsum_next = sch.alphas_cumsum[time_next]
-                alpha = alpha_cumsum - alpha_cumsum_next
-                b2 = sch.betas2_cumsum[time]
-                b2_next = sch.betas2_cumsum[time_next]
-                sigma2 = eta * ((b2 - b2_next) * b2_next / b2)
-                noise_term = 0.0
-                if eta != 0.0:
-                    noise_term = torch.sqrt(sigma2) * torch.randn(
-                        tuple(shape), generator=generator).to(device)
-                if self.ddim_update == "use_x_start":
-                    coef = torch.sqrt(b2_next - sigma2) / sch.betas_cumsum[time]
-                    img = (coef * img + (1.0 - coef) * x_start
-                           + (alpha_cumsum_next - alpha_cumsum * coef) * pred_res
-                           + noise_term)
+            with trace.span("ddim.step", device=True, t=time, t_next=time_next):
+                bt = torch.full((shape[0],), time, dtype=torch.long, device=device)
+                preds = self.model_predictions(sch, x_input, img, bt, x_input_condition,
+                                               x_start_prev)
+                pred_res, x_start = preds.pred_res, preds.pred_x_start
+                if time_next < 0:
+                    img = x_start  # final step returns x_start (src/DADiff.py:1320-1324)
                 else:
-                    img = img - alpha * pred_res + noise_term
-            same_shape(img, shape)
-            if self.self_condition:
-                x_start_prev = x_start
-            if not last:
-                imgs.append(img)
+                    alpha_cumsum = sch.alphas_cumsum[time]
+                    alpha_cumsum_next = sch.alphas_cumsum[time_next]
+                    alpha = alpha_cumsum - alpha_cumsum_next
+                    b2 = sch.betas2_cumsum[time]
+                    b2_next = sch.betas2_cumsum[time_next]
+                    sigma2 = eta * ((b2 - b2_next) * b2_next / b2)
+                    noise_term = 0.0
+                    if eta != 0.0:
+                        noise_term = torch.sqrt(sigma2) * torch.randn(
+                            tuple(shape), generator=generator).to(device)
+                    if self.ddim_update == "use_x_start":
+                        coef = torch.sqrt(b2_next - sigma2) / sch.betas_cumsum[time]
+                        img = (coef * img + (1.0 - coef) * x_start
+                               + (alpha_cumsum_next - alpha_cumsum * coef) * pred_res
+                               + noise_term)
+                    else:
+                        img = img - alpha * pred_res + noise_term
+                same_shape(img, shape)
+                if self.self_condition:
+                    x_start_prev = x_start
+                if not last:
+                    imgs.append(img)
         return self._package_samples(img, imgs, input_add_noise, last)
 
     def _split_input(self, x_input):
@@ -378,9 +381,10 @@ class ResidualDiffusion:
             x_input, x_start, x_input_condition = 0.0, imgs, None
         device = x_start.device
         sch = self.train_schedule.to(device)
-        if noise is None:
-            noise = torch.randn(tuple(x_start.shape), generator=generator)
-        noise = noise.to(device=device, dtype=x_start.dtype)
+        with trace.span("train.draws"):
+            if noise is None:
+                noise = torch.randn(tuple(x_start.shape), generator=generator)
+            noise = noise.to(device=device, dtype=x_start.dtype)
         x_res = x_input - x_start
         x = self.q_sample(sch, x_start, x_res, t, noise)
         x_self_cond = None
@@ -417,9 +421,10 @@ class ResidualDiffusion:
         """Per-UNet loss list for ``imgs`` in [0, 1] (src/DADiff.py:1484-1498):
         ``t`` is drawn uniformly from ``generator`` when not given."""
         first = imgs[0] if isinstance(imgs, (list, tuple)) else imgs
-        if t is None:
-            t = torch.randint(0, self.num_timesteps, (first.shape[0],), generator=generator)
-        t = t.to(first.device)
+        with trace.span("train.draws"):
+            if t is None:
+                t = torch.randint(0, self.num_timesteps, (first.shape[0],), generator=generator)
+            t = t.to(first.device)
         if self.input_condition and self.input_condition_mask:
             # gt and input normalised, the input condition as given (residual.py:561)
             imgs = [normalize_to_neg_one_to_one(x) for x in imgs[:2]] + list(imgs[2:])

@@ -13,6 +13,7 @@ import torch
 
 from founddiff_tpu_torch.models.clip import CLIPIQA
 from founddiff_tpu_torch.models.unet import UnetRes
+from founddiff_tpu_torch.utils import trace
 
 
 class FoundDiffDenoiser(UnetRes):
@@ -40,6 +41,7 @@ class FoundDiffDenoiser(UnetRes):
         return self.unet0.dose_encoder
 
     @torch.no_grad()
+    @trace.traced("tower", device=True)
     def encode(self, x_input):
         """(dose [B, embed], content [B, 1, 256]) from the conditioning image
         x_input [B,H,W,channels] in [-1, 1], tripled to RGB (src/DADiff.py:692).

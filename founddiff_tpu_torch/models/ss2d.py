@@ -75,6 +75,7 @@ from founddiff_tpu_torch.ops.selective_scan import (
 from founddiff_tpu_torch.ops.ss2d_block import block_scan_ok, ss2d_image_block
 from founddiff_tpu_torch.ops.ss2d_fused import merge_ln_gate, merge_ln_gate_split
 from founddiff_tpu_torch.parallel.sequence import seq_sharded_selective_scan
+from founddiff_tpu_torch.utils import trace
 
 K_DIRS = 4
 
@@ -168,6 +169,7 @@ class SS2D(nn.Module):
             return conv_nhwc(xs, w, b, groups=self.d_inner)
         return conv_nhwc(xs, w, b, padding=k // 2, groups=self.d_inner)
 
+    @trace.traced("ss2d", device=True)
     def forward(self, x1, c=None, gate=None, residual=None):
         """x1 [B,H,W,C0] modulated input; c [B,1,context] content embedding or
         None; returns ``residual + gate * SS2D(x1)`` (gate [B, C0] and
@@ -328,6 +330,7 @@ class MambaBlock(nn.Module):
         self.attn_blk = (CrossAttention(h, context_dim=context_dim) if cross
                          else TransposedAttention(h, heads=max(1, h // 32)))
 
+    @trace.traced("mamba_block", device=True)
     def forward(self, x, c, t):
         """x [B,H,W,h]; c [B,1,256]; t [B,time_dim]."""
         B, H, W, h = x.shape

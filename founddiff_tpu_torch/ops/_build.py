@@ -21,6 +21,8 @@ import subprocess
 import time
 from typing import Dict, List, Optional
 
+from founddiff_tpu_torch.utils import trace
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -150,9 +152,15 @@ def expect(device, **named) -> None:
             raise ValueError(f"{name} lies on {t.device}, want {device}")
 
 
-def check(rc: int, what: str) -> None:
+def check(rc: int, what: str, launched=None) -> None:
+    """Raise unless the C entry ``what`` returned 0; else count its launch
+    in :func:`founddiff_tpu_torch.utils.trace.count` under ``what``, or
+    under each name of ``launched`` (an entry that launches two kernels,
+    each counted under the entry that launches it alone)."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+    for name in launched or (what,):
+        trace.count(name)
 
 
 _CODES: Dict[object, int] = {}

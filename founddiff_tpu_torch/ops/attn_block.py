@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from founddiff_tpu_torch.ops import _build, _cache
 from founddiff_tpu_torch.ops.norm import _ln_mod, _modulation
 from founddiff_tpu_torch.ops.remat import remat_grads
+from founddiff_tpu_torch.utils import trace
 
 _HEAD_DIM = 32  # MambaBlock builds heads = C // 32
 # as csrc/attn_block.cu: the output pixels of one tile (rows, columns) and
@@ -116,6 +117,7 @@ def _workspace_bytes(B: int, H: int, W: int, C: int, io_size: int) -> int:
     return sum(-(-n // 256) * 256 for n in pieces)
 
 
+@trace.traced("kernel.attn_block_forward")
 def _attn_block_cuda(x, mod_scale, mod_shift, gate, qkv_w, dw_w, temperature,
                      proj_w, heads: int, eps: float):
     B, H, W, C = x.shape
@@ -147,7 +149,6 @@ def _attn_block_cuda(x, mod_scale, mod_shift, gate, qkv_w, dw_w, temperature,
     rc = fn(*map(_build.ptr, (x, ms, mt, g32, wqkv, taps, temp, pk, out, ws)),
             ldm, ldg, B, H, W, C, eps, _build.dtype_code(x), _build.stream())
     _build.check(rc, "attn_block_forward")
-    attn_block.launches += 1
     return out
 
 
@@ -156,6 +157,7 @@ class _AttnBlockFn(torch.autograd.Function):
     Backward: autograd through :func:`attn_block_plain`."""
 
     @staticmethod
+    @trace.traced("kernel._AttnBlockFn.forward")
     def forward(ctx, heads, eps, *args):
         ctx.heads, ctx.eps = heads, eps
         ctx.save_for_backward(*args)
@@ -163,6 +165,7 @@ class _AttnBlockFn(torch.autograd.Function):
         return fn(*args, heads, eps)
 
     @staticmethod
+    @trace.traced("kernel._AttnBlockFn.backward")
     def backward(ctx, g):
         heads, eps = ctx.heads, ctx.eps
         return (None, None, *remat_grads(lambda *a: attn_block_plain(*a, heads, eps),
@@ -179,6 +182,3 @@ def attn_block(x, mod_scale, mod_shift, gate, qkv_w, dw_w, temperature, proj_w,
     if _cache.needs_grad(*args):
         return _AttnBlockFn.apply(heads, eps, *args)
     return (_attn_block_cuda if x.is_cuda else attn_block_plain)(*args, heads, eps)
-
-
-attn_block.launches = 0

@@ -48,6 +48,7 @@ from founddiff_tpu_torch.ops.ss2d_block import (
     block_scan_ok,
     ss2d_compose,
 )
+from founddiff_tpu_torch.utils import trace
 
 
 def unified_route() -> bool:
@@ -132,6 +133,7 @@ def _kernel_weights(wx, wz, dwt, dwb, w_delta, w_b, w_c, A, Dskip, delta_bias, l
     return w
 
 
+@trace.traced("kernel.mamba_block_forward")
 def _launch(x, geff, beff, w, local, gate, eps_ln, eps):
     """One ``mamba_block_forward`` launch: the LN affine and the modulation
     folded into in_proj per image (``fold_affine``'s arithmetic, both halves
@@ -178,7 +180,6 @@ def _launch(x, geff, beff, w, local, gate, eps_ln, eps):
             xc, xs, proj, csum, cstate, ybuf, yacc, stats, og,
             B, H, W, C0, D, N, _CHUNK, eps_ln, eps, code, _build.stream())
     _build.check(rc, "mamba_block_forward")
-    ss2d_mamba_block.launches += 1
     return out
 
 
@@ -214,6 +215,7 @@ class _MambaBlockFn(torch.autograd.Function):
     Backward: autograd through :func:`mamba_compose`."""
 
     @staticmethod
+    @trace.traced("kernel._MambaBlockFn.forward")
     def forward(ctx, eps_ln, eps, *args):
         ctx.eps_ln, ctx.eps = eps_ln, eps
         ctx.save_for_backward(*args)
@@ -221,6 +223,7 @@ class _MambaBlockFn(torch.autograd.Function):
         return fn(*args, eps_ln, eps)
 
     @staticmethod
+    @trace.traced("kernel._MambaBlockFn.backward")
     def backward(ctx, g):
         eps_ln, eps = ctx.eps_ln, ctx.eps
         return (None, None, *remat_grads(lambda *a: mamba_compose(*a, eps_ln, eps),
@@ -312,8 +315,6 @@ def ss2d_mamba_block_plain(x, ln_scale, ln_bias, mod_scale, mod_shift, in_proj_w
         x_proj_weight, dt_projs_weight, A, Dskip, delta_bias, out_ln_g, out_ln_b, local, proj_w,
         gate, d_inner, dt_rank, d_state), eps_ln, eps)
 
-
-ss2d_mamba_block.launches = 0
 
 __all__ = ["mamba_block_ok", "mamba_compose", "ss2d_mamba_block", "ss2d_mamba_block_plain",
            "unified_route"]

@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 
 from founddiff_tpu_torch.ops import _build
+from founddiff_tpu_torch.utils import trace
 
 HEAD_DIM = 32  # the kernels' one head dim: the vanilla UNet's 4 heads of 32
 
@@ -108,6 +109,7 @@ def _rows(t, G, L, name, dev):
     return t
 
 
+@trace.traced("kernel.flash_fwd")
 def _flash_fwd_cuda(q, k, v, scale: float):
     G, Lq, Lk, d = _check(q, k, v)
     q, k, v = (t.contiguous() for t in (q, k, v))
@@ -118,7 +120,6 @@ def _flash_fwd_cuda(q, k, v, scale: float):
     rc = fn(*map(_build.ptr, (q, k, v, o, lse)), G, Lq, Lk, d, scale, _build.dtype_code(q),
             _build.stream())
     _build.check(rc, "flash_fwd")
-    flash_fwd.launches += 1
     return o, lse
 
 
@@ -129,6 +130,7 @@ def _bwd_operands(q, k, v, do, lse, dcap):
             _rows(dcap, G, Lq, "dcap", q.device)), (G, Lq, Lk, d)
 
 
+@trace.traced("kernel.flash_bwd_dq")
 def _flash_bwd_dq_cuda(q, k, v, do, lse, dcap, scale: float):
     ops, dims = _bwd_operands(q, k, v, do, lse, dcap)
     dq = torch.empty_like(ops[0])
@@ -136,10 +138,10 @@ def _flash_bwd_dq_cuda(q, k, v, do, lse, dcap, scale: float):
                        [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int])
     rc = fn(*map(_build.ptr, ops + (dq,)), *dims, scale, _build.dtype_code(q), _build.stream())
     _build.check(rc, "flash_bwd_dq")
-    flash_bwd_dq.launches += 1
     return dq
 
 
+@trace.traced("kernel.flash_bwd_dkv")
 def _flash_bwd_dkv_cuda(q, k, v, do, lse, dcap, scale: float):
     ops, dims = _bwd_operands(q, k, v, do, lse, dcap)
     dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
@@ -148,7 +150,6 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, dcap, scale: float):
     rc = fn(*map(_build.ptr, ops + (dk, dv)), *dims, scale, _build.dtype_code(q),
             _build.stream())
     _build.check(rc, "flash_bwd_dkv")
-    flash_bwd_dkv.launches += 1
     return dk, dv
 
 
@@ -173,11 +174,6 @@ def flash_bwd_dkv(q, k, v, do, lse, dcap, scale: float):
     CUDA tensors launch the kernel; CPU tensors take the plain version."""
     fn = _flash_bwd_dkv_cuda if q.is_cuda else flash_bwd_dkv_plain
     return fn(q, k, v, do, lse, dcap, scale)
-
-
-flash_fwd.launches = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from founddiff_tpu_torch.ops import _build, _cache
 from founddiff_tpu_torch.ops.norm import _modulation
 from founddiff_tpu_torch.ops.remat import remat_grads
+from founddiff_tpu_torch.utils import trace
 
 _BLOCK_BYTES = 32 * 1024  # the least x one stats block streams
 _MAX_BLOCKS = 264  # stats blocks over a call at most: 2 per SM
@@ -185,6 +186,7 @@ def _residual(residual, x):
     return residual.contiguous()
 
 
+@trace.traced("kernel.gn_stats_forward")
 def _gn_stats_cuda(x3, gamma, beta, ms, mt, groups, eps):
     B, R, C = x3.shape
     x3 = x3.contiguous()
@@ -197,10 +199,10 @@ def _gn_stats_cuda(x3, gamma, beta, ms, mt, groups, eps):
     rc = fn(*map(_build.ptr, (x3, g, b, ms, mt, table)), ws + 4 * (tickets + 2 * B * C), ws,
             B, R, C, groups, nblk, ldm, eps, _build.dtype_code(x3), stream)
     _build.check(rc, "gn_stats_forward")
-    gn_stats.launches += 1
     return table
 
 
+@trace.traced("kernel.gn_apply_forward")
 def _gn_apply_cuda(x3, table, residual):
     B, R, C = x3.shape
     _check(x3, 1)
@@ -215,10 +217,10 @@ def _gn_apply_cuda(x3, table, residual):
     rc = fn(*map(_build.ptr, (x3, table, residual, out)), B, R, C, int(residual is not None),
             _build.dtype_code(x3), _build.stream())
     _build.check(rc, "gn_apply_forward")
-    gn_apply.launches += 1
     return out
 
 
+@trace.traced("kernel.gn_silu_forward")
 def _gn_silu_cuda(x, gamma, beta, residual, ms, mt, groups, eps):
     """One epilogue in one C call: the stats kernel writes its table into
     the stream's scratch, the apply kernel reads it."""
@@ -235,9 +237,7 @@ def _gn_silu_cuda(x, gamma, beta, residual, ms, mt, groups, eps):
     rc = fn(*map(_build.ptr, (x, g, b, ms, mt, residual, out)), table, table + 8 * B * C, ws,
             B, H * W, C, groups, nblk, ldm, int(residual is not None), eps,
             _build.dtype_code(x), stream)
-    _build.check(rc, "gn_silu_forward")
-    gn_stats.launches += 1
-    gn_apply.launches += 1
+    _build.check(rc, "gn_silu_forward", ("gn_stats_forward", "gn_apply_forward"))
     return out
 
 
@@ -255,10 +255,6 @@ def gn_apply(x3, table, residual=None):
     ``residual`` None is never read.  CUDA tensors launch the kernel; CPU
     tensors take the plain version."""
     return (_gn_apply_cuda if x3.is_cuda else gn_apply_plain)(x3, table, residual)
-
-
-gn_stats.launches = 0
-gn_apply.launches = 0
 
 
 def _gn_silu(x, gamma, beta, residual, ms, mt, groups, eps):

@@ -26,6 +26,7 @@ import torch
 
 from founddiff_tpu_torch.ops import _build, _cache
 from founddiff_tpu_torch.ops.remat import remat_grads
+from founddiff_tpu_torch.utils import trace
 
 
 def layer_norm_two_pass(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
@@ -58,6 +59,7 @@ _LN_TAIL = [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
 _LN_MOD_TAIL = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
 
 
+@trace.traced("kernel.ln_forward")
 def _ln_cuda(x2, scale, bias, eps):
     R, C = x2.shape
     x2 = x2.contiguous()
@@ -68,7 +70,6 @@ def _ln_cuda(x2, scale, bias, eps):
     rc = fn(_build.ptr(x2), _build.ptr(g), _build.ptr(b), _build.ptr(out), R, C, eps,
             int(g is not None), _build.dtype_code(x2), _build.stream())
     _build.check(rc, "ln_forward")
-    layer_norm.launches += 1
     return out
 
 
@@ -77,12 +78,14 @@ class _LnFn(torch.autograd.Function):
     Backward: autograd through :func:`layer_norm_two_pass`."""
 
     @staticmethod
+    @trace.traced("kernel._LnFn.forward")
     def forward(ctx, eps, x2, scale, bias):
         ctx.eps = eps
         ctx.save_for_backward(x2, scale, bias)
         return (_ln_cuda if x2.is_cuda else _ln)(x2, scale, bias, eps)
 
     @staticmethod
+    @trace.traced("kernel._LnFn.backward")
     def backward(ctx, g):
         eps = ctx.eps
         return (None, *remat_grads(lambda *a: layer_norm_two_pass(*a, eps),
@@ -104,9 +107,6 @@ def layer_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
 def layer_norm_plain(x, scale=None, bias=None, eps: float = 1e-5):
     """The plain version of :func:`layer_norm` on any device."""
     return _ln(x.reshape(-1, x.shape[-1]), scale, bias, eps).reshape(x.shape)
-
-
-layer_norm.launches = 0
 
 
 def _ln_mod(x3, scale, bias, mod_scale, mod_shift, eps):
@@ -134,6 +134,7 @@ def _modulation(mod_scale, mod_shift):
     return ms, mt, ms.shape[-1]
 
 
+@trace.traced("kernel.ln_mod_forward")
 def _ln_mod_cuda(x3, scale, bias, mod_scale, mod_shift, eps):
     B, R, C = x3.shape
     x3 = x3.contiguous()
@@ -147,7 +148,6 @@ def _ln_mod_cuda(x3, scale, bias, mod_scale, mod_shift, eps):
             _build.ptr(mt), _build.ptr(out), B, R, C, ldm, eps, int(g is not None),
             _build.dtype_code(x3), _build.stream())
     _build.check(rc, "ln_mod_forward")
-    layer_norm_modulated.launches += 1
     return out
 
 
@@ -156,6 +156,7 @@ class _LnModFn(torch.autograd.Function):
     Backward: autograd through :func:`_ln_mod`."""
 
     @staticmethod
+    @trace.traced("kernel._LnModFn.forward")
     def forward(ctx, eps, x3, scale, bias, mod_scale, mod_shift):
         ctx.eps = eps
         ctx.save_for_backward(x3, scale, bias, mod_scale, mod_shift)
@@ -163,6 +164,7 @@ class _LnModFn(torch.autograd.Function):
         return fn(x3, scale, bias, mod_scale, mod_shift, eps)
 
     @staticmethod
+    @trace.traced("kernel._LnModFn.backward")
     def backward(ctx, g):
         eps = ctx.eps
         return (None, *remat_grads(lambda *a: _ln_mod(*a, eps), ctx.saved_tensors,
@@ -188,6 +190,3 @@ def layer_norm_modulated_plain(x, scale, bias, mod_scale, mod_shift, eps: float 
     shape = x.shape
     x3 = x.reshape(shape[0], -1, shape[-1])
     return _ln_mod(x3, scale, bias, mod_scale, mod_shift, eps).reshape(shape)
-
-
-layer_norm_modulated.launches = 0

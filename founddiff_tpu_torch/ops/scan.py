@@ -45,6 +45,7 @@ from founddiff_tpu_torch.ops.selective_scan import (
     efficient_scan,
     selective_scan_chunked,
 )
+from founddiff_tpu_torch.utils import trace
 
 # The state sizes the kernels that hold the states in registers as a
 # template argument are built for (the fused-projection and image scans,
@@ -167,6 +168,7 @@ def scan_backward_plain(u, delta, A, Bmat, Cmat, Dskip, delta_bias, h_bounds, dy
 # --- kernels -----------------------------------------------------------------
 
 
+@trace.traced("kernel.scan_forward")
 def _scan_forward_cuda(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk: int,
                        bounds_only: bool = False, last_state: bool = False):
     Bsz, K, L, D = u.shape
@@ -189,10 +191,10 @@ def _scan_forward_cuda(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk: int,
     rc = fn(*map(_build.ptr, (u, delta, Bmat, Cmat, A32, Ds32, bias32, y, hb, dsum, yacc, last)),
             G, K, L, D, N, chunk, _build.dtype_code(u), _build.stream())
     _build.check(rc, "scan_forward")
-    scan_forward.launches += 1
     return (y, hb, last) if last_state else (y, hb)
 
 
+@trace.traced("kernel.scan_backward")
 def _scan_backward_cuda(u, delta, A, Bmat, Cmat, Dskip, delta_bias, h_bounds, dy,
                         chunk: int):
     Bsz, K, L, D = u.shape
@@ -222,7 +224,6 @@ def _scan_backward_cuda(u, delta, A, Bmat, Cmat, Dskip, delta_bias, h_bounds, dy
                               gC, gA, gD, gbias, zl, dsum, gBp, gCp, gAp, gDp, gbp, sacc, hacc)),
             Bsz, K, L, D, N, chunk, nb, _build.dtype_code(u), _build.stream())
     _build.check(rc, "scan_backward")
-    scan_backward.launches += 1
     return (gu, gdl.to(delta.dtype), gA.to(A.dtype), gB, gC, gD.to(Dskip.dtype),
             gbias.to(delta_bias.dtype))
 
@@ -251,10 +252,6 @@ def scan_backward(u, delta, A, Bmat, Cmat, Dskip, delta_bias, h_bounds, dy,
     chunk = chunk or scan_chunk(A.shape[-1])
     fn = _scan_backward_cuda if u.is_cuda else scan_backward_plain
     return fn(u, delta, A, Bmat, Cmat, Dskip, delta_bias, h_bounds, dy, chunk)
-
-
-scan_forward.launches = 0
-scan_backward.launches = 0
 
 
 class SelectiveScanFn(torch.autograd.Function):
@@ -334,6 +331,7 @@ def _fused_wproj(w_delta, w_b, w_c, io):
     return torch.cat([w_delta, F.pad(w_b, pad), F.pad(w_c, pad)], dim=-1).to(io).contiguous()
 
 
+@trace.traced("kernel.scan_fused_forward")
 def _scan_fused_launch(xs, wproj, A, Dskip, delta_bias, chunk: int, bounds: bool):
     """The kernel on xs [B, 4, L, D] with the folded ``wproj`` of
     :func:`_fused_wproj`: ``(y, h_bounds [B*4, NC, N, D] or None)``."""
@@ -361,7 +359,6 @@ def _scan_fused_launch(xs, wproj, A, Dskip, delta_bias, chunk: int, bounds: bool
     rc = fn(*map(_build.ptr, (xs, wproj, A32, Ds32, bias32, y, hb, proj, dsum, yacc, hs)),
             G, L, D, N, chunk, TC, _build.dtype_code(xs), _build.stream())
     _build.check(rc, "scan_fused_forward")
-    scan_fused_forward.launches += 1
     return y, (hb if hb is None or N == N0 else hb[:, :, :N0])
 
 
@@ -386,9 +383,6 @@ def scan_fused_forward(xs, w_delta, w_b, w_c, A, Dskip, delta_bias,
         return _scan_fused_cuda(xs, w_delta, w_b, w_c, A, Dskip, delta_bias, chunk, bounds)
     y, hb = scan_fused_forward_plain(xs, w_delta, w_b, w_c, A, Dskip, delta_bias, chunk)
     return y, (hb if bounds else None)
-
-
-scan_fused_forward.launches = 0
 
 
 class SelectiveScanFusedFn(torch.autograd.Function):
@@ -519,6 +513,7 @@ def scan_image_forward_plain(x, w_delta, w_b, w_c, A, Dskip, delta_bias):
                                     delta_bias, _IMAGE_CHUNK)[0]
 
 
+@trace.traced("kernel.scan_image_forward")
 def _scan_image_cuda(x, w_delta, w_b, w_c, A, Dskip, delta_bias):
     B, H, W, D = x.shape
     if H % 2 or W % 2:
@@ -545,7 +540,6 @@ def _scan_image_cuda(x, w_delta, w_b, w_c, A, Dskip, delta_bias):
     rc = fn(*map(_build.ptr, (x, wproj, A32, Ds32, bias32, ys, proj, hb, dsum, yacc)),
             B, H, W, D, N, TC, _build.dtype_code(x), _build.stream())
     _build.check(rc, "scan_image_forward")
-    scan_image_forward.launches += 1
     return ys
 
 
@@ -556,9 +550,6 @@ def scan_image_forward(x, w_delta, w_b, w_c, A, Dskip, delta_bias):
     take the plain version."""
     fn = _scan_image_cuda if x.is_cuda else scan_image_forward_plain
     return fn(x, w_delta, w_b, w_c, A, Dskip, delta_bias)
-
-
-scan_image_forward.launches = 0
 
 
 class ScanImageFn(torch.autograd.Function):

@@ -48,6 +48,7 @@ from founddiff_tpu_torch.ops.selective_scan import (
     selective_scan_chunked,
 )
 from founddiff_tpu_torch.ops.ss2d_fused import _merge_ln_gate_xla
+from founddiff_tpu_torch.utils import trace
 
 _CHUNK = 128  # scan chunk of the CUDA kernel (positions per chunk)
 
@@ -120,10 +121,11 @@ _BLOCK_TAIL = [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 3
 TENSOR_CORES = True
 
 
+@trace.traced("kernel.ss2d_block_forward")
 def _launch(x1, xs, x_raw, w, local, gate, eps, silu_input=False):
     """One ``ss2d_block_forward`` launch with the weight operands ``w`` of
-    :func:`_kernel_weights`; ``silu_input`` sets the kernel's silu flag and
-    counts the launch in ``ss2d_image_block.launches_silu`` too."""
+    :func:`_kernel_weights`; ``silu_input`` sets the kernel's silu flag, and
+    the launch is counted under ``ss2d_block_forward.silu``."""
     B, H, W, D = xs.shape
     C0 = x_raw.shape[-1]
     N = w["A"].shape[-1]
@@ -157,9 +159,8 @@ def _launch(x1, xs, x_raw, w, local, gate, eps, silu_input=False):
                               chunk_state, ybuf, yacc, stats, og)),
             B, H, W, C0, D, N, _CHUNK, eps, int(TENSOR_CORES), int(silu_input),
             _build.dtype_code(xs), _build.stream())
-    _build.check(rc, "ss2d_block_forward")
-    ss2d_image_block.launches += 1
-    ss2d_image_block.launches_silu += int(silu_input)
+    _build.check(rc, "ss2d_block_forward",
+                 ("ss2d_block_forward.silu",) if silu_input else None)
     return out
 
 
@@ -201,6 +202,7 @@ class _SS2DBlockFn(torch.autograd.Function):
     Backward: autograd through :func:`ss2d_compose`."""
 
     @staticmethod
+    @trace.traced("kernel._SS2DBlockFn.forward")
     def forward(ctx, eps, silu_input, *args):
         ctx.eps, ctx.silu_input = eps, silu_input
         ctx.save_for_backward(*args)
@@ -208,6 +210,7 @@ class _SS2DBlockFn(torch.autograd.Function):
         return fn(*args, eps, silu_input)
 
     @staticmethod
+    @trace.traced("kernel._SS2DBlockFn.backward")
     def backward(ctx, g):
         eps, silu_input = ctx.eps, ctx.silu_input
         return (None, None, *remat_grads(lambda *a: ss2d_compose(*a, eps, silu_input),
@@ -269,7 +272,3 @@ def ss2d_image_block_plain(x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weig
     return _ss2d_block_plain(*_split_args(
         x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A, Dskip, delta_bias,
         ln_g, ln_b, local, proj_w, gate, dt_rank, d_state), eps, silu_input)
-
-
-ss2d_image_block.launches = 0
-ss2d_image_block.launches_silu = 0  # the launches with silu_input, counted in launches too

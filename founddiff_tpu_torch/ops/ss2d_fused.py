@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from founddiff_tpu_torch.ops import _build, _cache
 from founddiff_tpu_torch.ops.remat import remat_grads
 from founddiff_tpu_torch.ops.selective_scan import efficient_merge
+from founddiff_tpu_torch.utils import trace
 
 
 def _merge_ln_gate_xla(ys, z, scale, bias, local, H: int, W: int, eps: float,
@@ -92,6 +93,7 @@ def _fold_plan(P: int, C: int, Co: int, io_size: int):
     return (plan if smem <= _SMEM_MAX else 0), smem
 
 
+@trace.traced("kernel.ss2d_epilogue_forward")
 def _epilogue_cuda(rows, cols, z, scale, bias, local, proj_w, gate, rx, H, W, eps,
                    gate_silu):
     B, C = z.shape[0], z.shape[-1]
@@ -123,7 +125,6 @@ def _epilogue_cuda(rows, cols, z, scale, bias, local, proj_w, gate, rx, H, W, ep
             rows.stride(0), cols.stride(0), B, H, W, C, Co, eps, int(gate_silu), int(fold),
             plan, _build.dtype_code(z), _build.stream())
     _build.check(rc, "ss2d_epilogue_forward")
-    merge_ln_gate.launches += 1
     return out
 
 
@@ -133,6 +134,7 @@ class _EpilogueFn(torch.autograd.Function):
     sequences (``_mlgs_bwd`` stacks the split layout the same way)."""
 
     @staticmethod
+    @trace.traced("kernel._EpilogueFn.forward")
     def forward(ctx, meta, rows, cols, z, scale, bias, local, proj_w, gate, rx):
         ctx.meta = meta
         ctx.save_for_backward(rows, cols, z, scale, bias, local, proj_w, gate, rx)
@@ -141,6 +143,7 @@ class _EpilogueFn(torch.autograd.Function):
         return _plain(rows, cols, z, scale, bias, local, proj_w, gate, rx, *meta)
 
     @staticmethod
+    @trace.traced("kernel._EpilogueFn.backward")
     def backward(ctx, g):
         meta = ctx.meta
         return (None, *remat_grads(lambda *a: _plain(*a, *meta), ctx.saved_tensors,
@@ -208,6 +211,3 @@ def merge_ln_gate_split_plain(ys_rows, ys_cols, z, scale, bias, local=None, *, H
     """The plain version of :func:`merge_ln_gate_split` on any device."""
     return _plain(ys_rows, ys_cols, z, scale, bias, local, proj_w, gate, residual_x, H, W, eps,
                   gate_silu)
-
-
-merge_ln_gate.launches = 0

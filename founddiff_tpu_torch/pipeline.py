@@ -18,6 +18,7 @@ from founddiff_tpu_torch.diffusion.residual import (
     ResidualDiffusion,
     normalize_to_neg_one_to_one,
 )
+from founddiff_tpu_torch.utils import trace
 
 
 def make_hoisted_sampler(model, diffusion: ResidualDiffusion,
@@ -33,6 +34,7 @@ def make_hoisted_sampler(model, diffusion: ResidualDiffusion,
     """
 
     @torch.no_grad()
+    @trace.traced("serve.request", device=True)
     def sample(x_input01, generator: Optional[torch.Generator] = None,
                noise: Optional[torch.Tensor] = None):
         x_norm = normalize_to_neg_one_to_one(x_input01.float())

@@ -18,6 +18,8 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from founddiff_tpu_torch.utils import trace
+
 
 def ema_decay_schedule(step: int, beta: float = 0.995, update_after_step: int = 100,
                        inv_gamma: float = 1.0, power: float = 2.0 / 3.0,
@@ -38,9 +40,11 @@ def ema_update(ema_tensors: Iterable[torch.Tensor], tensors: Iterable[torch.Tens
                update_after_step: int = 100, inv_gamma: float = 1.0,
                power: float = 2.0 / 3.0, min_value: float = 0.0) -> int:
     """Blend ``ema = ema * decay + p * (1 - decay)`` in place at counter
-    ``step`` when ``step % update_every == 0``; returns ``step + 1``."""
+    ``step`` when ``step % update_every == 0``; returns ``step + 1``.  A blend runs inside
+    the span ``train.ema``."""
     if step % update_every == 0:
         decay = ema_decay_schedule(step, beta, update_after_step, inv_gamma, power, min_value)
-        for e, p in zip(ema_tensors, tensors):
-            e.copy_(e * decay + p.to(e.dtype) * (1.0 - decay))
+        with trace.span("train.ema", device=True):
+            for e, p in zip(ema_tensors, tensors):
+                e.copy_(e * decay + p.to(e.dtype) * (1.0 - decay))
     return step + 1

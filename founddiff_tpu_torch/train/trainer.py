@@ -41,6 +41,7 @@ every rank computes in :meth:`Trainer.test`.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import glob
 import itertools
@@ -63,27 +64,34 @@ from founddiff_tpu_torch.parallel.mesh import replicate_state
 from founddiff_tpu_torch.pipeline import make_hoisted_sampler
 from founddiff_tpu_torch.train.ema import ema_update
 from founddiff_tpu_torch.train.state import clip_by_global_norm_, make_optimizer
+from founddiff_tpu_torch.utils import trace
 from founddiff_tpu_torch.utils.images import hu_preview_window, save_image
 from founddiff_tpu_torch.utils.logger import get_logger
 from founddiff_tpu_torch.utils.metrics_log import MetricsLogger
 
 
 def _start_trace():
+    """A profiler window with the program's spans recording, so that its
+    trace shows the ``train.*`` ranges: ``(profiler, window)``."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities, record_shapes=True)
-    prof.__enter__()
-    return prof
+    window = contextlib.ExitStack()
+    window.enter_context(prof)
+    window.enter_context(trace.recording())
+    return prof, window
 
 
-def _stop_trace(prof, profile_dir: str) -> None:
-    """Ends ``prof`` and writes its Chrome trace under ``profile_dir``."""
+def _stop_trace(traced, profile_dir: str) -> None:
+    """Ends the window of :func:`_start_trace` and writes its Chrome trace
+    under ``profile_dir``."""
+    prof, window = traced
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-    prof.__exit__(None, None, None)
+    window.close()
     os.makedirs(profile_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(profile_dir, f"trace-{os.getpid()}.json"))
 
@@ -151,6 +159,7 @@ class Trainer:
             return out.float()
         return [o.float() if torch.is_tensor(o) else o for o in out]
 
+    @trace.traced("train.step", device=True)
     def train_step(self, batch) -> List[float]:
         """One optimisation step on ``batch = (gt, ld)``, NHWC in [0, 1] with
         ``train_batch_size * gradient_accumulate_every`` slices; returns the
@@ -166,28 +175,36 @@ class Trainer:
         for i in range(accum):
             part = slice(i * micro, (i + 1) * micro)
             g, l, draws = gt[part], ld[part], dict(generator=self.generator)
-            if self.mesh is not None:
-                # the draws of ``loss`` at the global microbatch, in its
-                # order; this rank's rows of them and of the batch
-                t = torch.randint(0, self.diffusion.num_timesteps, (micro,),
-                                  generator=self.generator)
-                noise = torch.randn((micro,) + tuple(gt.shape[1:]), generator=self.generator)
-                rows = self.mesh.rows(micro)
-                g, l, draws = g[rows], l[rows], dict(draws, t=t[rows], noise=noise[rows])
-            if self.diffusion.condition:
-                out = self._diffusion.loss([g, l], **draws)
-            else:  # generation: the single image stream (src/DADiff.py:1691-1694)
-                out = [self._diffusion.loss(g, **draws)]
-            (sum(out) / accum).backward()
+            with trace.span("train.forward_loss", device=True):
+                if self.mesh is not None:
+                    # the draws of ``loss`` at the global microbatch, in its
+                    # order; this rank's rows of them and of the batch
+                    with trace.span("train.draws"):
+                        t = torch.randint(0, self.diffusion.num_timesteps, (micro,),
+                                          generator=self.generator)
+                        noise = torch.randn((micro,) + tuple(gt.shape[1:]),
+                                            generator=self.generator)
+                    rows = self.mesh.rows(micro)
+                    g, l, draws = g[rows], l[rows], dict(draws, t=t[rows], noise=noise[rows])
+                if self.diffusion.condition:
+                    out = self._diffusion.loss([g, l], **draws)
+                else:  # generation: the single image stream (src/DADiff.py:1691-1694)
+                    out = [self._diffusion.loss(g, **draws)]
+            with trace.span("train.backward", device=True):
+                (sum(out) / accum).backward()
             losses += torch.stack([torch.as_tensor(l, device=device).detach().float()
                                    for l in out]) / accum
-        if self.mesh is not None and self.mesh.groups["data"] is not None:
-            losses = self._average_over_data(losses)
-        clip_by_global_norm_(self.params, tcfg.max_grad_norm)
-        self.opt.step()
-        self.ema_step = ema_update(list(self.ema.parameters()), list(self.model.parameters()),
-                                   self.ema_step, beta=tcfg.ema_decay,
-                                   update_every=tcfg.ema_update_every)
+        with trace.span("train.update", device=True):
+            if self.mesh is not None and self.mesh.groups["data"] is not None:
+                with trace.span("train.all_reduce", device=True):
+                    losses = self._average_over_data(losses)
+            with trace.span("train.clip", device=True):
+                clip_by_global_norm_(self.params, tcfg.max_grad_norm)
+            with trace.span("train.optimizer", device=True):
+                self.opt.step()
+            self.ema_step = ema_update(list(self.ema.parameters()),
+                                       list(self.model.parameters()), self.ema_step,
+                                       beta=tcfg.ema_decay, update_every=tcfg.ema_update_every)
         self.step += 1
         return losses.tolist()
 
@@ -215,7 +232,8 @@ class Trainer:
         ``profile_dir`` traces the steps from ``profile_steps[0]`` up to
         ``profile_steps[1]`` with ``torch.profiler`` (CPU and, on the card,
         CUDA activities, shapes recorded), as the JAX loop does with
-        ``jax.profiler``, and writes a Chrome trace under ``profile_dir``;
+        ``jax.profiler``, with the program's spans recording (the
+        ``train.*`` ranges), and writes a Chrome trace under ``profile_dir``;
         without it no profiler is made."""
         tcfg = self.config.train
         os.makedirs(self.checkpoint_folder, exist_ok=True)

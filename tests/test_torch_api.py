@@ -9,8 +9,8 @@
   positional call ``make_beta_schedule(T, "linear")``; the errors of an
   unknown name;
 - ``Trainer.train(profile_dir=..., profile_steps=(1, 2))`` on a micro trainer
-  (3 steps) writes a Chrome trace; without ``profile_dir`` no profiler is
-  made.
+  (3 steps) writes a Chrome trace with the ``train.step`` ranges; without
+  ``profile_dir`` no profiler is made.
 """
 
 import dataclasses
@@ -133,3 +133,4 @@ def test_trace_hook(tmp_path, monkeypatch):
     events = json.load(open(path))["traceEvents"]
     ops = [e for e in events if e.get("cat") == "cpu_op"]
     assert ops and any(e.get("args", {}).get("Input Dims") for e in ops)  # shapes recorded
+    assert any(e.get("name") == "train.step" for e in events)  # the program's spans recorded

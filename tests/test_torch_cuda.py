@@ -36,6 +36,7 @@ from founddiff_tpu_torch.ops import norm as norm_mod
 from founddiff_tpu_torch.ops import scan as scan_mod
 from founddiff_tpu_torch.ops import ss2d_block as ss2d_mod
 from founddiff_tpu_torch.ops import ss2d_fused as fused_mod
+from founddiff_tpu_torch.utils import trace
 
 TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-3, 8e-3)}
 MANTISSA_BITS = {torch.float32: 23, torch.bfloat16: 7}
@@ -83,9 +84,9 @@ def test_layer_norm_modulated_kernel(dev, dtype, C, affine):
     bias = _n(g, (C,), 0.1, dev) if affine else None
     ms, mt = _n(g, (2, C), 0.2, dev), _n(g, (2, C), 0.2, dev)
     eps = 1e-5 if affine else 1e-6
-    before = norm_mod.layer_norm_modulated.launches
+    before = trace.counters()
     got = norm_mod.layer_norm_modulated(x, scale, bias, ms, mt, eps=eps)
-    assert norm_mod.layer_norm_modulated.launches == before + 1
+    assert trace.counters(before).get("ln_mod_forward") == 1
     _close(got, norm_mod.layer_norm_modulated_plain(x, scale, bias, ms, mt, eps=eps), dtype)
 
 
@@ -108,9 +109,9 @@ def test_ss2d_image_block_kernel(dev, dtype, H, W, C0, N, local):
         ln_g=_n(g, (D,), 0.1, dev) + 1, ln_b=_n(g, (D,), 0.1, dev),
         local=_n(g, (B, D), 0.2, dev) if local else None, proj_w=u(D, C0, b=D ** -0.5),
         gate=_n(g, (B, C0), 0.3, dev), dt_rank=R, d_state=N)
-    before = ss2d_mod.ss2d_image_block.launches
+    before = trace.counters()
     got = ss2d_mod.ss2d_image_block(**args)
-    assert ss2d_mod.ss2d_image_block.launches == before + 1
+    assert trace.counters(before).get("ss2d_block_forward") == 1
     _close(got, ss2d_mod.ss2d_image_block_plain(**args), dtype, base=args["x_raw"])
 
 
@@ -125,9 +126,9 @@ def test_attn_block_kernel(dev, dtype, H, W, C):
             _n(g, (2, C), 0.2, dev), _n(g, (2, C), 0.5, dev), u(3 * C, C, 1, 1, b=C ** -0.5),
             u(3 * C, 1, 3, 3, b=1 / 3), _n(g, (heads, 1, 1), 0.3, dev).abs() + 0.5,
             u(C, C, 1, 1, b=C ** -0.5))
-    before = attn_mod.attn_block.launches
+    before = trace.counters()
     got = attn_mod.attn_block(*args, heads=heads)
-    assert attn_mod.attn_block.launches == before + 1
+    assert trace.counters(before).get("attn_block_forward") == 1
     _close(got, attn_mod.attn_block_plain(*args, heads=heads), dtype, base=args[0])
 
 
@@ -146,9 +147,9 @@ def test_attn_block_kernel_edges(dev, dtype, B, H, W, C):
             _n(g, (B, C), 0.2, dev), _n(g, (B, C), 0.5, dev), u(3 * C, C, 1, 1, b=C ** -0.5),
             u(3 * C, 1, 3, 3, b=1 / 3), _n(g, (heads, 1, 1), 0.3, dev).abs() + 0.5,
             u(C, C, 1, 1, b=C ** -0.5))
-    before = attn_mod.attn_block.launches
+    before = trace.counters()
     got = attn_mod.attn_block(*args, heads=heads)
-    assert attn_mod.attn_block.launches == before + 1
+    assert trace.counters(before).get("attn_block_forward") == 1
     _close(got, attn_mod.attn_block_plain(*args, heads=heads), dtype, base=args[0])
 
 
@@ -184,9 +185,9 @@ SCAN_SHAPES = [(75, 40, 4), (256, 64, 8), (100, 96, 16), (64, 128, 32)]
 def test_scan_forward_kernel(dev, dtype, L, D, N):
     args = _scan_inputs(_gen(L + D), 2, L, D, N, dtype, dev)
     chunk = scan_mod.scan_chunk(N)
-    before = scan_mod.scan_forward.launches
+    before = trace.counters()
     y, hb = scan_mod.scan_forward(*args)
-    assert scan_mod.scan_forward.launches == before + 1
+    assert trace.counters(before).get("scan_forward") == 1
     y_p, hb_p = scan_mod.scan_forward_plain(*args, chunk)
     _close(y, y_p, dtype)
     _close(hb, hb_p, torch.float32)
@@ -199,9 +200,9 @@ def test_scan_forward_last_state(dev, dtype, L, D, N):
     """Row 4's last-state mode: h_last [B, K, D, N] against the plain
     version's; y and h_bounds bit for bit those of the mode without it."""
     args = _scan_inputs(_gen(L + D + N), 2, L, D, N, dtype, dev)
-    before = scan_mod.scan_forward.launches
+    before = trace.counters()
     y, hb, h_last = scan_mod.scan_forward(*args, last_state=True)
-    assert scan_mod.scan_forward.launches == before + 1
+    assert trace.counters(before).get("scan_forward") == 1
     assert h_last.shape == (2, 4, D, N) and h_last.dtype == torch.float32
     y0, hb0 = scan_mod.scan_forward(*args)
     torch.cuda.synchronize()
@@ -219,9 +220,9 @@ def test_scan_backward_kernel(dev, dtype, L, D, N):
     chunk = scan_mod.scan_chunk(N)
     _, hb = scan_mod.scan_forward_plain(*args, chunk)
     dy = _n(g, (2, 4, L, D), 1.0, dev).to(dtype)
-    before = scan_mod.scan_backward.launches
+    before = trace.counters()
     got = scan_mod.scan_backward(*args, hb, dy)
-    assert scan_mod.scan_backward.launches == before + 1
+    assert trace.counters(before).get("scan_backward") == 1
     want = scan_mod.scan_backward_plain(*args, hb, dy, chunk)
     for a, b in zip(got, want):
         _close(a, b, a.dtype)
@@ -236,9 +237,9 @@ def test_scan_image_forward_kernel(dev, dtype, H, W, D, N):
     x = torch.nn.functional.silu(_n(g, (2, H, W, D), 1.0, dev)).to(dtype)
     u = lambda *s, b: ((torch.rand(s, generator=g) * 2 - 1) * b).to(dev).to(dtype)
     w = (u(4, D, D, b=D ** -0.5), u(4, D, N, b=D ** -0.5), u(4, D, N, b=D ** -0.5))
-    before = scan_mod.scan_image_forward.launches
+    before = trace.counters()
     got = scan_mod.scan_image_forward(x, *w, A, Ds, bias)
-    assert scan_mod.scan_image_forward.launches == before + 1
+    assert trace.counters(before).get("scan_image_forward") == 1
     _close(got, scan_mod.scan_image_forward_plain(x, *w, A, Ds, bias), dtype)
 
 
@@ -256,9 +257,9 @@ def test_scan_image_forward_kernel_edges(dev, dtype, H, W, D, N):
     x = torch.nn.functional.silu(_n(g, (2, H, W, D), 1.0, dev)).to(dtype)
     u = lambda *s, b: ((torch.rand(s, generator=g) * 2 - 1) * b).to(dev).to(dtype)
     w = (u(4, D, D, b=D ** -0.5), u(4, D, N, b=D ** -0.5), u(4, D, N, b=D ** -0.5))
-    before = scan_mod.scan_image_forward.launches
+    before = trace.counters()
     got = scan_mod.scan_image_forward(x, *w, A, Ds, bias)
-    assert scan_mod.scan_image_forward.launches == before + 1
+    assert trace.counters(before).get("scan_image_forward") == 1
     _close(got, scan_mod.scan_image_forward_plain(x, *w, A, Ds, bias), dtype)
 
 
@@ -346,8 +347,7 @@ def _flash_inputs(g, B, H, Lq, Lk, d, dtype, dev):
 def test_flash_kernels(dev, dtype, B, H, Lq, Lk, d):
     q, k, v, do = _flash_inputs(_gen(Lq + Lk + d), B, H, Lq, Lk, d, dtype, dev)
     scale = d ** -0.5
-    before = (flash_mod.flash_fwd.launches, flash_mod.flash_bwd_dq.launches,
-              flash_mod.flash_bwd_dkv.launches)
+    before = trace.counters()
     o, lse = flash_mod.flash_fwd(q, k, v, scale)
     o_p, lse_p = flash_mod.flash_fwd_plain(q, k, v, scale)
     _close(o, o_p, dtype)
@@ -357,8 +357,8 @@ def test_flash_kernels(dev, dtype, B, H, Lq, Lk, d):
     _close(flash_mod.flash_bwd_dq(*args), flash_mod.flash_bwd_dq_plain(*args), dtype)
     for a, b in zip(flash_mod.flash_bwd_dkv(*args), flash_mod.flash_bwd_dkv_plain(*args)):
         _close(a, b, dtype)
-    assert (flash_mod.flash_fwd.launches, flash_mod.flash_bwd_dq.launches,
-            flash_mod.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    launched = trace.counters(before)
+    assert [launched.get(k) for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")] == [1, 1, 1]
 
 
 # (Lq, Lk) where the tensor-core forward cuts its 16-row warps and 64-key
@@ -415,12 +415,12 @@ def test_flash_backward_kernels(dev, dtype, B, H, Lq, Lk):
     the other side split into parts where the rows alone do not fill the
     card) against their plain versions: dq, dk and dv."""
     args = _flash_bwd_args(_gen(Lq * 5 + Lk + H), B, H, Lq, Lk, dtype, dev)
-    before = (flash_mod.flash_bwd_dq.launches, flash_mod.flash_bwd_dkv.launches)
+    before = trace.counters()
     _close(flash_mod.flash_bwd_dq(*args), flash_mod.flash_bwd_dq_plain(*args), dtype)
     for a, b in zip(flash_mod.flash_bwd_dkv(*args), flash_mod.flash_bwd_dkv_plain(*args)):
         _close(a, b, dtype)
-    assert (flash_mod.flash_bwd_dq.launches,
-            flash_mod.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    launched = trace.counters(before)
+    assert [launched.get(k) for k in ("flash_bwd_dq", "flash_bwd_dkv")] == [1, 1]
 
 
 @pytest.mark.gpu
@@ -473,13 +473,14 @@ def _gn_units(x, gam, bet, ms, mt, r, groups, dtype):
     B, H, W, C = x.shape
     x3 = x.reshape(B, H * W, C)
     r3 = None if r is None else r.reshape(B, H * W, C)
-    before = (gn_mod.gn_stats.launches, gn_mod.gn_apply.launches)
+    before = trace.counters()
     table = gn_mod.gn_stats(x3, gam, bet, ms, mt, groups, 1e-5)
     want = gn_mod.gn_stats_plain(x3, gam, bet, ms, mt, groups, 1e-5)
     _close(table[:, 0], want[:, 0], torch.float32)
     _close(table[:, 1], want[:, 1], torch.float32)
     _close(gn_mod.gn_apply(x3, want, r3), gn_mod.gn_apply_plain(x3, want, r3), dtype, base=r3)
-    assert (gn_mod.gn_stats.launches, gn_mod.gn_apply.launches) == tuple(n + 1 for n in before)
+    launched = trace.counters(before)
+    assert [launched.get(k) for k in ("gn_stats_forward", "gn_apply_forward")] == [1, 1]
 
 
 @pytest.mark.gpu
@@ -517,9 +518,10 @@ def test_group_norm_silu_entry(dev, dtype, res, monkeypatch):
     r = _n(g, x.shape, 1.0, dev).to(dtype) if res else None
     call = lambda: gn_mod.group_norm_silu(x, gam, bet, residual=r,
                                           scale_shift=None if res else (ms, mt))
-    before = (gn_mod.gn_stats.launches, gn_mod.gn_apply.launches)
+    before = trace.counters()
     got = call()
-    assert (gn_mod.gn_stats.launches, gn_mod.gn_apply.launches) == tuple(n + 1 for n in before)
+    launched = trace.counters(before)
+    assert [launched.get(k) for k in ("gn_stats_forward", "gn_apply_forward")] == [1, 1]
     x3, r3 = x.reshape(B, H * W, C), None if r is None else r.reshape(B, H * W, C)
     want = gn_mod.gn_apply_plain(x3, gn_mod.gn_stats_plain(x3, gam, bet, ms, mt, 8, 1e-5), r3)
     _close(got, want.reshape(x.shape), dtype, base=r)
@@ -563,9 +565,9 @@ def _mamba_args(g, B, H, W, C0, N, dtype, dev, local=True):
 @pytest.mark.parametrize("H,W,C0,N,local", [(16, 12, 32, 4, True), (8, 8, 64, 16, False)])
 def test_ss2d_mamba_block_kernel(dev, dtype, H, W, C0, N, local):
     args = _mamba_args(_gen(H * W + C0), 2, H, W, C0, N, dtype, dev, local)
-    before = unified_mod.ss2d_mamba_block.launches
+    before = trace.counters()
     got = unified_mod.ss2d_mamba_block(**args)
-    assert unified_mod.ss2d_mamba_block.launches == before + 1
+    assert trace.counters(before).get("mamba_block_forward") == 1
     _close(got, unified_mod.ss2d_mamba_block_plain(**args), dtype, base=args["x"])
 
 
@@ -660,9 +662,9 @@ def test_layer_norm_kernel(dev, dtype, C, affine):
     x = (_n(g, (2, 9, 7, C), 1.0, dev) + 0.3).to(dtype)
     scale = _n(g, (C,), 0.1, dev) + 1 if affine else None
     bias = _n(g, (C,), 0.1, dev) if affine else None
-    before = norm_mod.layer_norm.launches
+    before = trace.counters()
     got = norm_mod.layer_norm(x, scale, bias)
-    assert norm_mod.layer_norm.launches == before + 1
+    assert trace.counters(before).get("ln_forward") == 1
     _close(got, norm_mod.layer_norm_plain(x, scale, bias), dtype)
 
 
@@ -684,9 +686,9 @@ def test_scan_fused_forward_kernel(dev, dtype, B, L, D, N):
     ``scan_forward``'s on the same delta/B/C (the backward's chunks inside
     the passes' longer ones); without h_bounds the same y, bit for bit."""
     args = _fused_scan_inputs(_gen(L + D + 1), B, L, D, N, dtype, dev)
-    before = scan_mod.scan_fused_forward.launches
+    before = trace.counters()
     y, hb = scan_mod.scan_fused_forward(*args)
-    assert scan_mod.scan_fused_forward.launches == before + 1
+    assert trace.counters(before).get("scan_fused_forward") == 1
     y_p, hb_p = scan_mod.scan_fused_forward_plain(*args, scan_mod.scan_chunk(N))
     _close(y, y_p, dtype)
     _close(hb, hb_p, torch.float32)
@@ -734,7 +736,7 @@ def test_ss2d_epilogue_kernel(dev, dtype, split, B, H, W, C, Co, local, fold):
     the weight slice exceed a block's shared memory; bf16 still fits)."""
     args, kw = _epilogue_args(_gen(H * W + C), B, H, W, C, Co, dtype, dev, local, fold)
     ys = args.pop("ys")
-    before = fused_mod.merge_ln_gate.launches
+    before = trace.counters()
     if split:
         rows, cols = ys[:, 0::2], ys[:, 1::2]
         got = fused_mod.merge_ln_gate_split(rows, cols, **args, **kw)
@@ -742,7 +744,7 @@ def test_ss2d_epilogue_kernel(dev, dtype, split, B, H, W, C, Co, local, fold):
     else:
         got = fused_mod.merge_ln_gate(ys, **args, **kw)
         want = fused_mod.merge_ln_gate_plain(ys, **args, **kw)
-    assert fused_mod.merge_ln_gate.launches == before + 1
+    assert trace.counters(before).get("ss2d_epilogue_forward") == 1
     _close(got, want, dtype, base=kw.get("residual_x"))
 
 
@@ -1000,10 +1002,11 @@ def test_ss2d_image_block_silu_input(dev, dtype, H, W, C0, N):
     """The fused block with its silu flag (the raw dwconv output in) against
     its plain version; one launch, counted with the flag too."""
     args = _block_args(_gen(H * W + C0 + 1), dev, dtype, H, W, C0, N, raw=True)
-    before = (ss2d_mod.ss2d_image_block.launches, ss2d_mod.ss2d_image_block.launches_silu)
+    before = trace.counters()
     got = ss2d_mod.ss2d_image_block(**args, silu_input=True)
-    assert (ss2d_mod.ss2d_image_block.launches,
-            ss2d_mod.ss2d_image_block.launches_silu) == (before[0] + 1, before[1] + 1)
+    launched = trace.counters(before)  # one launch, counted as one with silu_input
+    assert (launched.get("ss2d_block_forward", 0) + launched.get("ss2d_block_forward.silu", 0),
+            launched.get("ss2d_block_forward.silu")) == (1, 1)
     _close(got, ss2d_mod.ss2d_image_block_plain(**args, silu_input=True), dtype,
             base=args["x_raw"])
 
@@ -1096,9 +1099,9 @@ def test_ss2d_step_3_on_the_card(dev, H, W):
     card, cpu = _module_pair(lambda: SS2D(16, 4, step_size=3), dev, H * W)
     xs = torch.nn.functional.silu(torch.randn(2, H, W, 32, generator=_gen(3)))
     want = cpu.scan_core(xs, merge=False)
-    before = scan_mod.scan_fused_forward.launches
+    before = trace.counters()
     got = card.scan_core(xs.to(dev), merge=False)
-    assert scan_mod.scan_fused_forward.launches == before + 1
+    assert trace.counters(before).get("scan_fused_forward") == 1
     _close(got, want.to(dev), torch.float32)
     x = torch.randn(1, H, W, 16, generator=_gen(4))
     for mod, t in ((cpu, x), (card, x.to(dev))):
@@ -1119,9 +1122,9 @@ def test_mamba_block_cross_on_the_card(dev, cross):
     g = _gen(6)
     x, c, t = (torch.randn(2, 8, 8, 128, generator=g), torch.randn(2, 1, 256, generator=g),
                torch.randn(2, 64, generator=g))
-    before = attn_mod.attn_block.launches
+    before = trace.counters()
     got = card(x.to(dev), c.to(dev), t.to(dev)).cpu()
-    assert attn_mod.attn_block.launches == before + (0 if cross else 1)
+    assert trace.counters(before).get("attn_block_forward", 0) == (0 if cross else 1)
     want = cpu(x, c, t)
     assert float((got - want).norm() / (want - x).norm()) <= 1e-4
 
@@ -1135,9 +1138,9 @@ def test_cross_attention_self_on_the_flash_kernel(dev, dtype):
 
     card, cpu = _module_pair(lambda: CrossAttention(64, 64), dev, 64)
     x = torch.randn(2, 32, 32, 64, generator=_gen(7))
-    before = flash_mod.flash_fwd.launches
+    before = trace.counters()
     got = card.to(dtype)(x.to(dev, dtype)).float().cpu()
-    assert flash_mod.flash_fwd.launches == before + 1
+    assert trace.counters(before).get("flash_fwd") == 1
     want = cpu(x)
     assert float((got - want).norm() / want.norm()) <= (1e-4 if dtype == torch.float32
                                                          else 2e-2)
@@ -1255,3 +1258,28 @@ def test_iqa_and_lpips_on_the_card(dev):
     a, b = (torch.rand(2, 96, 96, 3, generator=g) * 2 - 1 for _ in range(2))
     with torch.no_grad():
         assert _rel(card(a.to(dev), b.to(dev)), cpu(a, b)) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_device_span_brackets_its_kernel(dev):
+    """A ``device=True`` span around a long matmul and a synchronisation, in
+    a profiler window that records the device alone: the span's host start
+    and end bracket the kernel's device start and end (one clock for spans
+    and the profiler's device events), and its device time holds the
+    kernel's and lies within its host time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    a = torch.randn(8192, 8192, generator=_gen(17)).to(dev)
+    (a @ a).sum().item()  # warm: cuBLAS's handle and workspace
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with trace.recording() as rec:
+            with trace.span("matmul", device=True):
+                a @ a
+                torch.cuda.synchronize()
+    (s,) = [s for s in rec.spans if s.name == "matmul"]
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+    k = max(events, key=lambda e: e.duration_ns())
+    assert k.duration_ns() > 5e6, k.name()  # the matmul, tens of ms at fp32
+    assert s.start_ns <= k.start_ns() and k.start_ns() + k.duration_ns() <= s.end_ns
+    assert k.duration_ns() <= s.device_ms * 1e6 <= s.host_ms * 1e6 + 1e5

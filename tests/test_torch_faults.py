@@ -44,6 +44,7 @@ from founddiff_tpu_torch.ops import _build
 from founddiff_tpu_torch.ops import experimental_unified as tunified
 from founddiff_tpu_torch.ops import scan as tscan
 from founddiff_tpu_torch.ops import ss2d_block as tblock
+from founddiff_tpu_torch.utils import trace
 from founddiff_tpu_torch.utils.convert import from_jax_params
 from torch_parity import MICRO_CLIP, jit_quick, load_port, np_, perturb, t_
 
@@ -150,21 +151,21 @@ _LAUNCHES = [
 ]
 _RUNTIME_N = ("scan_forward", "scan_backward")  # N as the caller gives it
 # every counter a recorder launch raises
-_COUNTED = ((tscan, "scan_forward"), (tscan, "scan_backward"),
-            (tscan, "scan_fused_forward"), (tscan, "scan_image_forward"),
-            (tblock, "ss2d_image_block"), (tunified, "ss2d_mamba_block"))
+_COUNTED = ("scan_forward", "scan_backward", "scan_fused_forward", "scan_image_forward",
+            "ss2d_block_forward", "mamba_block_forward")
 
 
 def _counters():
-    return [getattr(m, n).launches for m, n in _COUNTED]
+    counts = trace.counters()
+    return [counts.get(n, 0) for n in _COUNTED]
 
 
 def _record(mp, launch, lib, N):
-    """``launch`` at N against a recorder for ``lib``; every launch counter
-    is restored when ``mp`` undoes its patches.  Returns the recorder and
-    the shapes the wrapper checked its operands at."""
-    for m, n in _COUNTED:
-        mp.setattr(getattr(m, n), "launches", getattr(m, n).launches)
+    """``launch`` at N against a recorder for ``lib``; the launch counters
+    are restored from a snapshot of the registry when ``mp`` undoes its
+    patches.  Returns the recorder and the shapes the wrapper checked its
+    operands at."""
+    mp.setattr(trace, "_counts", dict(trace._counts))
     rec, shapes = _Recorder(), {}
     expect = _build.expect
 
@@ -232,7 +233,7 @@ def test_recorder_launches_restore_the_counters():
     """The recorder launches, then a CPU call in the same process: the
     counters are where they were, and the CPU call launches nothing (the
     three ``test_mamba_block_op`` cases of ``test_torch_unified.py`` failed
-    when a recorder launch had raised ``ss2d_mamba_block.launches``)."""
+    when a recorder launch had raised the ``mamba_block_forward`` count)."""
     before = _counters()
     for launch, lib, *_ in _LAUNCHES:
         with pytest.MonkeyPatch.context() as mp:

@@ -27,6 +27,7 @@ import torch
 from founddiff_tpu.ops.attention_pallas import _flash_bwd_impl, _flash_fwd_impl
 from founddiff_tpu.ops.attention_pallas import flash_attention as j_flash
 from founddiff_tpu_torch.ops import flash_attention as fa
+from founddiff_tpu_torch.utils import trace
 from torch_parity import np_, t_
 
 RTOL, ATOL = 1e-3, 1e-4
@@ -116,11 +117,11 @@ def test_bf16_keeps_the_io_dtype():
 
 def test_wrappers_take_the_plain_versions_on_the_cpu():
     q, k, v, do = (t_(a) for a in _qkvo(3, 32, 32))
-    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    before = trace.counters()
     o, lse = fa.flash_fwd(q, k, v, SCALE)
     dcap = (do * o).sum(-1).reshape(lse.shape)
     fa.flash_bwd_dq(q, k, v, do, lse, dcap, SCALE)
     fa.flash_bwd_dkv(q, k, v, do, lse, dcap, SCALE)
-    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
-            fa.flash_bwd_dkv.launches) == before
+    launched = trace.counters(before)
+    assert not {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"} & set(launched)
     torch.testing.assert_close(fa.flash_attention_plain(q, k, v), fa.flash_attention(q, k, v))

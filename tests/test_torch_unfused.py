@@ -36,6 +36,7 @@ from founddiff_tpu_torch.ops import scan as tscan
 from founddiff_tpu_torch.ops import ss2d_fused as tfused
 from founddiff_tpu_torch.ops.norm import layer_norm as t_layer_norm
 from founddiff_tpu_torch.pipeline import make_hoisted_sampler as t_make_sampler
+from founddiff_tpu_torch.utils import trace
 from founddiff_tpu_torch.utils.convert import from_jax_params
 from torch_parity import MICRO_CLIP, jit_quick, np_, perturb, t_
 
@@ -185,12 +186,12 @@ class _Launch:
         return 0
 
 
-def _stand_in(monkeypatch, *counted):
-    """Every kernel call goes to one recorder; the launch counters of
-    ``counted`` are restored when ``monkeypatch`` undoes its patches."""
+def _stand_in(monkeypatch):
+    """Every kernel call goes to one recorder; the launch counters are
+    restored from a snapshot of the registry when ``monkeypatch`` undoes its
+    patches."""
     rec = _Launch()
-    for fn in counted:
-        monkeypatch.setattr(fn, "launches", fn.launches)
+    monkeypatch.setattr(trace, "_counts", dict(trace._counts))
     monkeypatch.setattr(tscan._build, "kernel", lambda *a: rec)
     monkeypatch.setattr(tscan._build, "stream", lambda: 0)
     return rec
@@ -214,7 +215,7 @@ def test_scan_fused_launch_arguments(monkeypatch, bounds):
     """What the wrapper hands the kernel at L = 45, N = 32: G, L, D, N, the
     h_bounds chunk and the passes' chunk; h_bounds [G, 6, N, D] or, without
     them, a null pointer and None."""
-    rec = _stand_in(monkeypatch, tscan.scan_fused_forward)
+    rec = _stand_in(monkeypatch)
     xs, w_delta, w_b, w_c, A, Ds, bias = map(t_, _fused_inputs(2, 45, 16, 32, seed=9))
     y, hb = tscan._scan_fused_cuda(xs, w_delta, w_b, w_c, A, Ds, bias, tscan.scan_chunk(32),
                                    bounds)
@@ -244,7 +245,7 @@ def test_fold_plan(P, C, Co, io_size, plan):
 def test_epilogue_launch_arguments(monkeypatch, C, fold, plan):
     """fp32 at a 2x2 grid: the plan the wrapper hands the kernel, and the og
     scratch only for the two-launch form."""
-    rec = _stand_in(monkeypatch, tfused.merge_ln_gate)
+    rec = _stand_in(monkeypatch)
     B, H, W, Co = 1, 2, 2, 64
     rs = np.random.RandomState(C)
     f = lambda *s: t_(_f(rs, *s))
