@@ -63,9 +63,8 @@ Phases (any failure exits non-zero before the last line is printed):
    and its last-state mode (``last_state=True``: ``h_last`` against the
    plain version's at phase 2's tolerance, y and h_bounds bit for bit
    those of the mode without it).
-   ``attn_block`` also at the three C = 64 MambaBlocks of a 512^2 slice
-   (512^2 and 256^2 at bs4), where ``FOUNDDIFF_ATTN_BLOCK=on`` takes it and
-   the default runs the plain composition, timed beside that composition;
+   ``attn_block`` at the three C = 64 MambaBlocks of a 512^2 slice (512^2
+   and 256^2 at bs4) summed, beside the plain composition it replaces there;
    the device time of each launch of the GroupNorm pair, redesigned last
    (``torch.profiler``), over the 38 epilogues of a bs1 fp32 vanilla UNet
    forward on the kernel route, and the launches of one epilogue; the
@@ -87,8 +86,9 @@ Phases (any failure exits non-zero before the last line is printed):
    non-zero adaLN and prompt), ``make_hoisted_sampler(...,
    compute_dtype=torch.bfloat16)``, 2-step DDIM on 4 requests of one 512^2
    slice and 2 batches of 4.  Checks the outputs and the launch counts of
-   each kernel (9 ``ss2d_image_block``, 6 ``attn_block`` and 12
-   ``layer_norm_modulated`` per UNet forward); prints slices/s and peak
+   each kernel (9 ``ss2d_image_block``, 9 ``attn_block`` and 9
+   ``layer_norm_modulated`` per UNet forward: no gradient is recorded, so
+   every attention half takes the fused kernel); prints slices/s and peak
    memory.
 4. Numerics gate: the same bs1 request through the kernel path and through
    the plain path (the three kernels swapped for their plain versions), PSNR
@@ -420,10 +420,10 @@ GN_BLOCKS = {(512, 64): 5, (256, 64): 2, (128, 128): 2, (64, 256): 2, (64, 512):
 # the two opt-in routes of phases 10 and 11, and their values there
 ROUTES = {"FOUNDDIFF_GN": "pallas", "FOUNDDIFF_UNIFIED": "1"}
 # launches per UNet forward on the default route (phase 3) and with both
-# routes on (phase 10)
-PER_FORWARD = {"ss2d_image_block": 9, "attn_block": 6, "layer_norm_modulated": 12}
-PER_FORWARD_ROUTES = {"ss2d_mamba_block": 9, "attn_block": 6, "layer_norm_modulated": 3,
-                      "gn_stats": 10, "gn_apply": 10}
+# routes on (phase 10): no gradient recorded, so every attention half on
+# attn_block (norm2 inside it); norm1 inside the unified op with the routes
+PER_FORWARD = {"ss2d_image_block": 9, "attn_block": 9, "layer_norm_modulated": 9}
+PER_FORWARD_ROUTES = {"ss2d_mamba_block": 9, "attn_block": 9, "gn_stats": 10, "gn_apply": 10}
 # launches per train step with both routes on: the unified op in place of
 # norm1 and the fused SS2D block, the same remat scans in its backward
 PER_STEP_ROUTES = {"ss2d_mamba_block": 18, "attn_block": 12, "layer_norm_modulated": 6,
@@ -438,11 +438,11 @@ ODD_SIZE, EPI_SIZE = 360, 16
 DEEP = ((256, 32, 1), (512, 32, 2))
 ODD_L = 23 ** 2  # the scan length of a 45^2 grid: efficient_scan pads it to 46^2
 # launches per UNet forward at 360^2 (the six even blocks on the fused
-# block, no attn_block: C < 128 or H % 8 != 0 at every scale) and at 16^2
-# (the attention half of up_2, 8^2 at C 128, on attn_block)
-PER_FORWARD_360 = {"ss2d_image_block": 6, "layer_norm_modulated": 18,
+# block; attn_block at the two 360^2 blocks, C 64: H % 8 != 0 at every other
+# scale) and at 16^2 (attn_block at the 16^2 and 8^2 blocks, C 64 and 128)
+PER_FORWARD_360 = {"ss2d_image_block": 6, "attn_block": 2, "layer_norm_modulated": 16,
                    "scan_fused_forward": 3, "layer_norm": 3}
-PER_FORWARD_16 = {"ss2d_image_block": 6, "attn_block": 1, "layer_norm_modulated": 17,
+PER_FORWARD_16 = {"ss2d_image_block": 6, "attn_block": 4, "layer_norm_modulated": 14,
                   "scan_image_forward": 3, "merge_ln_gate": 3}
 # launches per train step at 360^2: the forward twice, the remat backward of
 # the six fused blocks on the decimated scan (image_scan_vmem_ok is False at
@@ -451,10 +451,10 @@ PER_STEP_360 = {"ss2d_image_block": 12, "layer_norm_modulated": 36, "scan_fused_
                 "layer_norm": 6, "scan_forward": 12, "scan_backward": 18}
 # phase 15: a five-level UNet (dim 64 x (1, 2, 4, 8, 16)) at 512^2 puts
 # down_4 (C 512), mid and up_0 (C 1024) on a 32^2 grid with d_state 64;
-# per UNet forward 11 fused blocks, 8 attention halves (C >= 128 at H % 8 ==
-# 0) and 14 layer_norm_modulated (11 norm1, 3 norm2 at C 64)
+# per UNet forward 11 fused blocks, 11 attention halves (every H % 8 == 0)
+# and 11 layer_norm_modulated (norm1)
 FIVE_MULTS = (1, 2, 4, 8, 16)
-PER_FORWARD_5 = {"ss2d_image_block": 11, "attn_block": 8, "layer_norm_modulated": 14}
+PER_FORWARD_5 = {"ss2d_image_block": 11, "attn_block": 11, "layer_norm_modulated": 11}
 N64 = ((512, 64), (1024, 64))  # (C0, d_state) of the 32^2 blocks
 # d_state sizes no kernel template holds (padded to 16; two groups of 64)
 ODD_STATES = (12, 128)
@@ -560,13 +560,14 @@ def _n(gen, shape, std, dev):
     return torch.randn(shape, generator=gen).mul_(std).to(dev)
 
 
-def ln_case(B, H, C, affine, dtype, gen, dev):
+def ln_case(B, H, C, dtype, gen, dev):
+    """norm1 of a MambaBlock: the affine LayerNorm with adaLN modulation."""
     x = _n(gen, (B, H * H, C), 1.0, dev).add_(0.3).to(dtype)
-    g = _n(gen, (C,), 0.1, dev).add_(1.0) if affine else None
-    b = _n(gen, (C,), 0.1, dev) if affine else None
+    g = _n(gen, (C,), 0.1, dev).add_(1.0)
+    b = _n(gen, (C,), 0.1, dev)
     ms, mt = _n(gen, (B, C), 0.2, dev), _n(gen, (B, C), 0.2, dev)
     args = (x, g, b, ms, mt)
-    kw = dict(eps=1e-5 if affine else 1e-6)
+    kw = dict(eps=1e-5)
     flops = 10 * x.numel()
     return args, kw, None, nbytes(x, g, b, ms, mt) + nbytes(x), [(flops, FP32_FLOPS)]
 
@@ -637,22 +638,17 @@ def attn_case(B, H, C, dtype, gen, dev):
 
 def kernel_cases(B):
     """(kernel, label, per-forward count, case builder) at every distinct
-    main-path shape at batch B; counts are calls per UNet forward."""
+    main-path shape at batch B; counts are calls per UNet forward (serving
+    records no gradient: every attention half on attn_block, norm2 in it)."""
     cases = []
-    ln1, ln2, ss, at = {}, {}, {}, {}
+    ln1, ss, at = {}, {}, {}
     for H, C, N in BLOCKS.values():
         ln1[(H, C)] = ln1.get((H, C), 0) + 1
         ss[(H, C, N)] = ss.get((H, C, N), 0) + 1
-        if C >= 128:
-            at[(H, C)] = at.get((H, C), 0) + 1
-        else:
-            ln2[(H, C)] = ln2.get((H, C), 0) + 1
+        at[(H, C)] = at.get((H, C), 0) + 1
     for (H, C), n in ln1.items():
         cases.append(("layer_norm_modulated", f"bs{B} norm1 {H}^2 C={C}", n,
-                      lambda dt, g, d, H=H, C=C: ln_case(B, H, C, True, dt, g, d)))
-    for (H, C), n in ln2.items():
-        cases.append(("layer_norm_modulated", f"bs{B} norm2 {H}^2 C={C}", n,
-                      lambda dt, g, d, H=H, C=C: ln_case(B, H, C, False, dt, g, d)))
+                      lambda dt, g, d, H=H, C=C: ln_case(B, H, C, dt, g, d)))
     for (H, C, N), n in ss.items():
         cases.append(("ss2d_image_block", f"bs{B} {H}^2 C0={C} D={2 * C} N={N}", n,
                       lambda dt, g, d, H=H, C=C, N=N: ss2d_case(B, H, C, N, dt, g, d)))
@@ -1062,26 +1058,13 @@ def check_fused_h_bounds():
     return result, failed
 
 
-# the three C = 64 MambaBlocks of a 512^2 slice (down_0, down_1, up_3): (H,
-# blocks per UNet forward), where FOUNDDIFF_ATTN_BLOCK=on takes the fused
-# attention half (the default keeps the plain composition there)
-ATTN_ON_C64 = ((512, 2), (256, 1))
-
-
-def attn_on_cases():
-    """(batch, kernel, label, count, make) of ``attn_block`` at the C = 64
-    shapes of ATTN_ON_C64 at bs4, none on the default path (count 0): the
-    kernel timed beside the plain composition the default runs there."""
-    return [(4, "attn_block", f"bs4 {H}^2 C=64 heads=2 (ATTN_BLOCK=on)", 0,
-             lambda dt, g, d, H=H: attn_case(4, H, 64, dt, g, d)) for H, _ in ATTN_ON_C64]
-
-
 def attn_on_summary(rows):
     """The kernel's and the plain composition's bs4 bf16 time summed over
-    the three C = 64 blocks of one UNet forward."""
-    per = {f"bs4 {H}^2 C=64 heads=2 (ATTN_BLOCK=on)": n for H, n in ATTN_ON_C64}
-    mine = [r for r in rows if r["shape"] in per and r["dtype"] == "bfloat16"]
-    out = {k: sum(r[k] * per[r["shape"]] for r in mine) for k in ("ms", "plain_ms", "bound_ms")}
+    the three C = 64 blocks of one UNet forward (down_0, down_1, up_3): the
+    rows of kernel_cases(4) at C 64."""
+    mine = [r for r in rows if r["kernel"] == "attn_block" and r["batch"] == 4
+            and r["dtype"] == "bfloat16" and r["shape"].endswith(" C=64 heads=2")]
+    out = {k: sum(r[k] * r["per_forward"] for r in mine) for k in ("ms", "plain_ms", "bound_ms")}
     log(f"[attn on C64] attn_block at the three C = 64 blocks of a bs4 bf16 512^2 forward: "
         f"kernel {out['ms']:.4f} ms, plain composition {out['plain_ms']:.4f} ms, bound "
         f"{out['bound_ms']:.4f} ms")
@@ -3515,7 +3498,6 @@ def main() -> int:
     cases += [(b, *c) for b in (1, TRAIN_BATCH, 4) for c in unfused_cases(b)]
     cases += slice6_cases()
     cases += slice7_cases()
-    cases += attn_on_cases()
     cases += options_cases()
     rows, failed = check_kernels(ops, cases)
     bounds, bounds_failed = check_fused_h_bounds()

@@ -347,9 +347,10 @@ class MambaBlock(nn.Module):
             x1 = layer_norm_modulated(x, self.norm1.weight, self.norm1.bias, scale_msa,
                                       shift_msa, eps=1e-5)
             x = self.mamba(x1, c, gate_msa, residual=x)
-        if not self.cross and attn_block_route(H, W, h):
-            return attn_block(x, scale_mlp, shift_mlp, gate_mlp, *self.attn_blk.weights(),
-                              heads=self.attn_blk.heads, eps=1e-6)
+        if not self.cross:
+            args = (x, scale_mlp, shift_mlp, gate_mlp, *self.attn_blk.weights())
+            if attn_block_route(H, W, h, x.is_cuda, _cache.needs_grad(*args)):
+                return attn_block(*args, heads=self.attn_blk.heads, eps=1e-6)
         x2 = layer_norm_modulated(x, None, None, scale_mlp, shift_mlp, eps=1e-6)
         attn = self.attn_blk(x2, c) if self.cross else self.attn_blk(x2)
         # the gate rounds to the trunk dtype as in the fused kernels, so a

@@ -42,17 +42,23 @@ def attn_block_ok(H: int, W: int, C: int) -> bool:
     return C % _HEAD_DIM == 0 and C >= _HEAD_DIM and H % 8 == 0 and W % 8 == 0
 
 
-def attn_block_route(H: int, W: int, C: int) -> bool:
-    """The JAX routing (``founddiff_tpu/ops/attn_block.py:61-78``), read at
-    each call: ``FOUNDDIFF_ATTN_BLOCK`` ``auto`` (the default) takes the
-    fused kernel at C >= 128 and the plain composition below, ``on`` the
-    kernel at every shape :func:`attn_block_ok` takes, ``off`` never.  The
+def attn_block_route(H: int, W: int, C: int, cuda: bool = False, grad: bool = True) -> bool:
+    """Whether a MambaBlock's attention half takes the fused kernel, read at
+    each call from ``FOUNDDIFF_ATTN_BLOCK``: ``on`` takes it at every shape
+    :func:`attn_block_ok` takes, ``off`` never.  ``auto`` (the default) takes
+    it at C >= 128, as the JAX routing does (``founddiff_tpu/ops/
+    attn_block.py:61-78``), and at every shape for a CUDA tensor (``cuda``)
+    when autograd records nothing (``grad`` False).  The JAX routing keeps
+    C < 128 plain because its TPU kernel pads the channels to 128; the CUDA
+    kernel pads nothing.  A call that records a gradient stays on the JAX
+    routing: the backward rematerialises through :func:`attn_block_plain`, so
+    there the kernel's forward is work on top of the plain one.  The
     capability gate is the port's own (the JAX one adds a VMEM budget that
     every MambaBlock shape of the shipped sizes meets)."""
     mode = os.environ.get("FOUNDDIFF_ATTN_BLOCK", "auto")
     if mode == "off" or not attn_block_ok(H, W, C):
         return False
-    return mode == "on" or C >= 128
+    return mode == "on" or C >= 128 or (cuda and not grad)
 
 
 def transposed_attention(x2, qkv_w, dw_w, temperature, proj_w, heads: int):

@@ -1129,6 +1129,98 @@ def test_mamba_block_cross_on_the_card(dev, cross):
     assert float((got - want).norm() / (want - x).norm()) <= 1e-4
 
 
+def _c64_block(dev, B, H, dtype, monkeypatch):
+    """A C = 64 MambaBlock with non-zero adaLN on the card, its inputs, and
+    the residuals the fused attention half is called with (recorded)."""
+    from founddiff_tpu_torch.models import ss2d as ss2d_model
+
+    monkeypatch.delenv("FOUNDDIFF_ATTN_BLOCK", raising=False)
+    block, _ = _module_pair(lambda: ss2d_model.MambaBlock(64, 4, time_dim=256), dev, 64)
+    block.adaLN_modulation[1].weight.copy_(torch.randn(384, 256, generator=_gen(5)) * 0.02)
+    g = _gen(H + B)
+    x, c, t = (torch.randn(B, H, H, 64, generator=g), torch.randn(B, 1, 256, generator=g),
+               torch.randn(B, 256, generator=g))
+    residuals, fused = [], ss2d_model.attn_block
+    monkeypatch.setattr(ss2d_model, "attn_block",
+                        lambda x, *a, **k: residuals.append(x) or fused(x, *a, **k))
+    return block, (x.to(dev, dtype), c.to(dev, dtype), t.to(dev)), residuals
+
+
+@pytest.mark.gpu
+def test_mamba_block_c64_serving_takes_the_kernel(dev, monkeypatch):
+    """The first MambaBlock of a 512^2 serving forward (bs4, bf16 trunk,
+    C 64) under no_grad: the default route launches the fused attention half
+    once and norm2 not at all (one ``ln_mod_forward``: norm1), within the bf16
+    tolerance of the plain composition that ``off`` runs."""
+    block, args, residuals = _c64_block(dev, 4, 512, torch.bfloat16, monkeypatch)
+    with torch.no_grad():
+        before = trace.counters()
+        got = block(*args)
+        launched = trace.counters(before)
+        monkeypatch.setenv("FOUNDDIFF_ATTN_BLOCK", "off")
+        before = trace.counters()
+        want = block(*args)
+        plain = trace.counters(before)
+    assert launched.get("attn_block_forward") == 1 and launched.get("ln_mod_forward") == 1
+    assert "attn_block_forward" not in plain and plain.get("ln_mod_forward") == 2
+    assert len(residuals) == 1
+    _close(got, want, torch.bfloat16, base=residuals[0])
+
+
+@pytest.mark.gpu
+def test_mamba_block_c64_with_grad_keeps_the_plain_route(dev, monkeypatch):
+    """A C = 64 MambaBlock whose call autograd records (fp32, as a train
+    forward): the default route launches no fused attention half, and its
+    output and gradients are those of the plain composition (``off``)."""
+    block, args, residuals = _c64_block(dev, 2, 64, torch.float32, monkeypatch)
+    block.requires_grad_(True)
+
+    def run():
+        x = args[0].detach().requires_grad_(True)
+        before = trace.counters()
+        out = block(x, *args[1:])
+        launched = trace.counters(before)
+        cot = torch.randn(out.shape, generator=_gen(7)).to(dev)
+        wrt = [x] + list(block.parameters())
+        return out.detach(), torch.autograd.grad(out, wrt, cot, allow_unused=True), launched
+
+    got, got_grads, launched = run()
+    monkeypatch.setenv("FOUNDDIFF_ATTN_BLOCK", "off")
+    want, want_grads, _ = run()
+    assert "attn_block_forward" not in launched and launched.get("ln_mod_forward") == 2
+    assert not residuals
+    _close(got, want, torch.float32)
+    assert [a is None for a in got_grads] == [b is None for b in want_grads]
+    for a, b in zip(got_grads, want_grads):
+        if b is not None:
+            assert float((a - b).norm() / b.norm().clamp_min(1e-30)) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_unet_forward_attention_halves_by_gradient(dev, monkeypatch):
+    """``build(Config(), train=True)`` at 512^2, bs1: a no-grad bf16 forward (serving)
+    launches the fused attention half at all nine MambaBlocks and norm2 at
+    none; an fp32 forward that autograd records (training) at the six with
+    C >= 128, and norm2 at the three C = 64 blocks."""
+    from founddiff_tpu_torch.config import Config
+    from founddiff_tpu_torch.factory import build
+
+    monkeypatch.delenv("FOUNDDIFF_ATTN_BLOCK", raising=False)
+    _, model = build(Config(), device="cuda", seed=0, train=True)
+    g = _gen(512)
+    x = (torch.rand(1, 512, 512, 2, generator=g) * 2 - 1).to(dev)
+    time = [torch.full((1,), 500.0, device=dev), torch.full((1,), 500.0, device=dev)]
+    for grad, dtype, attn, norms in ((False, torch.bfloat16, 9, 9), (True, torch.float32, 6, 12)):
+        before = trace.counters()
+        with torch.set_grad_enabled(grad):
+            out = model(x.to(dtype), time)
+        launched = trace.counters(before)
+        assert out[0].requires_grad == grad and torch.isfinite(out[0]).all()
+        assert launched.get("attn_block_forward") == attn, (grad, launched)
+        assert launched.get("ln_mod_forward") == norms, (grad, launched)
+        del out
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cross_attention_self_on_the_flash_kernel(dev, dtype):
