@@ -34,6 +34,9 @@ _HEAD_DIM = 32  # MambaBlock builds heads = C // 32
 # the tiles whose Gram partials one reduce block sums
 _TILE = (8, 16)
 _REDUCE = 16
+# pixels in one partial product of transposed_attention's sums over pixels,
+# so that a [32, 32] output's long sum is spread over many blocks of the card
+_PIX_CHUNK = 1024
 
 
 def attn_block_ok(H: int, W: int, C: int) -> bool:
@@ -66,7 +69,9 @@ def transposed_attention(x2, qkv_w, dw_w, temperature, proj_w, heads: int):
     src/DADiff.py:252-285; JAX ``TransposedAttention`` blocks.py:453-503).
 
     The products take io-dtype operands with fp32 sums; u, the conv output,
-    M and the output are rounded to the io dtype as in the TPU kernel."""
+    M and the output are rounded to the io dtype as in the TPU kernel.  Of
+    the [2C, 2C] channel Gram only the entries read are formed: the q and k
+    row norms and each head's [c, c] block of q^T k."""
     B, H, W, C = x2.shape
     io = x2.dtype
     ch = C // heads
@@ -75,20 +80,23 @@ def transposed_attention(x2, qkv_w, dw_w, temperature, proj_w, heads: int):
     taps = dw_w.to(io).float()
     qkv = F.conv2d(u.float().permute(0, 3, 1, 2), taps, padding=1, groups=3 * C)
     qkv = qkv.permute(0, 2, 3, 1).to(io).float().reshape(B, H * W, 3 * C)
-    qk = qkv[..., :2 * C]
-    G = qk.transpose(1, 2) @ qk  # [B, 2C, 2C]
-    diag = torch.diagonal(G, dim1=1, dim2=2)
-    qn = torch.sqrt(diag[:, :C]).clamp_min(1e-12).reshape(B, heads, ch)
-    kn = torch.sqrt(diag[:, C:]).clamp_min(1e-12).reshape(B, heads, ch)
-    blocks = G[:, :C, C:]
-    attn = torch.stack([blocks[:, i * ch:(i + 1) * ch, i * ch:(i + 1) * ch]
-                        for i in range(heads)], dim=1)  # [B, h, c, d]
+    # the pixel axis in S chunks of Pc (zero rows pad the last): each sum
+    # over pixels below is S partial products, summed in fp32
+    P = H * W
+    S = -(-P // _PIX_CHUNK)
+    Pc = -(-P // S)
+    if S * Pc > P:
+        qkv = F.pad(qkv, (0, 0, 0, S * Pc - P))
+    q, k, v = qkv.reshape(B, S, Pc, 3, heads, ch).unbind(3)  # [B, S, Pc, h, c]
+    qn = torch.linalg.vector_norm(q, dim=(1, 2)).clamp_min(1e-12)  # [B, h, c]
+    kn = torch.linalg.vector_norm(k, dim=(1, 2)).clamp_min(1e-12)
+    attn = (q.permute(0, 1, 3, 4, 2) @ k.permute(0, 1, 3, 2, 4)).sum(1)  # [B, h, c, d]
     attn = attn / (qn[..., None] * kn[:, :, None, :])
     attn = torch.softmax(attn * temperature.float(), dim=-1)
     pk = proj_w[:, :, 0, 0].t().float().reshape(heads, ch, C)  # [h, c, e]
     M = torch.einsum("hce,bhcd->bhde", pk, attn).reshape(B, C, C).to(io)
-    out = (qkv[..., 2 * C:] @ M.float()).to(io)
-    return out.reshape(B, H, W, C)
+    out = (v.reshape(B, S, Pc, C) @ M.float()[:, None]).to(io)
+    return out.reshape(B, S * Pc, C)[:, :P].reshape(B, H, W, C)
 
 
 def attn_block_plain(x, mod_scale, mod_shift, gate, qkv_w, dw_w, temperature,

@@ -153,6 +153,42 @@ def test_attn_block_kernel_edges(dev, dtype, B, H, W, C):
     _close(got, attn_mod.attn_block_plain(*args, heads=heads), dtype, base=args[0])
 
 
+def _attn_args(g, B, H, W, C, dtype, dev):
+    heads = C // 32
+    u = lambda *s, b: ((torch.rand(s, generator=g) * 2 - 1) * b).to(dev)
+    return heads, (_n(g, (B, H, W, C), 1.0, dev).to(dtype), _n(g, (B, C), 0.2, dev),
+                   _n(g, (B, C), 0.2, dev), _n(g, (B, C), 0.5, dev),
+                   u(3 * C, C, 1, 1, b=C ** -0.5), u(3 * C, 1, 3, 3, b=1 / 3),
+                   _n(g, (heads, 1, 1), 0.3, dev).abs() + 0.5, u(C, C, 1, 1, b=C ** -0.5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,C", [(512, 64), (64, 512)])
+def test_plain_attention_against_full_gram(dev, H, C):
+    """The plain channel attention on the card, fp32, at the train path's
+    largest map (512^2, C 64) and widest one (64^2, C 512): output and the
+    gradients of its five tensor arguments against the full-Gram composition
+    in float64 (``tests/test_torch_attn_gram.py``, same rule)."""
+    from test_torch_attn_gram import assert_matches_full_gram
+
+    g = _gen(H + C)
+    heads, args = _attn_args(g, 2, H, H, C, torch.float32, dev)
+    assert_matches_full_gram((args[0], *args[4:]), heads, _n(g, (2, H, H, C), 1.0, dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,C", [(512, 64), (64, 512)])
+def test_attn_block_kernel_against_chunked_plain(dev, dtype, H, C):
+    """The fused kernel against the plain version, whose Gram entries are
+    summed over chunks of pixels, at the same two train shapes, B 2."""
+    heads, args = _attn_args(_gen(H * C), 2, H, H, C, dtype, dev)
+    before = trace.counters()
+    got = attn_mod.attn_block(*args, heads=heads)
+    assert trace.counters(before).get("attn_block_forward") == 1
+    _close(got, attn_mod.attn_block_plain(*args, heads=heads), dtype, base=args[0])
+
+
 @pytest.mark.gpu
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     """A CUDA tensor reaches the kernel or an exception, never the plain path."""
