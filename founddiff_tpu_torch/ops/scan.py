@@ -55,6 +55,11 @@ from founddiff_tpu_torch.utils import trace
 _STATE_SIZES = (4, 8, 16, 32, 64)
 _GROUP = 64
 _IMAGE_CHUNK = 128  # scan chunk of the image scan's plain version (as csrc/ss2d_block.cu)
+# rows of the scan axis in one partial product of the projections' weight
+# gradients, so that a [D, E] output's sum over B * L rows is spread over many
+# blocks of the card (within 12% of the fastest of 256 to 8,192 rows at every
+# shape the image scan's backward takes at 512^2 on the H100)
+_WGRAD_CHUNK = 1024
 
 
 def kernel_states(N: int) -> int:
@@ -294,10 +299,33 @@ def _projected_scan_bwd(xs, w_delta, w_b, w_c, A, Dskip, delta_bias, h_bounds, g
         xs, delta, A, Bmat, Cmat, Dskip, delta_bias, h_bounds, g.to(io).contiguous())
     gxs = (gu + gdl @ wd.transpose(1, 2)[None] + gb @ wb.transpose(1, 2)[None]
            + gc @ wc.transpose(1, 2)[None])
-    gwd = torch.einsum("bkld,bkle->kde", xs, gdl).to(w_delta.dtype)
-    gwb = torch.einsum("bkld,bkln->kdn", xs, gb).to(w_b.dtype)
-    gwc = torch.einsum("bkld,bkln->kdn", xs, gc).to(w_c.dtype)
-    return gxs, gwd, gwb, gwc, ga, gd, gbias
+    gwd, gwb, gwc = _weight_grads(xs, gdl, gb, gc)
+    return (gxs, gwd.to(w_delta.dtype), gwb.to(w_b.dtype), gwc.to(w_c.dtype), ga, gd, gbias)
+
+
+def _weight_grads(xs, gdl, gb, gc):
+    """The projections' weight gradients ``(sum_{b,l} xs^T gdl, xs^T gB,
+    xs^T gC)`` in fp32, of xs [B, K, L, D] and gradients [B, K, L, E]: the
+    scan axis in S chunks of Lc (zero rows pad the last), each (b, k, chunk)
+    one partial [D, E] product of the io-dtype operands taken in fp32, the
+    partials summed in fp32 in a fixed order.  gB and gC share one product.
+    Counts the B * K * S chunk products under ``scan_wgrad.chunks``."""
+    B, K, L, D = xs.shape
+    N = gb.shape[-1]
+    S = -(-L // _WGRAD_CHUNK)
+    Lc = -(-L // S)
+
+    def chunked(t):  # [B, K, L, E] -> [B*K*S, Lc, E] fp32
+        t = t.float()
+        if S * Lc > L:
+            t = F.pad(t, (0, 0, 0, S * Lc - L))
+        return t.reshape(B * K * S, Lc, t.shape[-1])
+
+    xt = chunked(xs).mT
+    trace.count("scan_wgrad.chunks", B * K * S)
+    gwd, gwbc = (torch.bmm(xt, chunked(g)).view(B, K, S, D, -1).sum((0, 2))
+                 for g in (gdl, torch.cat([gb, gc], dim=-1)))
+    return gwd, gwbc[..., :N], gwbc[..., N:]
 
 
 # --- fused-projection scan ------------------------------------------------------

@@ -335,6 +335,26 @@ def test_scan_image_fn_grads(dev, H, W, D, N):
 
 
 @pytest.mark.gpu
+def test_scan_weight_grads_split_at_512(dev):
+    """The image scan backward's weight gradients at the 512^2 C 64 block
+    (xs [2, 4, 65,536, 128], N 4, fp32) against a float64 product on the card:
+    128 chunks of 1,024 rows.  Tolerance 1e-5 of the largest entry: fp32 sums
+    of 1,024 products, then of 128 partials (the split read 6.3e-7 on an H100;
+    one long cuBLAS sum over the 131,072 rows read 2.2e-5)."""
+    g = torch.Generator(device=dev).manual_seed(512)
+    xs, gdl = (torch.randn(2, 4, 65536, 128, device=dev, generator=g) for _ in range(2))
+    gb, gc = (torch.randn(2, 4, 65536, 4, device=dev, generator=g) for _ in range(2))
+    before = trace.counters()
+    got = scan_mod._weight_grads(xs, gdl, gb, gc)
+    assert trace.counters(before) == {"scan_wgrad.chunks": 2 * 4 * 64}
+    for out, t in zip(got, (gdl, gb, gc)):
+        want = torch.einsum("bkld,bkle->kde", xs.double(), t.double())
+        assert out.dtype == torch.float32
+        torch.testing.assert_close(out.double(), want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("H,C0,N", [(16, 32, 4), (8, 128, 32)])
 def test_ss2d_image_block_fn_grads(dev, H, C0, N):
     g = _gen(H + C0)
