@@ -295,7 +295,7 @@ int run(const void* x_, const void* wxg_, const float* bx, const void* wzg_, con
                                 static_cast<const T*>(wproj_), A, Ds, dbias, lng, lnb, local,
                                 static_cast<const T*>(pw_), gate, static_cast<T*>(out_), proj,
                                 csum, cstate, ybuf, yacc, stats, static_cast<T*>(og_), B, H,
-                                W, C0, D, NS, TC, eps, /*tc=*/true, s);
+                                W, C0, D, NS, TC, eps, s);
 }
 
 }  // namespace

@@ -12,10 +12,9 @@
 // first version folds the rank-R delta projection into one [D, D] matrix
 // (D*(D+2N) multiply-adds for delta/B/C, 6x to 8.5x the rank-R count), runs
 // the products in bf16 on the tensor cores (fd::gemm_tc: mma.sync with fp32
-// sums; fp32 stays on the CUDA cores through fd::gemm), and passes the
-// projections, y and the LN statistics through device memory, so it sits
-// above that bound (PERF.md has the times).  tc = 0 keeps bf16 on fd::gemm,
-// the earlier route, for the checks that hold one against the other.
+// sums; fp32, and widths fd::gemm_tc_ok refuses, stay on the CUDA cores
+// through fd::gemm), and passes the projections, y and the LN statistics
+// through device memory, so it sits above that bound (PERF.md has the times).
 // Design: the five launches of ss2d_tail.cuh (projection GEMM, chunked scan,
 // LN statistics, the z GEMM with the gated epilogue, out_proj with the gated
 // residual), with one W_z and no z bias.
@@ -37,13 +36,13 @@ int run(const void* x1_, const void* xs_, const void* xr_, const void* wz_,
         const float* lng, const float* lnb, const float* local, const void* pw_,
         const float* gate, void* out_, float* proj, float* csum, float* cstate, float* ybuf,
         float* yacc, float* stats, void* og_, int B, int H, int W, int C0, int D, int NS, int TC,
-        float eps, bool tc, cudaStream_t s) {
+        float eps, cudaStream_t s) {
   return fd::ss2d_tail<T, false, SILU>(static_cast<const T*>(x1_), static_cast<const T*>(xs_),
                                  static_cast<const T*>(xr_), static_cast<const T*>(wz_),
                                  nullptr, static_cast<const T*>(wproj_), A, Ds, dbias, lng,
                                  lnb, local, static_cast<const T*>(pw_), gate,
                                  static_cast<T*>(out_), proj, csum, cstate, ybuf, yacc, stats,
-                                 static_cast<T*>(og_), B, H, W, C0, D, NS, TC, eps, tc, s);
+                                 static_cast<T*>(og_), B, H, W, C0, D, NS, TC, eps, s);
 }
 
 }  // namespace
@@ -53,12 +52,12 @@ extern "C" int ss2d_block_forward(
     const float* A, const float* Ds, const float* dbias, const float* lng,
     const float* lnb, const float* local, const void* pw, const float* gate, void* out,
     float* proj, float* csum, float* cstate, float* ybuf, float* yacc, float* stats, void* og,
-    int B, int H, int W, int C0, int D, int NS, int TC, float eps, int tc, int silu,
-    int dtype, void* stream) {
+    int B, int H, int W, int C0, int D, int NS, int TC, float eps, int silu, int dtype,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FD_RUN(T, SILU)                                                                   \
   run<T, SILU>(x1, xs, xr, wz, wproj, A, Ds, dbias, lng, lnb, local, pw, gate, out, proj, \
-               csum, cstate, ybuf, yacc, stats, og, B, H, W, C0, D, NS, TC, eps, tc != 0, s)
+               csum, cstate, ybuf, yacc, stats, og, B, H, W, C0, D, NS, TC, eps, s)
   if (dtype == 0) return silu ? FD_RUN(float, true) : FD_RUN(float, false);
   if (dtype == 1) return silu ? FD_RUN(__nv_bfloat16, true) : FD_RUN(__nv_bfloat16, false);
 #undef FD_RUN

@@ -79,14 +79,14 @@ int ss2d_tail(const T* x1, const T* xs, const T* xr, const T* wz, const float* z
               const float* lng, const float* lnb, const float* local, const T* pw,
               const float* gate, T* out, float* proj, float* csum, float* cstate, float* ybuf,
               float* yacc, float* stats, T* og, int B, int H, int W, int C0, int D, int NS, int TC,
-              float eps, bool tc, cudaStream_t s) {
+              float eps, cudaStream_t s) {
   const int H2 = H / 2, W2 = W / 2, L = H2 * W2, NP = D + 2 * NS;
   const int NC = (L + TC - 1) / TC;
   const int P = B * H * W, HW = H * W;
   const int zgroups = PER_IMAGE ? B : 1, zrows = P / zgroups;
-  const bool tc_proj = tc && gemm_tc_ok(NP, D, D, NP, (long long)D * NP, xs, wproj);
-  const bool tc_z = tc && gemm_tc_ok(D, C0, C0, D, (long long)C0 * D, x1, wz);
-  const bool tc_out = tc && gemm_tc_ok(C0, D, D, C0, 0, og, pw);
+  const bool tc_proj = gemm_tc_ok(NP, D, D, NP, (long long)D * NP, xs, wproj);
+  const bool tc_z = gemm_tc_ok(D, C0, C0, D, (long long)C0 * D, x1, wz);
+  const bool tc_out = gemm_tc_ok(C0, D, D, C0, 0, og, pw);
 
   FD_TRY((gemm_io<T>(tc_proj, B * 4, L, NP, D, RowGather<T, SILU>{xs, H, W, H2, W2, D}, wproj,
                      (long long)D * NP, 4, NP, EpiProj{proj, dbias, L, D, NP}, s)));

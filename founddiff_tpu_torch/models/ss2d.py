@@ -61,9 +61,9 @@ from founddiff_tpu_torch.ops.experimental_unified import (
 )
 from founddiff_tpu_torch.ops.norm import layer_norm_modulated
 from founddiff_tpu_torch.ops.scan import (
-    _derive_weights,
     image_scan_vmem_ok,
     scan_image,
+    scan_weights,
     selective_scan_fused,
 )
 from founddiff_tpu_torch.ops.selective_scan import (
@@ -268,8 +268,9 @@ class SS2D(nn.Module):
         norm = (z, self.out_norm.weight, self.out_norm.bias, local)
         kw = dict(H=H, W=W, eps=1e-5, gate_silu=True, **fold)
         if image_scan_vmem_ok(H, W, D, N):
-            w = _derive_weights(self.x_proj_weight, self.dt_projs_weight, self.dt_rank, N)
-            ys = scan_image(xs, *(t.to(io) for t in w), A, Ds, self.dt_projs_bias)
+            w = scan_weights(io, self.x_proj_weight, self.dt_projs_weight, dt_rank=self.dt_rank,
+                             d_state=N)
+            ys = scan_image(xs, *w, A, Ds, self.dt_projs_bias)
             return merge_ln_gate_split(ys[:, 0::2], ys[:, 1::2], *norm, **kw)
         return merge_ln_gate(self._scan_seq(xs, A, Ds), *norm, **kw)
 

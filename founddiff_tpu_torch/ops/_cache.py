@@ -28,10 +28,6 @@ def _root(t: torch.Tensor) -> torch.Tensor:
     return t if t._base is None else t._base
 
 
-def _geometry(t: torch.Tensor):
-    return (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
-
-
 # id(root) -> (weak reference to root, {key: entry}); an entry goes when its
 # root dies, and nothing is set on the tensors, so they pickle as before
 _STORE: Dict[int, Tuple[weakref.ref, dict]] = {}
@@ -53,19 +49,26 @@ def _entries(root: torch.Tensor) -> dict:
 
 
 def derived(tag, sources: Sequence[torch.Tensor], make: Callable):
-    """``make()``, computed once per version of ``sources`` and ``tag``."""
-    if any(t.is_inference() for t in sources):
+    """``make()``, computed once per version of ``sources`` and ``tag``.  A
+    first source with autograd history is an activation of a recorded call:
+    then ``make()`` runs on each call and nothing is kept."""
+    first = _root(sources[0])
+    if first.grad_fn is not None:
         return make()
-    roots = [_root(t) for t in sources]
-    store = _entries(roots[0])
+    try:  # each source's geometry (data pointer, shape, strides, dtype) and version
+        sig = tuple((t.data_ptr(), t.shape, t.stride(), t.dtype, t._version) for t in sources)
+    except RuntimeError:  # an inference tensor keeps no version to key on
+        return make()
+    store = _entries(first)
     # one entry per tag and view of the first source: a miss replaces it
-    key = (tag, _geometry(sources[0]))
-    sig = tuple((_geometry(t), t._version) for t in sources)
+    key = (tag, sig[0][:4])
     hit = store.get(key)
-    if hit is not None and hit[0] == sig and all(r() is t for r, t in zip(hit[1], roots[1:])):
+    # the other roots still the same tensors (``_root`` inlined: every direct call's path)
+    if hit is not None and hit[0] == sig and all(
+            r() is (t if t._base is None else t._base) for r, t in zip(hit[1], sources[1:])):
         return hit[2]
     value = make()
-    store[key] = (sig, [weakref.ref(t) for t in roots[1:]], value)
+    store[key] = (sig, [weakref.ref(_root(t)) for t in sources[1:]], value)
     return value
 
 

@@ -7,7 +7,8 @@ channel Gram with its L2 norms, the masked softmax with temperature,
 project_out folded into one [C, C] matrix M per image, and the gated
 residual.  CUDA tensors go to ``csrc/attn_block.cu``; CPU tensors to the
 plain version :func:`attn_block_plain` (``attn_block_xla`` :343-390).  The
-backward is ``_ab_bwd``'s (:412-416): autograd through the plain version.
+backward is ``_ab_bwd``'s (:412-416): autograd through the plain version
+(:func:`.remat.remat_op`).
 The weight operands (io-dtype casts, fp32 copies) are derived once per
 parameter version (:mod:`._cache`), and the modulation and gate are read in
 place when they are fp32 row-strided views (the adaLN chunks).
@@ -26,7 +27,7 @@ import torch.nn.functional as F
 
 from founddiff_tpu_torch.ops import _build, _cache
 from founddiff_tpu_torch.ops.norm import _ln_mod, _modulation
-from founddiff_tpu_torch.ops.remat import remat_grads
+from founddiff_tpu_torch.ops.remat import remat_op
 from founddiff_tpu_torch.utils import trace
 
 _HEAD_DIM = 32  # MambaBlock builds heads = C // 32
@@ -166,24 +167,7 @@ def _attn_block_cuda(x, mod_scale, mod_shift, gate, qkv_w, dw_w, temperature,
     return out
 
 
-class _AttnBlockFn(torch.autograd.Function):
-    """Forward: the kernel on CUDA tensors, the plain version on CPU tensors.
-    Backward: autograd through :func:`attn_block_plain`."""
-
-    @staticmethod
-    @trace.traced("kernel._AttnBlockFn.forward")
-    def forward(ctx, heads, eps, *args):
-        ctx.heads, ctx.eps = heads, eps
-        ctx.save_for_backward(*args)
-        fn = _attn_block_cuda if args[0].is_cuda else attn_block_plain
-        return fn(*args, heads, eps)
-
-    @staticmethod
-    @trace.traced("kernel._AttnBlockFn.backward")
-    def backward(ctx, g):
-        heads, eps = ctx.heads, ctx.eps
-        return (None, None, *remat_grads(lambda *a: attn_block_plain(*a, heads, eps),
-                                         ctx.saved_tensors, ctx.needs_input_grad[2:], g))
+_ATTN_BLOCK = remat_op("_AttnBlockFn", _attn_block_cuda, attn_block_plain, tensors=8)
 
 
 def attn_block(x, mod_scale, mod_shift, gate, qkv_w, dw_w, temperature, proj_w,
@@ -192,7 +176,5 @@ def attn_block(x, mod_scale, mod_shift, gate, qkv_w, dw_w, temperature, proj_w,
     mod_scale/mod_shift/gate [B,C].  CUDA tensors launch the kernel; CPU
     tensors take the plain version.  Differentiable in every tensor argument;
     a call that needs no gradient launches without the autograd Function."""
-    args = (x, mod_scale, mod_shift, gate, qkv_w, dw_w, temperature, proj_w)
-    if _cache.needs_grad(*args):
-        return _AttnBlockFn.apply(heads, eps, *args)
-    return (_attn_block_cuda if x.is_cuda else attn_block_plain)(*args, heads, eps)
+    return _ATTN_BLOCK(x, mod_scale, mod_shift, gate, qkv_w, dw_w, temperature, proj_w, heads,
+                       eps)

@@ -39,11 +39,10 @@ import torch
 import torch.nn.functional as F
 
 from founddiff_tpu_torch.ops import _build, _cache
-from founddiff_tpu_torch.ops.remat import remat_grads
-from founddiff_tpu_torch.ops.scan import _GROUP, pad_states
+from founddiff_tpu_torch.ops.remat import remat_op
+from founddiff_tpu_torch.ops.scan import _GROUP, scan_weights
 from founddiff_tpu_torch.ops.ss2d_block import (
     _CHUNK,
-    _derive_weights,
     _ss2d_tail_plain,
     block_scan_ok,
     ss2d_compose,
@@ -83,13 +82,19 @@ def fold_affine(w, geff, beff, io):
     return (wf[None] * geff.float()[:, :, None]).to(io), beff.float() @ wf
 
 
+def _dw_bias(dwb, like):
+    """The depthwise bias dwb [D], or for None fp32 zeros on ``like``'s
+    device (as the JAX op: adding them is exact)."""
+    return like.new_zeros(like.shape[-1], dtype=torch.float32) if dwb is None else dwb
+
+
 def _dwconv_taps(u, dwt, dwb):
     """The depthwise 3x3 of u [B, H, W, D] with SAME padding: taps dwt [9, D]
-    at u's dtype, fp32 sums, the fp32 bias dwb [D]."""
+    at u's dtype, fp32 sums, the fp32 bias dwb [D] or None."""
     D = u.shape[-1]
     k = dwt.to(u.dtype).float().t().reshape(D, 1, 3, 3)
     y = F.conv2d(u.float().permute(0, 3, 1, 2), k, padding=1, groups=D)
-    return y.permute(0, 2, 3, 1) + dwb.float()
+    return y.permute(0, 2, 3, 1) + _dw_bias(dwb, dwt).float()
 
 
 def _mamba_block_plain(x, geff, beff, wx, wz, dwt, dwb, w_delta, w_b, w_c, A, Dskip,
@@ -111,15 +116,14 @@ def _kernel_weights(wx, wz, dwt, dwb, w_delta, w_b, w_c, A, Dskip, delta_bias, l
                     proj_w, io):
     """The kernel's weight operands, which depend on parameters only: in_proj's
     halves at the io dtype and widened, stacked [2, C0, D] (the fold's
-    operand), the taps and the product weights at the io dtype, the rest in
-    fp32; A, w_b, w_c padded to the kernel's state count."""
-    A, w_b, w_c = pad_states(A, w_b, w_c)
-    f32 = lambda t: t.detach().float().contiguous()
+    operand), the taps and out_proj at the io dtype, the scan's
+    (:func:`~founddiff_tpu_torch.ops.scan.scan_weights`), the rest in fp32."""
+    wproj, A, Ds, bias = scan_weights(io, w_delta, w_b, w_c, A=A, Dskip=Dskip,
+                                      delta_bias=delta_bias)
     w = dict(wf=torch.stack([wx.detach().to(io).float(), wz.detach().to(io).float()]),
-             taps=dwt.detach().to(io).contiguous(), dwb=f32(dwb),
-             wproj=torch.cat([w_delta, w_b, w_c], dim=-1).detach().to(io).contiguous(),
-             pw=proj_w.detach().to(io).contiguous(), A=f32(A), Ds=f32(Dskip),
-             bias=f32(delta_bias), g=f32(ln_g), b=f32(ln_b))
+             taps=dwt.detach().to(io).contiguous(), dwb=_cache.f32(_dw_bias(dwb, dwt)),
+             wproj=wproj, pw=proj_w.detach().to(io).contiguous(), A=A, Ds=Ds, bias=bias,
+             g=_cache.f32(ln_g), b=_cache.f32(ln_b))
     C0, D = w["wf"].shape[1:]
     N = w["A"].shape[-1]
     if C0 % 8 or D % 8:  # the front kernel's 16-byte vectors
@@ -185,8 +189,15 @@ def _launch(x, geff, beff, w, local, gate, eps_ln, eps):
 
 def _mamba_block_cuda(x, geff, beff, wx, wz, dwt, dwb, w_delta, w_b, w_c, A, Dskip,
                       delta_bias, ln_g, ln_b, local, proj_w, gate, eps_ln, eps):
-    w = _kernel_weights(wx, wz, dwt, dwb, w_delta, w_b, w_c, A, Dskip, delta_bias, ln_g, ln_b,
-                        proj_w, x.dtype)
+    """The kernel with its weight operands derived once per version of their
+    sources (formed on each call under a recorded call, whose folded weights
+    carry autograd history)."""
+    io = x.dtype
+    sources = (w_delta, w_b, w_c, wx, wz, dwt, A, Dskip, delta_bias, ln_g, ln_b, proj_w)
+    w = _cache.derived(("mamba_block", io, dwb is None),
+                       sources if dwb is None else (*sources, dwb),
+                       lambda: _kernel_weights(wx, wz, dwt, dwb, w_delta, w_b, w_c, A, Dskip,
+                                               delta_bias, ln_g, ln_b, proj_w, io))
     return _launch(x, geff, beff, w, local, gate, eps_ln, eps)
 
 
@@ -204,30 +215,14 @@ def mamba_compose(x, geff, beff, wx, wz, dwt, dwb, w_delta, w_b, w_c, A, Dskip, 
     xs = x1 @ wx.to(x1.dtype)
     k = dwt.t().reshape(D, 1, 3, 3).to(xs.dtype)
     xs = F.conv2d(xs.permute(0, 3, 1, 2), k, padding=1, groups=D).permute(0, 2, 3, 1)
-    xs = xs + dwb.to(xs.dtype)
+    xs = xs + _dw_bias(dwb, dwt).to(xs.dtype)
     xs = F.silu(xs.float()).to(xs.dtype)
     return ss2d_compose(x1, xs, x, wz, w_delta, w_b, w_c, A, Dskip, delta_bias, ln_g, ln_b,
                         local, proj_w, gate, eps)
 
 
-class _MambaBlockFn(torch.autograd.Function):
-    """Forward: the kernel on CUDA tensors, the plain version on CPU tensors.
-    Backward: autograd through :func:`mamba_compose`."""
-
-    @staticmethod
-    @trace.traced("kernel._MambaBlockFn.forward")
-    def forward(ctx, eps_ln, eps, *args):
-        ctx.eps_ln, ctx.eps = eps_ln, eps
-        ctx.save_for_backward(*args)
-        fn = _mamba_block_cuda if args[0].is_cuda else _mamba_block_plain
-        return fn(*args, eps_ln, eps)
-
-    @staticmethod
-    @trace.traced("kernel._MambaBlockFn.backward")
-    def backward(ctx, g):
-        eps_ln, eps = ctx.eps_ln, ctx.eps
-        return (None, None, *remat_grads(lambda *a: mamba_compose(*a, eps_ln, eps),
-                                         ctx.saved_tensors, ctx.needs_input_grad[2:], g))
+_MAMBA_BLOCK = remat_op("_MambaBlockFn", _mamba_block_cuda, _mamba_block_plain, mamba_compose,
+                        tensors=18)
 
 
 def _modulation(ln_scale, ln_bias, mod_scale, mod_shift):
@@ -238,30 +233,18 @@ def _modulation(ln_scale, ln_bias, mod_scale, mod_shift):
             ln_bias.float()[None] * ms1 + mod_shift.float().reshape(B, C0))
 
 
-def _weights(in_proj_w, dw_kernel, x_proj_weight, dt_projs_weight, d_inner, dt_rank, d_state,
-             io):
-    """The in_proj halves [C0, D] and the folded scan projections at the io
-    dtype, the taps [9, D]."""
-    w_delta, w_b, w_c = _derive_weights(x_proj_weight, dt_projs_weight, dt_rank, d_state)
-    dwt = dw_kernel[:, 0].reshape(d_inner, 9).t()
-    return (in_proj_w[:d_inner].t().to(io), in_proj_w[d_inner:].t().to(io), dwt,
-            w_delta.to(io), w_b.to(io), w_c.to(io))
-
-
 def _split_args(x, ln_scale, ln_bias, mod_scale, mod_shift, in_proj_w, dw_kernel, dw_bias,
                 x_proj_weight, dt_projs_weight, A, Dskip, delta_bias, out_ln_g, out_ln_b,
                 local, proj_w, gate, d_inner, dt_rank, d_state):
     """The op's operands as ``ss2d_mamba_block`` (:694-717) forms them: geff
-    and beff in fp32, the in_proj halves and the folded scan projections at
-    the io dtype, the taps [9, D]."""
+    and beff in fp32, the in_proj halves [C0, D], the taps [9, D], the
+    folded scan projections at the io dtype (:func:`scan_weights`)."""
     geff, beff = _modulation(ln_scale, ln_bias, mod_scale, mod_shift)
-    wx, wz, dwt, w_delta, w_b, w_c = _weights(in_proj_w, dw_kernel, x_proj_weight,
-                                              dt_projs_weight, d_inner, dt_rank, d_state,
-                                              x.dtype)
-    if dw_bias is None:  # as the JAX op: zeros, and adding them is exact
-        dw_bias = x.new_zeros(d_inner, dtype=torch.float32)
-    return (x, geff, beff, wx, wz, dwt, dw_bias, w_delta, w_b, w_c, A, Dskip, delta_bias,
-            out_ln_g, out_ln_b, local, proj_w.t(), gate)
+    w_delta, w_b, w_c = scan_weights(x.dtype, x_proj_weight, dt_projs_weight, dt_rank=dt_rank,
+                                     d_state=d_state)
+    return (x, geff, beff, in_proj_w[:d_inner].t(), in_proj_w[d_inner:].t(),
+            dw_kernel[:, 0].reshape(d_inner, 9).t(), dw_bias, w_delta, w_b, w_c, A, Dskip,
+            delta_bias, out_ln_g, out_ln_b, local, proj_w.t(), gate)
 
 
 def ss2d_mamba_block(x, ln_scale, ln_bias, mod_scale, mod_shift, in_proj_w, dw_kernel, dw_bias,
@@ -276,32 +259,13 @@ def ss2d_mamba_block(x, ln_scale, ln_bias, mod_scale, mod_shift, in_proj_w, dw_k
     [B, D] or None; proj_w [C0, D].  Requires :func:`mamba_block_ok`.
     CUDA tensors launch the kernel; CPU tensors take the plain version.
     Differentiable in every tensor argument.  When no input needs a
-    gradient, a CUDA call skips autograd and the weight operands are
-    derived once per parameter version (:func:`._cache.derived`); the fold
-    of the modulation runs at every call."""
-    weights = tuple(t for t in (in_proj_w, dw_kernel, dw_bias, x_proj_weight, dt_projs_weight,
-                                A, Dskip, delta_bias, out_ln_g, out_ln_b, proj_w)
-                    if t is not None)
-    if x.is_cuda and not _cache.needs_grad(x, ln_scale, ln_bias, mod_scale, mod_shift, local,
-                                           gate, *weights):
-        io = x.dtype
-
-        def make():
-            wx, wz, dwt, w_delta, w_b, w_c = _weights(in_proj_w, dw_kernel, x_proj_weight,
-                                                      dt_projs_weight, d_inner, dt_rank,
-                                                      d_state, io)
-            dwb = x.new_zeros(d_inner, dtype=torch.float32) if dw_bias is None else dw_bias
-            return _kernel_weights(wx, wz, dwt, dwb, w_delta, w_b, w_c, A, Dskip, delta_bias,
-                                   out_ln_g, out_ln_b, proj_w.t(), io)
-
-        w = _cache.derived(("mamba_block", io, d_inner, dt_rank, d_state, dw_bias is None),
-                           weights, make)
-        geff, beff = _modulation(ln_scale, ln_bias, mod_scale, mod_shift)
-        return _launch(x, geff, beff, w, local, gate, eps_ln, eps)
-    return _MambaBlockFn.apply(eps_ln, eps, *_split_args(
+    gradient, the call skips autograd and the weight operands are derived
+    once per parameter version (:func:`._cache.derived`); the fold of the
+    modulation runs at every call."""
+    return _MAMBA_BLOCK(*_split_args(
         x, ln_scale, ln_bias, mod_scale, mod_shift, in_proj_w, dw_kernel, dw_bias,
         x_proj_weight, dt_projs_weight, A, Dskip, delta_bias, out_ln_g, out_ln_b, local, proj_w,
-        gate, d_inner, dt_rank, d_state))
+        gate, d_inner, dt_rank, d_state), eps_ln, eps)
 
 
 def ss2d_mamba_block_plain(x, ln_scale, ln_bias, mod_scale, mod_shift, in_proj_w, dw_kernel,

@@ -18,17 +18,17 @@ at call time from ``FOUNDDIFF_GN`` exactly as the JAX package reads it
 Host path: an epilogue on CUDA tensors is one C call (``gn_silu_forward``)
 that launches both kernels, with no other PyTorch work than the output's
 allocation.  With no gradient to record it is called directly; with one,
-through :class:`GroupNormSiLUFn`, whose backward is ``_gn_silu_vjp_bwd``'s
-(:179-186): autograd through the plain composition with the fold inside
-(:func:`gn_silu_composed`), so the gradients reach the time MLP.  The affine
-is read through :mod:`._cache`, the scale/shift in place when it is a pair
-of fp32 row views (the ``.chunk`` of the time MLP's output).  The stats
-kernel's scratch (its per-block partials, one ticket per image, which its
-last block sets back to zero, and the epilogue's table) is cached per
-device and stream (:func:`_workspace`): the calls on one stream run in
-order, and a call on another stream takes that stream's own scratch, so no
-two calls in flight share it.  CPU tensors take the plain versions
-:func:`gn_stats_plain` and :func:`gn_apply_plain`.
+through ``GroupNormSiLUFn`` (a :func:`.remat.remat_op`), whose backward is
+``_gn_silu_vjp_bwd``'s (:179-186): autograd through the plain composition
+with the fold inside (:func:`gn_silu_composed`), so the gradients reach the
+time MLP.  The affine is read through :mod:`._cache`, the scale/shift in
+place when it is a pair of fp32 row views (the ``.chunk`` of the time MLP's
+output).  The stats kernel's scratch (its per-block partials, one ticket
+per image, which its last block sets back to zero, and the epilogue's
+table) is cached per device and stream (:func:`_workspace`): the calls on
+one stream run in order, and a call on another stream takes that stream's
+own scratch, so no two calls in flight share it.  CPU tensors take the
+plain versions :func:`gn_stats_plain` and :func:`gn_apply_plain`.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ import torch.nn.functional as F
 
 from founddiff_tpu_torch.ops import _build, _cache
 from founddiff_tpu_torch.ops.norm import _modulation
-from founddiff_tpu_torch.ops.remat import remat_grads
+from founddiff_tpu_torch.ops.remat import remat_op
 from founddiff_tpu_torch.utils import trace
 
 _BLOCK_BYTES = 32 * 1024  # the least x one stats block streams
@@ -257,11 +257,9 @@ def gn_apply(x3, table, residual=None):
     return (_gn_apply_cuda if x3.is_cuda else gn_apply_plain)(x3, table, residual)
 
 
-def _gn_silu(x, gamma, beta, residual, ms, mt, groups, eps):
-    """The kernel route's forward: one C call on CUDA tensors; on CPU
-    tensors ``gn_stats`` then ``gn_apply`` (their plain versions)."""
-    if x.is_cuda:
-        return _gn_silu_cuda(x, gamma, beta, residual, ms, mt, groups, eps)
+def _gn_silu_plain(x, gamma, beta, residual, ms, mt, groups, eps):
+    """The kernel route on CPU tensors: ``gn_stats`` then ``gn_apply``
+    (their plain versions)."""
     B, H, W, C = x.shape
     x3 = x.reshape(B, H * W, C)
     table = gn_stats(x3, gamma, beta, ms, mt, groups, eps)
@@ -269,22 +267,11 @@ def _gn_silu(x, gamma, beta, residual, ms, mt, groups, eps):
     return gn_apply(x3, table, r3).reshape(B, H, W, C)
 
 
-class GroupNormSiLUFn(torch.autograd.Function):
-    """``_gn_silu``'s custom_vjp on the unfolded operands.  Forward: the
-    kernel route.  Backward: autograd through :func:`gn_silu_composed` at the
-    saved (x, scale, bias, residual, ms, mt)."""
-
-    @staticmethod
-    def forward(ctx, groups, eps, x, scale, bias, residual, ms, mt):
-        ctx.groups, ctx.eps = groups, eps
-        ctx.save_for_backward(x, scale, bias, residual, ms, mt)
-        return _gn_silu(x, scale, bias, residual, ms, mt, groups, eps)
-
-    @staticmethod
-    def backward(ctx, grad):
-        groups, eps = ctx.groups, ctx.eps
-        return (None, None, *remat_grads(lambda *a: gn_silu_composed(*a, groups, eps),
-                                         ctx.saved_tensors, ctx.needs_input_grad[2:], grad))
+# ``_gn_silu``'s custom_vjp on the unfolded operands: the backward is
+# autograd through gn_silu_composed, so the gradients reach the time MLP
+_GN_SILU = remat_op("GroupNormSiLUFn", _gn_silu_cuda, _gn_silu_plain, gn_silu_composed,
+                    tensors=6)
+GroupNormSiLUFn = _GN_SILU.Function
 
 
 def group_norm_silu(x, scale, bias, residual=None, scale_shift=None, groups: int = 8,
@@ -300,9 +287,7 @@ def group_norm_silu(x, scale, bias, residual=None, scale_shift=None, groups: int
     ms, mt = (None, None) if scale_shift is None else scale_shift
     if not gn_route():
         return gn_silu_composed(x, scale, bias, residual, ms, mt, groups, eps)
-    if _cache.needs_grad(x, scale, bias, residual, ms, mt):
-        return GroupNormSiLUFn.apply(groups, eps, x, scale, bias, residual, ms, mt)
-    return _gn_silu(x, scale, bias, residual, ms, mt, groups, eps)
+    return _GN_SILU(x, scale, bias, residual, ms, mt, groups, eps)
 
 
 __all__ = ["GroupNormSiLUFn", "gn_apply", "gn_apply_plain", "gn_route", "gn_silu_composed",

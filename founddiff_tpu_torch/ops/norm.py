@@ -9,7 +9,7 @@ mod_shift_b``.  CUDA tensors go to ``csrc/ln_mod.cu`` (one entry each);
 CPU tensors to the plain versions :func:`_ln` and :func:`_ln_mod`.  The
 backwards are ``_fused_ln_bwd``'s (norm_pallas.py:87-96: autograd through
 the two-pass :func:`layer_norm_two_pass`) and ``_fused_ln_mod_bwd``'s
-(:196-204: autograd through :func:`_ln_mod`).
+(:196-204: autograd through :func:`_ln_mod`), both :func:`.remat.remat_op`s.
 
 Host path: when no input needs a gradient the wrappers launch directly,
 without an autograd Function; the fp32 copies of the affine are derived
@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 
 from founddiff_tpu_torch.ops import _build, _cache
-from founddiff_tpu_torch.ops.remat import remat_grads
+from founddiff_tpu_torch.ops.remat import remat_op
 from founddiff_tpu_torch.utils import trace
 
 
@@ -73,23 +73,7 @@ def _ln_cuda(x2, scale, bias, eps):
     return out
 
 
-class _LnFn(torch.autograd.Function):
-    """Forward: the kernel on CUDA tensors, the plain version on CPU tensors.
-    Backward: autograd through :func:`layer_norm_two_pass`."""
-
-    @staticmethod
-    @trace.traced("kernel._LnFn.forward")
-    def forward(ctx, eps, x2, scale, bias):
-        ctx.eps = eps
-        ctx.save_for_backward(x2, scale, bias)
-        return (_ln_cuda if x2.is_cuda else _ln)(x2, scale, bias, eps)
-
-    @staticmethod
-    @trace.traced("kernel._LnFn.backward")
-    def backward(ctx, g):
-        eps = ctx.eps
-        return (None, *remat_grads(lambda *a: layer_norm_two_pass(*a, eps),
-                                   ctx.saved_tensors, ctx.needs_input_grad[1:], g))
+_LN = remat_op("_LnFn", _ln_cuda, _ln, layer_norm_two_pass, tensors=3)
 
 
 def layer_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
@@ -98,10 +82,7 @@ def layer_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
     bias [C] or both None.  CUDA tensors launch the kernel; CPU tensors take
     the plain version.  Differentiable in every tensor argument."""
     shape = x.shape
-    x2 = x.reshape(-1, shape[-1])
-    if _cache.needs_grad(x, scale, bias):
-        return _LnFn.apply(eps, x2, scale, bias).reshape(shape)
-    return (_ln_cuda if x.is_cuda else _ln)(x2, scale, bias, eps).reshape(shape)
+    return _LN(x.reshape(-1, shape[-1]), scale, bias, eps).reshape(shape)
 
 
 def layer_norm_plain(x, scale=None, bias=None, eps: float = 1e-5):
@@ -151,24 +132,7 @@ def _ln_mod_cuda(x3, scale, bias, mod_scale, mod_shift, eps):
     return out
 
 
-class _LnModFn(torch.autograd.Function):
-    """Forward: the kernel on CUDA tensors, the plain version on CPU tensors.
-    Backward: autograd through :func:`_ln_mod`."""
-
-    @staticmethod
-    @trace.traced("kernel._LnModFn.forward")
-    def forward(ctx, eps, x3, scale, bias, mod_scale, mod_shift):
-        ctx.eps = eps
-        ctx.save_for_backward(x3, scale, bias, mod_scale, mod_shift)
-        fn = _ln_mod_cuda if x3.is_cuda else _ln_mod
-        return fn(x3, scale, bias, mod_scale, mod_shift, eps)
-
-    @staticmethod
-    @trace.traced("kernel._LnModFn.backward")
-    def backward(ctx, g):
-        eps = ctx.eps
-        return (None, *remat_grads(lambda *a: _ln_mod(*a, eps), ctx.saved_tensors,
-                                   ctx.needs_input_grad[1:], g))
+_LN_MOD = remat_op("_LnModFn", _ln_mod_cuda, _ln_mod, tensors=5)
 
 
 def layer_norm_modulated(x: torch.Tensor, scale: Optional[torch.Tensor],
@@ -179,10 +143,7 @@ def layer_norm_modulated(x: torch.Tensor, scale: Optional[torch.Tensor],
     Differentiable in every tensor argument."""
     shape = x.shape
     x3 = x.reshape(shape[0], -1, shape[-1])
-    if _cache.needs_grad(x, scale, bias, mod_scale, mod_shift):
-        return _LnModFn.apply(eps, x3, scale, bias, mod_scale, mod_shift).reshape(shape)
-    fn = _ln_mod_cuda if x.is_cuda else _ln_mod
-    return fn(x3, scale, bias, mod_scale, mod_shift, eps).reshape(shape)
+    return _LN_MOD(x3, scale, bias, mod_scale, mod_shift, eps).reshape(shape)
 
 
 def layer_norm_modulated_plain(x, scale, bias, mod_scale, mod_shift, eps: float = 1e-5):

@@ -79,6 +79,58 @@ def pad_states(A, *cols):
     return (F.pad(A, (0, Np - N), value=-1.0), *(F.pad(c, (0, Np - N)) for c in cols))
 
 
+def _derive_weights(x_proj_weight, dt_projs_weight, dt_rank: int, d_state: int):
+    """Fold dt_projs into x_proj (ss2d_block.py:412-418,
+    scan_pallas.py:839-844): w_delta [K, D, D], w_b / w_c [K, D, N]."""
+    R, N = dt_rank, d_state
+    wx = x_proj_weight
+    w_delta = torch.einsum("krd,ker->kde", wx[:, :R, :], dt_projs_weight)
+    w_b = wx[:, R:R + N, :].transpose(1, 2)
+    w_c = wx[:, R + N:R + 2 * N, :].transpose(1, 2)
+    return w_delta, w_b, w_c
+
+
+def scan_weights(io, *weights, dt_rank: int = 0, d_state: int = 0, A=None, Dskip=None,
+                 delta_bias=None):
+    """The SS2D scan's weight operands, in the one format every scan kernel
+    reads; built here alone.
+
+    ``weights`` are the unfolded ``(x_proj_weight [4, R+2N, D],
+    dt_projs_weight [4, D, R])`` with ``dt_rank`` R and ``d_state`` N, the
+    folded ``(w_delta [4, D, D], w_b, w_c [4, D, N])``, or nothing.
+
+    - Without A: the folded weights at the io dtype (:func:`_derive_weights`
+      and the cast the JAX op makes before its custom_vjp), with their
+      autograd history.  From the unfolded weights, when autograd records
+      nothing on them, they are derived once per version of the two
+      (:func:`._cache.derived`).
+    - With A, Dskip and delta_bias: the kernels' operands ``(wproj, A,
+      Dskip, delta_bias)``.  wproj [4, D, D+2Np] is delta | B | C at the io
+      dtype, detached, with B and C padded to Np = :func:`kernel_states`
+      (N) states and A with them (:func:`pad_states`); it is derived once
+      per version of its sources, and formed on each call where the folded
+      weights carry autograd history.  A, Dskip and delta_bias come as
+      contiguous fp32 (:func:`._cache.f32`).  Without weights, wproj is
+      None and A keeps its N states (``scan_forward``, ``scan_backward``).
+    """
+    if A is None:
+        if len(weights) == 3:
+            return tuple(w.to(io) for w in weights)
+        make = lambda: tuple(w.to(io) for w in _derive_weights(*weights, dt_rank, d_state))
+        if _cache.needs_grad(*weights):
+            return make()
+        return _cache.derived(("scan_fold", io, dt_rank, d_state), weights, make)
+    if not weights:
+        return None, _cache.f32(A), _cache.f32(Dskip), _cache.f32(delta_bias)
+
+    def make():
+        w_delta, (Ap, w_b, w_c) = weights[0], pad_states(A, *weights[1:])
+        wproj = torch.cat([w_delta, w_b, w_c], dim=-1).detach().to(io).contiguous()
+        return wproj, _cache.f32(Ap), _cache.f32(Dskip), _cache.f32(delta_bias)
+
+    return _cache.derived(("scan_kernel", io), (*weights, A, Dskip, delta_bias), make)
+
+
 def scan_chunk(d_state: int) -> int:
     """Steps per chunk of ``scan_forward``/``scan_backward`` and of the
     ``h_bounds`` they share with ``scan_fused_forward``: chunk * N is held
@@ -180,8 +232,7 @@ def _scan_forward_cuda(u, delta, A, Bmat, Cmat, Dskip, delta_bias, chunk: int,
     N = A.shape[-1]
     io = u.dtype
     u, delta, Bmat, Cmat = (t.to(io).contiguous() for t in (u, delta, Bmat, Cmat))
-    f32 = lambda t: t.detach().float().contiguous()
-    A32, Ds32, bias32 = f32(A), f32(Dskip), f32(delta_bias)
+    _, A32, Ds32, bias32 = scan_weights(io, A=A, Dskip=Dskip, delta_bias=delta_bias)
     dev = u.device
     _build.expect(dev, delta=(delta, (Bsz, K, L, D)), Bmat=(Bmat, (Bsz, K, L, N)),
                   Cmat=(Cmat, (Bsz, K, L, N)), A=(A32, (K, D, N)), Dskip=(Ds32, (K, D)),
@@ -206,8 +257,8 @@ def _scan_backward_cuda(u, delta, A, Bmat, Cmat, Dskip, delta_bias, h_bounds, dy
     N = A.shape[-1]
     io = u.dtype
     u, delta, Bmat, Cmat, dy = (t.to(io).contiguous() for t in (u, delta, Bmat, Cmat, dy))
-    f32 = lambda t: t.detach().float().contiguous()
-    A32, Ds32, bias32, hb = f32(A), f32(Dskip), f32(delta_bias), f32(h_bounds)
+    _, A32, Ds32, bias32 = scan_weights(io, A=A, Dskip=Dskip, delta_bias=delta_bias)
+    hb = h_bounds.detach().float().contiguous()
     # gB/gC partials, one per channel tile: room for the smallest tile (32)
     G, NC, nb = Bsz * K, -(-L // chunk), -(-D // 32)
     dev = u.device
@@ -290,7 +341,7 @@ def _projected_scan_bwd(xs, w_delta, w_b, w_c, A, Dskip, delta_bias, h_bounds, g
     the io dtype, ``scan_backward``, then the chain through the products.
     Returns ``(gxs, gw_delta, gw_b, gw_c, gA, gDskip, gdelta_bias)``."""
     io = xs.dtype
-    wd, wb, wc = (w.to(io) for w in (w_delta, w_b, w_c))
+    wd, wb, wc = scan_weights(io, w_delta, w_b, w_c)
     delta, Bmat, Cmat = xs @ wd[None], xs @ wb[None], xs @ wc[None]
     if h_bounds is None:  # JAX computes y here and discards it
         _, h_bounds = scan_forward(xs, delta, A, Bmat, Cmat, Dskip, delta_bias,
@@ -351,26 +402,19 @@ def _fused_chunk(chunk: int, N: int) -> int:
     return chunk * max(1, _image_chunk(N) // chunk)
 
 
-def _fused_wproj(w_delta, w_b, w_c, io):
-    """The folded projection [4, D, D + 2Np] (delta | B | C) at the io dtype,
-    B and C padded to Np = :func:`kernel_states` (N) states."""
-    N = w_b.shape[-1]
-    pad = (0, kernel_states(N) - N)
-    return torch.cat([w_delta, F.pad(w_b, pad), F.pad(w_c, pad)], dim=-1).to(io).contiguous()
-
-
 @trace.traced("kernel.scan_fused_forward")
-def _scan_fused_launch(xs, wproj, A, Dskip, delta_bias, chunk: int, bounds: bool):
-    """The kernel on xs [B, 4, L, D] with the folded ``wproj`` of
-    :func:`_fused_wproj`: ``(y, h_bounds [B*4, NC, N, D] or None)``."""
+def _scan_fused_cuda(xs, w_delta, w_b, w_c, A, Dskip, delta_bias, chunk: int,
+                     bounds: bool = True):
+    """The kernel on xs [B, 4, L, D]: ``(y, h_bounds [B*4, NC, N, D] or
+    None)``."""
     Bsz, K, L, D = xs.shape
     N0 = A.shape[-1]
     if K != 4:
         raise ValueError(f"scan_fused_forward takes the 4 SS2D directions, got K = {K}")
     xs = xs.contiguous()
-    (A,) = pad_states(A)
-    N = A.shape[-1]
-    A32, Ds32, bias32 = _cache.f32(A), _cache.f32(Dskip), _cache.f32(delta_bias)
+    wproj, A32, Ds32, bias32 = scan_weights(xs.dtype, w_delta, w_b, w_c, A=A, Dskip=Dskip,
+                                            delta_bias=delta_bias)
+    N = A32.shape[-1]
     dev = xs.device
     _build.expect(dev, wproj=(wproj, (4, D, D + 2 * N)), A=(A32, (4, D, N)),
                   Dskip=(Ds32, (4, D)), delta_bias=(bias32, (4, D)))
@@ -388,14 +432,6 @@ def _scan_fused_launch(xs, wproj, A, Dskip, delta_bias, chunk: int, bounds: bool
             G, L, D, N, chunk, TC, _build.dtype_code(xs), _build.stream())
     _build.check(rc, "scan_fused_forward")
     return y, (hb if hb is None or N == N0 else hb[:, :, :N0])
-
-
-def _scan_fused_cuda(xs, w_delta, w_b, w_c, A, Dskip, delta_bias, chunk: int,
-                     bounds: bool = True):
-    io = xs.dtype
-    wproj = _cache.derived(("ssf_wproj", io), (w_delta, w_b, w_c),
-                           lambda: _fused_wproj(w_delta.detach(), w_b.detach(), w_c.detach(), io))
-    return _scan_fused_launch(xs, wproj, A, Dskip, delta_bias, chunk, bounds)
 
 
 def scan_fused_forward(xs, w_delta, w_b, w_c, A, Dskip, delta_bias,
@@ -431,17 +467,6 @@ class SelectiveScanFusedFn(torch.autograd.Function):
         return _projected_scan_bwd(*ctx.saved_tensors, g)
 
 
-def _derive_weights(x_proj_weight, dt_projs_weight, dt_rank: int, d_state: int):
-    """Fold dt_projs into x_proj (ss2d_block.py:412-418,
-    scan_pallas.py:839-844): w_delta [K, D, D], w_b / w_c [K, D, N]."""
-    R, N = dt_rank, d_state
-    wx = x_proj_weight
-    w_delta = torch.einsum("krd,ker->kde", wx[:, :R, :], dt_projs_weight)
-    w_b = wx[:, R:R + N, :].transpose(1, 2)
-    w_c = wx[:, R + N:R + 2 * N, :].transpose(1, 2)
-    return w_delta, w_b, w_c
-
-
 def selective_scan_fused(xs, x_proj_weight, dt_projs_weight, A, Dskip, delta_bias,
                          dt_rank: int, d_state: int):
     """``selective_scan_pallas_fused`` (scan_pallas.py:817-850): the SS2D
@@ -449,30 +474,20 @@ def selective_scan_fused(xs, x_proj_weight, dt_projs_weight, A, Dskip, delta_bia
     R+2N, D] and dt_projs_weight [4, D, R], with delta_softplus=True.  The
     dt low rank is folded into one [D, D] matrix and every weight cast to
     xs's dtype, as the JAX op does.  Returns y [B, 4, L, D] at xs's dtype;
-    differentiable in every tensor argument.  A call on CUDA tensors that
-    needs no gradient launches without the autograd Function, with the
-    folded projection derived once per version of the two weights, and
-    writes no h_bounds."""
-    if xs.is_cuda and not _cache.needs_grad(xs, x_proj_weight, dt_projs_weight, A, Dskip,
-                                            delta_bias):
-        io = xs.dtype
-        wproj = _cache.derived(
-            ("ssf_wproj_unfolded", io, dt_rank, d_state), (x_proj_weight, dt_projs_weight),
-            lambda: _fused_wproj(*_derive_weights(x_proj_weight.detach(),
-                                                  dt_projs_weight.detach(), dt_rank,
-                                                  d_state), io))
-        return _scan_fused_launch(xs, wproj, A, Dskip, delta_bias, scan_chunk(A.shape[-1]),
-                                  bounds=False)[0]
-    w = _derive_weights(x_proj_weight, dt_projs_weight, dt_rank, d_state)
-    return SelectiveScanFusedFn.apply(xs, *(t.to(xs.dtype) for t in w), A, Dskip, delta_bias)
+    differentiable in every tensor argument.  A call that needs no gradient
+    skips the autograd Function and writes no h_bounds, its weight operands
+    derived once per parameter version (:func:`scan_weights`)."""
+    w = scan_weights(xs.dtype, x_proj_weight, dt_projs_weight, dt_rank=dt_rank, d_state=d_state)
+    if _cache.needs_grad(xs, x_proj_weight, dt_projs_weight, A, Dskip, delta_bias):
+        return SelectiveScanFusedFn.apply(xs, *w, A, Dskip, delta_bias)
+    return scan_fused_forward(xs, *w, A, Dskip, delta_bias, bounds=False)[0]
 
 
 def selective_scan_fused_plain(xs, x_proj_weight, dt_projs_weight, A, Dskip, delta_bias,
                                dt_rank: int, d_state: int):
     """The plain version of :func:`selective_scan_fused` on any device."""
-    w = _derive_weights(x_proj_weight, dt_projs_weight, dt_rank, d_state)
-    return scan_fused_forward_plain(xs, *(t.to(xs.dtype) for t in w), A, Dskip, delta_bias,
-                                    scan_chunk(d_state))[0]
+    w = scan_weights(xs.dtype, x_proj_weight, dt_projs_weight, dt_rank=dt_rank, d_state=d_state)
+    return scan_fused_forward_plain(xs, *w, A, Dskip, delta_bias, scan_chunk(d_state))[0]
 
 
 # --- image-direct scan --------------------------------------------------------
@@ -548,11 +563,9 @@ def _scan_image_cuda(x, w_delta, w_b, w_c, A, Dskip, delta_bias):
         raise ValueError(f"scan_image_forward needs even H, W, got {H}x{W}")
     io = x.dtype
     x = x.contiguous()
-    A, w_b, w_c = pad_states(A, w_b, w_c)
-    N = A.shape[-1]
-    wproj = torch.cat([w_delta, w_b, w_c], dim=-1).to(io).contiguous()  # [4, D, D+2N]
-    f32 = lambda t: t.detach().float().contiguous()
-    A32, Ds32, bias32 = f32(A), f32(Dskip), f32(delta_bias)
+    wproj, A32, Ds32, bias32 = scan_weights(io, w_delta, w_b, w_c, A=A, Dskip=Dskip,
+                                            delta_bias=delta_bias)
+    N = A32.shape[-1]
     dev = x.device
     _build.expect(dev, wproj=(wproj, (4, D, D + 2 * N)), A=(A32, (4, D, N)),
                   Dskip=(Ds32, (4, D)), delta_bias=(bias32, (4, D)))
@@ -584,7 +597,7 @@ class ScanImageFn(torch.autograd.Function):
     """``_scan_image``'s custom_vjp, the differentiable SS2D core straight
     from the NHWC image: ``apply(x, w_delta, w_b, w_c, A, Dskip,
     delta_bias)`` with the folded projections at x's dtype (as
-    ``ss2d_block._derive_weights`` gives them) returns ys [B, 4, L, D] in
+    ``scan_weights`` gives them) returns ys [B, 4, L, D] in
     ``efficient_scan`` order (the JAX ``selective_scan_image`` returns the
     same four directions as row and column pairs).  Forward
     ``scan_image_forward``; backward as ``_scan_image_bwd``
@@ -615,5 +628,5 @@ __all__ = ["SelectiveScanFn", "SelectiveScanFusedFn", "ScanImageFn", "image_scan
            "kernel_states", "pad_states", "scan_backward", "scan_backward_plain",
            "scan_chunk", "scan_forward", "scan_forward_plain", "scan_fused_forward",
            "scan_fused_forward_plain",
-           "scan_image", "scan_image_forward", "scan_image_forward_plain", "selective_scan",
-           "selective_scan_fused", "selective_scan_fused_plain"]
+           "scan_image", "scan_image_forward", "scan_image_forward_plain", "scan_weights",
+           "selective_scan", "selective_scan_fused", "selective_scan_fused_plain"]

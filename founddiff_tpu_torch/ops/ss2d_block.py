@@ -33,13 +33,12 @@ import ctypes
 import torch
 
 from founddiff_tpu_torch.ops import _build, _cache
-from founddiff_tpu_torch.ops.remat import remat_grads
+from founddiff_tpu_torch.ops.remat import remat_op
 from founddiff_tpu_torch.ops.scan import (
     _GROUP,
     ScanImageFn,
-    _derive_weights,
     image_scan_vmem_ok,
-    pad_states,
+    scan_weights,
     selective_scan,
 )
 from founddiff_tpu_torch.ops.selective_scan import (
@@ -104,21 +103,17 @@ def _ss2d_tail_plain(z, xs, x_raw, w_delta, w_b, w_c, A, Dskip, delta_bias, ln_g
 
 
 def _kernel_weights(w_z, w_delta, w_b, w_c, A, Dskip, delta_bias, ln_g, ln_b, proj_w, io):
-    """The kernel's weight operands: W_z, the folded projections [4, D, D+2N]
-    and out_proj at the io dtype; A, Dskip, delta_bias and the LN affine as
-    contiguous fp32; the states padded (:func:`pad_states`)."""
-    f32 = lambda t: t.detach().float().contiguous()
+    """The kernel's weight operands: W_z and out_proj at the io dtype, the
+    scan's (:func:`~founddiff_tpu_torch.ops.scan.scan_weights`) and the LN
+    affine as contiguous fp32."""
     cast = lambda t: t.detach().to(io).contiguous()
-    A, w_b, w_c = pad_states(A, w_b, w_c)
-    return dict(wz=cast(w_z), wproj=cast(torch.cat([w_delta, w_b, w_c], dim=-1)),
-                pw=cast(proj_w), A=f32(A), Ds=f32(Dskip), bias=f32(delta_bias), g=f32(ln_g),
-                b=f32(ln_b))
+    wproj, A, Ds, bias = scan_weights(io, w_delta, w_b, w_c, A=A, Dskip=Dskip,
+                                      delta_bias=delta_bias)
+    return dict(wz=cast(w_z), wproj=wproj, pw=cast(proj_w), A=A, Ds=Ds, bias=bias,
+                g=_cache.f32(ln_g), b=_cache.f32(ln_b))
 
 
-_BLOCK_TAIL = [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 3
-# bf16 products on the tensor cores (False: on the CUDA cores of fd::gemm,
-# the earlier route, which the checks on the card hold the first against)
-TENSOR_CORES = True
+_BLOCK_TAIL = [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 2
 
 
 @trace.traced("kernel.ss2d_block_forward")
@@ -157,8 +152,8 @@ def _launch(x1, xs, x_raw, w, local, gate, eps, silu_input=False):
     rc = fn(*map(_build.ptr, (x1, xs, x_raw, w["wz"], w["wproj"], w["A"], w["Ds"], w["bias"],
                               w["g"], w["b"], loc32, w["pw"], gate32, out, proj_buf, chunk_sum,
                               chunk_state, ybuf, yacc, stats, og)),
-            B, H, W, C0, D, N, _CHUNK, eps, int(TENSOR_CORES), int(silu_input),
-            _build.dtype_code(xs), _build.stream())
+            B, H, W, C0, D, N, _CHUNK, eps, int(silu_input), _build.dtype_code(xs),
+            _build.stream())
     _build.check(rc, "ss2d_block_forward",
                  ("ss2d_block_forward.silu",) if silu_input else None)
     return out
@@ -166,8 +161,14 @@ def _launch(x1, xs, x_raw, w, local, gate, eps, silu_input=False):
 
 def _ss2d_block_cuda(x1, xs, x_raw, w_z, w_delta, w_b, w_c, A, Dskip, delta_bias,
                      ln_g, ln_b, local, proj_w, gate, eps, silu_input=False):
-    w = _kernel_weights(w_z, w_delta, w_b, w_c, A, Dskip, delta_bias, ln_g, ln_b, proj_w,
-                        xs.dtype)
+    """The kernel with its weight operands derived once per version of their
+    sources (formed on each call under a recorded call, whose folded weights
+    carry autograd history)."""
+    io = xs.dtype
+    w = _cache.derived(("ss2d_block", io),
+                       (w_delta, w_b, w_c, w_z, A, Dskip, delta_bias, ln_g, ln_b, proj_w),
+                       lambda: _kernel_weights(w_z, w_delta, w_b, w_c, A, Dskip, delta_bias,
+                                               ln_g, ln_b, proj_w, io))
     return _launch(x1, xs, x_raw, w, local, gate, eps, silu_input)
 
 
@@ -191,45 +192,14 @@ def ss2d_compose(x1, xs_conv, x_raw, w_z, w_delta, w_b, w_c, A, Dskip, delta_bia
         ys = ScanImageFn.apply(xs_conv, w_delta, w_b, w_c, A, Dskip, delta_bias)
     else:
         xs = efficient_scan(xs_conv, 2)  # [B, K, L, D]
-        dts, Bs, Cs = (xs @ w.to(io)[None] for w in (w_delta, w_b, w_c))
+        dts, Bs, Cs = (xs @ w[None] for w in scan_weights(io, w_delta, w_b, w_c))
         ys = selective_scan(xs, dts, A, Bs, Cs, Dskip, delta_bias).to(io)
     return _merge_ln_gate_xla(ys, x1 @ w_z.to(x1.dtype), ln_g, ln_b, local, H, W, eps,
                               gate_silu=True, proj_w=proj_w, gate=gate, rx=x_raw)
 
 
-class _SS2DBlockFn(torch.autograd.Function):
-    """Forward: the kernel on CUDA tensors, the plain version on CPU tensors.
-    Backward: autograd through :func:`ss2d_compose`."""
-
-    @staticmethod
-    @trace.traced("kernel._SS2DBlockFn.forward")
-    def forward(ctx, eps, silu_input, *args):
-        ctx.eps, ctx.silu_input = eps, silu_input
-        ctx.save_for_backward(*args)
-        fn = _ss2d_block_cuda if args[1].is_cuda else _ss2d_block_plain
-        return fn(*args, eps, silu_input)
-
-    @staticmethod
-    @trace.traced("kernel._SS2DBlockFn.backward")
-    def backward(ctx, g):
-        eps, silu_input = ctx.eps, ctx.silu_input
-        return (None, None, *remat_grads(lambda *a: ss2d_compose(*a, eps, silu_input),
-                                         ctx.saved_tensors, ctx.needs_input_grad[2:], g))
-
-
-def _split_weights(w_z, x_proj_weight, dt_projs_weight, dt_rank, d_state, io):
-    """W_z and the folded projections at the io dtype, as the JAX op casts
-    them before its custom_vjp."""
-    w_delta, w_b, w_c = _derive_weights(x_proj_weight, dt_projs_weight, dt_rank, d_state)
-    return w_z.to(io), w_delta.to(io), w_b.to(io), w_c.to(io)
-
-
-def _split_args(x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A, Dskip,
-                delta_bias, ln_g, ln_b, local, proj_w, gate, dt_rank, d_state):
-    """The kernel's operands: the folded projections, and the product weights
-    at the io dtype."""
-    w = _split_weights(w_z, x_proj_weight, dt_projs_weight, dt_rank, d_state, xs_conv.dtype)
-    return (x1, xs_conv, x_raw, *w, A, Dskip, delta_bias, ln_g, ln_b, local, proj_w, gate)
+_SS2D_BLOCK = remat_op("_SS2DBlockFn", _ss2d_block_cuda, _ss2d_block_plain, ss2d_compose,
+                       tensors=15)
 
 
 def ss2d_image_block(x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A,
@@ -247,20 +217,10 @@ def ss2d_image_block(x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A,
     gradient, the call skips autograd and the weight operands are derived
     once per parameter version (:func:`._cache.derived`).
     """
-    weights = (w_z, x_proj_weight, dt_projs_weight, A, Dskip, delta_bias, ln_g, ln_b, proj_w)
-    if _cache.needs_grad(x1, xs_conv, x_raw, local, gate, *weights):
-        return _SS2DBlockFn.apply(eps, silu_input, *_split_args(
-            x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A, Dskip, delta_bias,
-            ln_g, ln_b, local, proj_w, gate, dt_rank, d_state))
-    io = xs_conv.dtype
-    split = lambda: _split_weights(w_z, x_proj_weight, dt_projs_weight, dt_rank, d_state, io)
-    if xs_conv.is_cuda:
-        w = _cache.derived(("ss2d_block", io, dt_rank, d_state), weights, lambda: _kernel_weights(
-            *split(), A, Dskip, delta_bias, ln_g, ln_b, proj_w, io))
-        return _launch(x1, xs_conv, x_raw, w, local, gate, eps, silu_input)
-    wz, wd, wb, wc = _cache.derived(("ss2d_block plain", io, dt_rank, d_state), weights, split)
-    return _ss2d_block_plain(x1, xs_conv, x_raw, wz, wd, wb, wc, A, Dskip, delta_bias, ln_g,
-                             ln_b, local, proj_w, gate, eps, silu_input)
+    w_delta, w_b, w_c = scan_weights(xs_conv.dtype, x_proj_weight, dt_projs_weight,
+                                     dt_rank=dt_rank, d_state=d_state)
+    return _SS2D_BLOCK(x1, xs_conv, x_raw, w_z, w_delta, w_b, w_c, A, Dskip, delta_bias, ln_g,
+                       ln_b, local, proj_w, gate, eps, silu_input)
 
 
 def ss2d_image_block_plain(x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A,
@@ -269,6 +229,7 @@ def ss2d_image_block_plain(x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weig
                            silu_input: bool = False):
     """The plain version of :func:`ss2d_image_block` on any device: the test
     oracle the kernel is held against."""
-    return _ss2d_block_plain(*_split_args(
-        x1, xs_conv, x_raw, w_z, x_proj_weight, dt_projs_weight, A, Dskip, delta_bias,
-        ln_g, ln_b, local, proj_w, gate, dt_rank, d_state), eps, silu_input)
+    w_delta, w_b, w_c = scan_weights(xs_conv.dtype, x_proj_weight, dt_projs_weight,
+                                     dt_rank=dt_rank, d_state=d_state)
+    return _ss2d_block_plain(x1, xs_conv, x_raw, w_z, w_delta, w_b, w_c, A, Dskip, delta_bias,
+                             ln_g, ln_b, local, proj_w, gate, eps, silu_input)

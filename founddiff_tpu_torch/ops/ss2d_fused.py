@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from founddiff_tpu_torch.ops import _build, _cache
-from founddiff_tpu_torch.ops.remat import remat_grads
+from founddiff_tpu_torch.ops.remat import remat_op
 from founddiff_tpu_torch.ops.selective_scan import efficient_merge
 from founddiff_tpu_torch.utils import trace
 
@@ -128,40 +128,14 @@ def _epilogue_cuda(rows, cols, z, scale, bias, local, proj_w, gate, rx, H, W, ep
     return out
 
 
-class _EpilogueFn(torch.autograd.Function):
-    """Forward: the kernel on CUDA tensors, the plain version on CPU tensors.
-    Backward: autograd through :func:`_merge_ln_gate_xla` of the joint
-    sequences (``_mlgs_bwd`` stacks the split layout the same way)."""
-
-    @staticmethod
-    @trace.traced("kernel._EpilogueFn.forward")
-    def forward(ctx, meta, rows, cols, z, scale, bias, local, proj_w, gate, rx):
-        ctx.meta = meta
-        ctx.save_for_backward(rows, cols, z, scale, bias, local, proj_w, gate, rx)
-        if z.is_cuda:
-            return _epilogue_cuda(rows, cols, z, scale, bias, local, proj_w, gate, rx, *meta)
-        return _plain(rows, cols, z, scale, bias, local, proj_w, gate, rx, *meta)
-
-    @staticmethod
-    @trace.traced("kernel._EpilogueFn.backward")
-    def backward(ctx, g):
-        meta = ctx.meta
-        return (None, *remat_grads(lambda *a: _plain(*a, *meta), ctx.saved_tensors,
-                                   ctx.needs_input_grad[1:], g))
-
-
 def _plain(rows, cols, z, scale, bias, local, proj_w, gate, rx, H, W, eps, gate_silu):
     return _merge_ln_gate_xla(_joint(rows, cols), z, scale, bias, local, H, W, eps,
                               gate_silu=gate_silu, proj_w=proj_w, gate=gate, rx=rx)
 
 
-def _epilogue(meta, *args):
-    """:class:`_EpilogueFn` where the call needs a gradient; else the kernel
-    (CUDA tensors) or the plain version (CPU tensors) without the autograd
-    Function."""
-    if _cache.needs_grad(*args):
-        return _EpilogueFn.apply(meta, *args)
-    return (_epilogue_cuda if args[2].is_cuda else _plain)(*args, *meta)
+# backward: autograd through the joint sequences (``_mlgs_bwd`` stacks the
+# split layout the same way)
+_EPILOGUE = remat_op("_EpilogueFn", _epilogue_cuda, _plain, tensors=9)
 
 
 def _check_fold(proj_w, gate, residual_x):
@@ -183,8 +157,8 @@ def merge_ln_gate(ys, z, scale, bias, local: Optional[torch.Tensor] = None, *, H
     tensor argument; a call that needs no gradient launches without the
     autograd Function."""
     _check_fold(proj_w, gate, residual_x)
-    return _epilogue((H, W, eps, gate_silu), ys[:, 0::2], ys[:, 1::2], z, scale, bias, local,
-                     proj_w, gate, residual_x)
+    return _EPILOGUE(ys[:, 0::2], ys[:, 1::2], z, scale, bias, local, proj_w, gate, residual_x,
+                     H, W, eps, gate_silu)
 
 
 def merge_ln_gate_split(ys_rows, ys_cols, z, scale, bias, local: Optional[torch.Tensor] = None,
@@ -194,8 +168,8 @@ def merge_ln_gate_split(ys_rows, ys_cols, z, scale, bias, local: Optional[torch.
     L, C] and the column-major dirs (1, 3) as ``ys_cols`` [B, 2, L, C], the
     layout of ``selective_scan_image``."""
     _check_fold(proj_w, gate, residual_x)
-    return _epilogue((H, W, eps, gate_silu), ys_rows, ys_cols, z, scale, bias, local, proj_w,
-                     gate, residual_x)
+    return _EPILOGUE(ys_rows, ys_cols, z, scale, bias, local, proj_w, gate, residual_x, H, W,
+                     eps, gate_silu)
 
 
 def merge_ln_gate_plain(ys, z, scale, bias, local=None, *, H: int, W: int, eps: float = 1e-5,

@@ -32,21 +32,11 @@ import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from founddiff_tpu_torch.ops import attn_block as tattn
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 TEMPERATURE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 NAMES = ("x2", "qkv_w", "dw_w", "temperature", "proj_w")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """Small products in float64: with the test workers sharing the host's
-    cores, PyTorch's intra-op threads contend for them and the file takes
-    minutes, so it runs on one (as tests/test_torch_eval.py does)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def full_gram(x2, qkv_w, dw_w, temperature, proj_w, heads):

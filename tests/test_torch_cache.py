@@ -60,6 +60,22 @@ def test_derived_values_go_with_their_tensor():
     assert len(_cache._STORE) == n - 1
 
 
+def test_activation_sources_are_not_kept():
+    """A first source with autograd history (an operand formed under a
+    recorded call) is made anew at each call and leaves no entry; a leaf
+    parameter, or a view of one, is derived once."""
+    w = torch.nn.Parameter(torch.randn(4, 8, generator=_g(9)))
+    made = []
+    make = lambda: made.append(1) or len(made)
+    act = w * 2.0
+    gc.collect()
+    n = len(_cache._STORE)
+    assert [_cache.derived("t", (act,), make) for _ in range(2)] == [1, 2]
+    assert len(_cache._STORE) == n
+    assert [_cache.derived("t", (w.t(),), make) for _ in range(2)] == [3, 3]
+    assert len(_cache._STORE) == n + 1
+
+
 def _block_args(seed, B=2, H=6, W=8, C0=16, N=4):
     g = _g(seed)
     D, R = 2 * C0, 1

@@ -14,21 +14,11 @@ import torch
 
 from founddiff_tpu_torch import cli
 from test_data import _write_tree
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ["--debug", "--image_size", "16", "--dim", "8", "--dim_mults", "1,2",
          "--no_dose_encoder", "--device", "cpu", "--train_batch_size", "1"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """Hundreds of small ops: with the test workers sharing the host's
-    cores, PyTorch's intra-op threads contend for them and the file takes
-    minutes, so it runs on one (as tests/test_torch_train.py does)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

@@ -30,6 +30,7 @@ from founddiff_tpu_torch.utils.clip_build import build_clip_from_state_dict, inf
 from founddiff_tpu_torch.utils.convert import from_jax_params
 from founddiff_tpu_torch.utils.resize import resize
 from torch_parity import filled_params, jit_quick, np_, t_
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-3, 1e-4
 VOCAB, CTX = 533, 77  # the fixture vocabulary's size
@@ -44,14 +45,6 @@ FAMILIES = {
 # a resolution whose token count differs from the tower's: 3 x 3 + 1 against
 # 2 x 2 + 1 (RN), 5 x 5 + 1 against 4 x 4 + 1 (ViT)
 OTHER_RES = {"rn": 96, "vit": 80}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _positive_var(tree):

@@ -33,21 +33,14 @@ from founddiff_tpu.ops.losses import bmc_loss as j_bmc_loss
 from founddiff_tpu_torch.models.clip import CLIPIQA
 from founddiff_tpu_torch.tools import train_doseclip as tool
 from founddiff_tpu_torch.utils.convert import from_jax_params
-from torch_parity import _QUICK_COMPILE, MICRO_CLIP, calibrated_micro_clipiqa
+from torch_parity import MICRO_CLIP, _QUICK_COMPILE, calibrated_micro_clipiqa
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_data import _write_tree  # noqa: E402
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "bpe_tiny_vocab.txt.gz")
 LR, SIGMA, SIZE = 1e-3, 1.0, 32
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _views(rng, n):

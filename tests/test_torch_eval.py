@@ -45,23 +45,13 @@ from founddiff_tpu_torch.train.trainer import Trainer
 from founddiff_tpu_torch.utils.convert import from_jax_params
 from test_data import _write_tree
 from torch_parity import _QUICK_COMPILE as QUICK_COMPILE
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 from torch_parity import MICRO_CLIP, jit_quick, np_, perturb, t_
 
 RTOL, ATOL, IMG_ATOL = 1e-3, 1e-4, 2e-3
 DIM, MULTS, SIZE = 8, (1, 2), 16
 # _write_tree(n=4): ab and lung at stride 2 take 2 slices a dose, head 4
 EVAL_COUNTS = (("ab", 2), ("lung", 2), ("head", 4))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """Hundreds of small ops: with the test workers sharing the host's
-    cores, PyTorch's intra-op threads contend for them and the file takes
-    minutes, so it runs on one (as tests/test_torch_train.py does)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _close(a, b, rtol=RTOL, atol=ATOL):

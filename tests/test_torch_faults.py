@@ -47,6 +47,7 @@ from founddiff_tpu_torch.ops import ss2d_block as tblock
 from founddiff_tpu_torch.utils import trace
 from founddiff_tpu_torch.utils.convert import from_jax_params
 from torch_parity import MICRO_CLIP, jit_quick, load_port, np_, perturb, t_
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-3, 1e-4
 

@@ -15,19 +15,9 @@ from founddiff_tpu_torch.pipeline import make_hoisted_sampler as t_make_sampler
 from test_torch_eval import (IMG_ATOL, SIZE, _close, _compiled_once, _jax_diffusion,
                              _jax_model, _port)
 from torch_parity import jit_quick, t_
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 T = 10
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """Hundreds of small ops: with the test workers sharing the host's
-    cores, PyTorch's intra-op threads contend for them and the file takes
-    minutes, so it runs on one (as tests/test_torch_train.py does)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _scan_draws(rng, steps, shape):

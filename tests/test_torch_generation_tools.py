@@ -23,23 +23,15 @@ import sys
 import jax
 import numpy as np
 import pytest
-import torch
 
 from founddiff_tpu.data import generation as jgen
 from founddiff_tpu_torch.data import generation as tgen
 from founddiff_tpu_torch.models import clip as clip_mod
 from founddiff_tpu_torch.tools import analyze_results, fid_and_inception_score as fid_tool
 from torch_parity import MICRO_CLIP, calibrated_micro_clipiqa
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _pngs(folder, n, size, seed, mode="RGB"):

@@ -21,14 +21,7 @@ from founddiff_tpu_torch.models import LPIPS
 from founddiff_tpu_torch.utils import iqa
 from founddiff_tpu_torch.utils.convert import from_jax_params
 from torch_parity import filled_params, jit_quick, np_, t_
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_dist_to_mos():

@@ -16,19 +16,9 @@ from founddiff_tpu.utils import fid as jfid
 from founddiff_tpu_torch.ops import metrics as tm
 from founddiff_tpu_torch.utils import fid as tfid
 from torch_parity import MICRO_CLIP, jit_quick, load_port, np_, t_
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """Hundreds of small ops: with the test workers sharing the host's
-    cores, PyTorch's intra-op threads contend for them and the file takes
-    minutes, so it runs on one (as tests/test_torch_train.py does)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _pair(seed, shape):

@@ -18,6 +18,7 @@ from founddiff_tpu_torch.models import blocks as tblocks
 from founddiff_tpu_torch.models import ss2d as tss2d
 from founddiff_tpu_torch.utils.convert import from_jax_params
 from torch_parity import check_param_grads, jit_quick, load_port, np_, perturb, t_
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-3, 1e-4
 

@@ -21,6 +21,7 @@ from founddiff_tpu_torch.ops import selective_scan as tscan
 from founddiff_tpu_torch.ops import ss2d_block as tblock
 from founddiff_tpu_torch.utils import trace
 from torch_parity import np_, t_
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 # the ops package re-exports a function named selective_scan over the module
 jscan = importlib.import_module("founddiff_tpu.ops.selective_scan")

@@ -41,17 +41,10 @@ from founddiff_tpu_torch.models.unet import Unet
 from founddiff_tpu_torch.models.vanilla_unet import VanillaUnet
 from founddiff_tpu_torch.utils.convert import from_jax_params
 from torch_parity import filled_params, jit_quick, load_port, np_, perturb, t_
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-3, 1e-4
 SIZE = 16
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _close(got, want):

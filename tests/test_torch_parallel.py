@@ -51,6 +51,7 @@ from founddiff_tpu_torch.parallel import (
 )
 from founddiff_tpu_torch.pipeline import make_volume_denoiser
 from founddiff_tpu_torch.train.trainer import Trainer
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 DIM, MULTS, SIZE = 8, (1, 2), 16
 # the micro Dose-CLIP tower of tests/torch_parity.py (repeated here: that
@@ -60,14 +61,6 @@ MICRO_CLIP = (("vision_layers", (1, 1, 1, 1)), ("vision_width", 8), ("embed_dim"
               ("transformer_heads", 4), ("backbone_resolution", 64))
 JOB_SECONDS = 240  # the 2-rank job's limit; past it the ranks are killed
 VOLUME_Z = 3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _scan_args(seed, B=4, K=2, L=32, D=8, N=4):

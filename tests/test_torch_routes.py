@@ -40,19 +40,10 @@ from founddiff_tpu_torch.ops import groupnorm as tgn
 from founddiff_tpu_torch.utils.convert import from_jax_params
 from torch_parity import (MICRO_CLIP, jit_quick, load_port, micro_vanilla_params, np_, perturb,
                           t_)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-3, 1e-4
 DIM, MULTS, SIZE = 32, (1, 4), 16
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """Hundreds of small ops per UNet pass: one PyTorch thread, so that the
-    test workers do not contend for the host's cores."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _routes(monkeypatch, gn: bool, unified: bool):

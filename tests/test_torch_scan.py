@@ -26,6 +26,7 @@ from founddiff_tpu_torch.ops import ss2d_block as tss2d
 from founddiff_tpu_torch.ops.attn_block import attn_block as t_attn_block
 from founddiff_tpu_torch.ops.norm import layer_norm_modulated as t_ln_mod
 from torch_parity import jit_quick, np_, t_
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-3, 1e-4
 
@@ -113,7 +114,7 @@ def test_selective_scan_image_and_grads(B, H, W, D, N, R):
         return jnp.stack([rows[:, 0], cols[:, 0], rows[:, 1], cols[:, 1]], axis=1)
 
     def tfn(x, xw, dtw, A, Ds, bias):
-        return tscan.ScanImageFn.apply(x, *tss2d._derive_weights(xw, dtw, R, N), A, Ds, bias)
+        return tscan.ScanImageFn.apply(x, *tscan._derive_weights(xw, dtw, R, N), A, Ds, bias)
 
     y_j, g_j = _jax_value_and_grads(jfn, args)
     y_t, g_t = _torch_value_and_grads(tfn, args)

@@ -16,16 +16,7 @@ import torch
 
 from founddiff_tpu_torch.ops import scan as tscan
 from founddiff_tpu_torch.utils import trace
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The plain scans are many small ops: on the test workers' shared cores
-    PyTorch's intra-op threads contend, so this file runs on one."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _weights(D, N, dtype, gen):

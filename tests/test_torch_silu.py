@@ -30,17 +30,10 @@ from founddiff_tpu_torch.models import ss2d as tss2d
 from founddiff_tpu_torch.ops import ss2d_block as tblock
 from founddiff_tpu_torch.utils.convert import from_jax_params
 from torch_parity import check_param_grads, jit_quick, load_port, np_, perturb, t_
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-3, 1e-4
 C, N, TDIM = 32, 4, 64
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _close(got, want):

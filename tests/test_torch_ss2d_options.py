@@ -38,6 +38,7 @@ from founddiff_tpu.ops import ss2d_fused as jfused
 from founddiff_tpu_torch.models import ss2d as tss2d
 from founddiff_tpu_torch.utils.convert import from_jax_params
 from torch_parity import jit_quick, load_port, np_, perturb, t_
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-3, 1e-4
 C0, N = 16, 4
@@ -49,14 +50,6 @@ ROUTE_OPS = {"ss2d_image_block": "ss2d_image_block", "selective_scan_image": "sc
 JAX_MODULES = {"ss2d_image_block": jblock, "selective_scan_image": jsp,
                "selective_scan_pallas_fused": jsp, "merge_ln_gate": jfused,
                "merge_ln_gate_split": jfused}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _close(got, want):

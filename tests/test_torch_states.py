@@ -26,6 +26,7 @@ from founddiff_tpu.models.unet import Unet as JUnet
 from founddiff_tpu_torch.models.unet import UnetRes
 from founddiff_tpu_torch.ops import scan as tscan
 from torch_parity import jit_quick, load_port, np_, perturb, t_
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 IDENT = 1e-6
 

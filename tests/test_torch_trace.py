@@ -26,6 +26,7 @@ import torch
 from founddiff_tpu_torch.ops import _build
 from founddiff_tpu_torch.utils import trace
 from torch_parity import MICRO_CLIP
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_off_records_nothing():

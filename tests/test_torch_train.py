@@ -44,20 +44,10 @@ from founddiff_tpu_torch.train.state import clip_by_global_norm_, make_optimizer
 from founddiff_tpu_torch.train.trainer import Trainer
 from founddiff_tpu_torch.utils.convert import from_jax_params
 from torch_parity import MICRO_CLIP, jit_quick, np_, perturb, t_
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-3, 1e-4
 DIM, MULTS, SIZE = 32, (1, 4), 16
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The micro train steps are hundreds of small ops: with the test
-    workers sharing the host's cores, PyTorch's intra-op threads contend
-    for them and a 4 s test takes minutes, so this file runs on one."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _close(got, want, err_msg=""):

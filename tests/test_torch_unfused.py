@@ -39,6 +39,7 @@ from founddiff_tpu_torch.pipeline import make_hoisted_sampler as t_make_sampler
 from founddiff_tpu_torch.utils import trace
 from founddiff_tpu_torch.utils.convert import from_jax_params
 from torch_parity import MICRO_CLIP, jit_quick, np_, perturb, t_
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-3, 1e-4
 

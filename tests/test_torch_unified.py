@@ -30,6 +30,7 @@ from founddiff_tpu.ops.ss2d_block import _derive_weights as j_derive
 from founddiff_tpu_torch.ops import experimental_unified as tun
 from founddiff_tpu_torch.utils import trace
 from torch_parity import jit_quick, np_, t_
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 OP_TOL = 2e-5
 SHAPES = [(1, 16, 16, 32, 64, 4), (2, 16, 16, 64, 128, 4)]

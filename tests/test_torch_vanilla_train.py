@@ -35,19 +35,10 @@ from founddiff_tpu_torch.train.trainer import Trainer
 from founddiff_tpu_torch.utils.convert import from_jax_params
 from torch_parity import (LEVEL1_COMPILE, check_param_grads, jit_quick, micro_vanilla_params,
                           np_, t_)
+from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 DIM, MULTS, SIZE = 8, (1, 2), 64
 GRAD_SCALE = 2.0 ** 20
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One PyTorch thread, so that the test workers do not contend for the
-    host's cores."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

@@ -6,6 +6,7 @@ tests, which run without JAX, can use the others."""
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 from founddiff_tpu_torch.utils.convert import from_jax_params
@@ -20,6 +21,18 @@ MICRO_CLIP = (
     ("transformer_heads", 4),
     ("backbone_resolution", 64),
 )
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """A module that imports this runs on one PyTorch intra-op thread: its
+    tests are many small ops, and with the test workers sharing the host's
+    cores PyTorch's threads contend for them, so that a 4 s test takes
+    minutes."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 # XLA's CPU backend optimisations off: the micro models below compile about
